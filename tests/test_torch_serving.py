@@ -1,0 +1,115 @@
+"""The whole slice on the CPU: the port's served program
+``image_server(FusedInceptionV3(..., use_kernels=True))`` (uint8 ->
+preprocess -> fused tower -> softmax; the block kernels take their plain
+versions on CPU tensors) against the JAX package's ``FusedInceptionV3``
+with its Pallas blocks in interpret mode behind ``_checked``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tumblr_emotions_tpu.ops import serving as jserving
+from tumblr_emotions_tpu.ops.inference import FusedInceptionV3 as JaxFused
+from tumblr_emotions_torch import convert, get_preset
+from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
+from tumblr_emotions_torch.ops.inference import FusedInceptionV3
+from tumblr_emotions_torch.ops.serving import build_forward, image_server
+
+torch.set_num_threads(2)
+
+MODEL = dict(num_classes=15, depth_multiplier=0.25, create_aux_logits=True)
+IMAGE = 139
+# bf16 slice: both programs round to bf16 after every conv (~30 deep), in
+# other summation orders, and the port's cuDNN-side convs round the
+# accumulator before the bias; probabilities of a 15-way softmax then move
+# by well under 1e-2, pre-logit features by under 3% of their largest value.
+BF16_PROB_ATOL = 1e-2
+BF16_FEATURE_TOL = 0.03
+
+
+@pytest.fixture(scope="module")
+def setup():
+    port = InceptionV3(**MODEL, image_size=IMAGE, device="meta")
+    state = init_state(port, seed=7)
+    raw = np.random.RandomState(8).randint(0, 256, (4, 160, 200, 3), dtype=np.uint8)
+    return state, convert.to_variables(state), raw
+
+
+def _jax_served(variables, raw, dtype):
+    eng = JaxFused(variables, dtype=dtype, interpret=True)
+    probs, feature = jax.jit(lambda r: jserving._checked(*jserving._forward(
+        eng, r, False, dtype, image_size=IMAGE)))(jnp.asarray(raw))
+    return np.asarray(probs), np.asarray(feature, np.float32)
+
+
+def _port_served(state, raw, dtype, use_kernels=True):
+    eng = FusedInceptionV3(state, dtype=dtype, use_kernels=use_kernels, device="cpu")
+    server = image_server(eng, device="cpu", preprocess_dtype=dtype, image_size=IMAGE)
+    probs, feature = server(raw)
+    return probs.numpy(), feature.float().numpy()
+
+
+def test_slice_f32_matches_jax(setup):
+    state, variables, raw = setup
+    want_p, want_f = _jax_served(variables, raw, jnp.float32)
+    got_p, got_f = _port_served(state, raw, torch.float32)
+    assert got_p.shape == (4, 15) and got_f.shape == want_f.shape
+    np.testing.assert_allclose(got_p, want_p, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_f, want_f, atol=1e-4, rtol=1e-4)
+
+
+def test_slice_bf16_matches_jax(setup):
+    state, variables, raw = setup
+    want_p, want_f = _jax_served(variables, raw, jnp.bfloat16)
+    got_p, got_f = _port_served(state, raw, torch.bfloat16)
+    assert np.isfinite(got_p).all()
+    np.testing.assert_allclose(got_p.sum(-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(got_p, want_p, atol=BF16_PROB_ATOL, rtol=0)
+    assert np.abs(got_f - want_f).max() <= BF16_FEATURE_TOL * np.abs(want_f).max()
+    np.testing.assert_array_equal(got_p.argmax(-1), want_p.argmax(-1))
+
+
+def test_kernel_and_cudnn_blocks_agree_in_f32(setup):
+    """use_kernels=True (the block kernels' plain versions, pool-then-conv)
+    and use_kernels=False (packed 1x1s, conv-then-pool) compute one function."""
+    state, _, raw = setup
+    p1, f1 = _port_served(state, raw, torch.float32, use_kernels=True)
+    p2, f2 = _port_served(state, raw, torch.float32, use_kernels=False)
+    np.testing.assert_allclose(p1, p2, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(f1, f2, atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    c = get_preset("fused_inference")
+    return c.replace(image=c.image.replace(image_size=IMAGE, depth_multiplier=0.25))
+
+
+def test_build_forward_parity_and_bf16_engines(setup, cfg):
+    state, _, raw = setup
+    parity = build_forward(cfg, state, engine="parity", device="cpu")(raw)
+    folded_f32, _ = _port_served(state, raw, torch.float32, use_kernels=False)
+    # The slim tower and the BN-folded engine compute one function in f32.
+    np.testing.assert_allclose(parity.numpy(), folded_f32, atol=1e-5, rtol=0)
+    bf16 = build_forward(cfg, state, engine="bf16", device="cpu")(raw)
+    np.testing.assert_allclose(bf16.numpy(), parity.numpy(), atol=BF16_PROB_ATOL, rtol=0)
+
+
+def test_build_forward_rejects_what_is_not_ported(setup, cfg):
+    state, _, _ = setup
+    with pytest.raises(ValueError):
+        build_forward(cfg, state, engine="int8", device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_forward(cfg.replace(model="joint"), state, device="cpu")
+
+
+def test_server_rejects_non_uint8_batches(setup):
+    state, _, raw = setup
+    eng = FusedInceptionV3(state, dtype=torch.float32, device="cpu")
+    server = image_server(eng, device="cpu", image_size=IMAGE)
+    with pytest.raises(ValueError):
+        server(raw.astype(np.float32))
+    with pytest.raises(ValueError):
+        server(raw[0])

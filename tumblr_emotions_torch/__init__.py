@@ -1,0 +1,35 @@
+"""tumblr_emotions_torch: the PyTorch/CUDA port of tumblr_emotions_tpu for an
+NVIDIA H100 (Hopper, sm_90a).
+
+It imports torch and numpy only, never JAX or the JAX package, which stays
+the reference that the tests hold this package against.  Public layouts
+(NHWC activations) and names (slim scopes) are the JAX package's.  Entry
+points take ``device`` (default ``"cuda"``) and raise when no card is
+present.
+
+Layer map:
+  entry points -> ops.serving   (image_server, build_forward)
+  engines      -> ops.inference (FusedInceptionV3), models.inception_v3
+  kernels      -> ops.fused_inception + csrc/inception_blocks.cu
+  data         -> data.preprocessing (eval), convert (weights from JAX)
+"""
+
+__version__ = "0.1.0"
+
+from tumblr_emotions_torch.config import (  # noqa: F401
+    EMOTIONS,
+    NUM_CLASSES,
+    PRESETS,
+    Config,
+    DataConfig,
+    ImageConfig,
+    get_preset,
+)
+from tumblr_emotions_torch.models.inception_v3 import InceptionV3  # noqa: F401
+from tumblr_emotions_torch.ops.fused_inception import (  # noqa: F401
+    fold_batchnorm,
+    fused_inception_a,
+    fused_inception_b,
+)
+from tumblr_emotions_torch.ops.inference import FusedInceptionV3  # noqa: F401
+from tumblr_emotions_torch.ops.serving import build_forward, image_server  # noqa: F401

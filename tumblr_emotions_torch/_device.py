@@ -1,0 +1,53 @@
+"""Device selection for the port's entry points.
+
+Entry points default to ``"cuda"`` and raise when no card is present: a
+served program that silently drops to the CPU would report CPU numbers under
+a GPU's name.  Callers that want the CPU (the tests) ask for it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import subprocess
+
+import torch
+
+
+def card_line() -> str:
+    """The first card's name and power limit as nvidia-smi reports them
+    (``"NVIDIA H100 80GB HBM3, 700.00 W"``): a card set below its maximum
+    power runs slower, so every time measured on it carries this line."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True, text=True,
+                       timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run float32 convolutions and matmuls without TF32 on the card.
+
+    cuDNN convolutions default to TF32 (``torch.backends.cudnn.allow_tf32``
+    is True), which keeps about three decimal digits; the f32 reference path
+    runs at ``precision="highest"`` in the JAX package.
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32, matmul.allow_tf32 = False, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

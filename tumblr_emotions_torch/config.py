@@ -1,0 +1,91 @@
+"""Config dataclasses for the PyTorch port: the image model and its eval data.
+
+A copy of the parts of ``tumblr_emotions_tpu/config.py`` that the served
+image program needs (the port imports nothing of the JAX package).  The
+text, mesh and train configs come with the slices that use them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+# The 15 Tumblr emotion hashtag labels, in the reference's (alphabetical) order.
+EMOTIONS: Tuple[str, ...] = (
+    "amazed",
+    "angry",
+    "annoyed",
+    "ashamed",
+    "bored",
+    "calm",
+    "disgusted",
+    "excited",
+    "happy",
+    "love",
+    "optimistic",
+    "pensive",
+    "sad",
+    "scared",
+    "surprised",
+)
+NUM_CLASSES = len(EMOTIONS)
+
+
+class _Replaceable:
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ImageConfig(_Replaceable):
+    """Image branch: TF-Slim-semantics Inception-v3."""
+
+    image_size: int = 299
+    num_classes: int = NUM_CLASSES
+    depth_multiplier: float = 1.0
+    min_depth: int = 16
+    dropout_keep_prob: float = 0.8
+    create_aux_logits: bool = True
+    aux_loss_weight: float = 0.4
+    # slim inception_v3_arg_scope: BN scale=False, decay=0.9997, epsilon=0.001.
+    bn_epsilon: float = 0.001
+    bn_momentum: float = 0.9997
+    bn_scale: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig(_Replaceable):
+    data_dir: str = ""
+    split_name: str = "train"
+    records_pattern: str = ""
+    labels_file: str = ""
+    vocab_file: str = ""
+    embeddings_file: str = ""
+    shuffle_buffer: int = 4096
+    num_workers: int = 8
+    prefetch_batches: int = 2
+    decode_backend: str = "auto"
+    eval_central_crop: float = 0.875
+    resize_method: str = "tf1"    # "tf1" legacy bilinear (parity) | "half_pixel"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config(_Replaceable):
+    name: str = "default"
+    model: str = "joint"          # "text" | "image" | "joint"
+    image: ImageConfig = ImageConfig()
+    data: DataConfig = DataConfig()
+
+
+PRESETS = {
+    # Fused inference path: preprocess + forward of the image model, bf16.
+    "fused_inference": Config(name="fused_inference", model="image"),
+}
+
+
+def get_preset(name: str) -> Config:
+    try:
+        return PRESETS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown preset {name!r}; available: {sorted(PRESETS)}") from None
