@@ -7,7 +7,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device   -- needs torch.cuda.is_available(); prints the card's name and
                power limit (nvidia-smi).
-2. build    -- compiles csrc/inception_blocks.cu with nvcc (first use).
+2. build    -- compiles every csrc/*.cu with nvcc (first use, one nvcc per
+               source, in parallel); prints each kernel's ptxas report.
 3. kernels  -- each hand-written kernel against its plain PyTorch version on
                the card, in bf16, at the full-width shapes the served path
                gives it (B=64): conv_same_bias_relu at every conv of Mixed_5b
@@ -19,7 +20,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
                seeded full-width weights; launch counts, probabilities, and
                logits/top-1 against the f32 slim tower (TF32 off); img/s of
                the kernel engine and of the cuDNN engine (use_kernels=False).
-5. kernels  -- one JSON line listing every ported kernel.
+5. kernel_check conv_int8 -- the int8 engine's conv kernel against its
+               plain version (float64 conv, exact) on the card, bit for bit,
+               at one conv of each (kernel shape, stride, padding, epilogue
+               kinds) the served int8 path issues, with that conv's real
+               input (B=64, full width), and through valid_conv3x3_int8_shift
+               at Conv2d_2a and Conv2d_4a.
+6. kernel_check maxpool3x3s2_int8 -- the int8 max pool, exact, at K4a's own
+               shape and the four served shapes (two with the rescale).
+7. e2e_int8 -- the default served program build_forward(cfg, state,
+               engine="int8", front="s2d", calib_images=...) on the same 3
+               batches: launch counts (66 convs + 4 pools per forward), every
+               stage's int8 activations equal to the same engine's plain
+               path on the card (same scales), probabilities within
+               INT8_PROB_TOL of it; quantization_delta against the bf16
+               kernel engine; img/s of the int8, bf16 kernel and cuDNN
+               engines.
+8. kernels  -- one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -37,6 +54,7 @@ BATCH = 64
 N_BATCHES = 3
 SRC_HW = 347                  # decoded image size; the 0.875 crop is real
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
+H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak
 H100_F32_FLOPS = 67e12        # f32 outside the tensor cores
 H100_BYTES_S = 3.35e12        # HBM3
 
@@ -54,6 +72,12 @@ LOGIT_TOL = 0.05
 # logit tolerance (images with a smaller margin may legitimately flip), and
 # on at least this share of all images:
 TOP1_MIN_SHARE = 0.95
+
+# The int8 kernel and the plain engine run the same integer and rounded
+# float arithmetic, so the served probabilities agree up to the heads'
+# summation order, which is shared too:
+INT8_PROB_TOL = 1e-6
+STAGES = ("stem", "Mixed_5d", "Mixed_6a", "Mixed_6e", "Mixed_7a")
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 
@@ -110,12 +134,249 @@ def compare(name: str, got, want, tol: float) -> float:
 
 def check_launches(launches) -> None:
     """Per served batch: 3 Inception-A and 4 Inception-B blocks, whose
-    7 and 10 convs and one pool each go through the kernels."""
+    7 and 10 convs and one pool each go through the kernels; the int8
+    kernels are not on this path."""
     want = {"fused_inception_a": 3 * N_BATCHES, "fused_inception_b": 4 * N_BATCHES,
             "conv_same_bias_relu": (3 * 7 + 4 * 10) * N_BATCHES,
-            "avg_pool3_same": 7 * N_BATCHES}
+            "avg_pool3_same": 7 * N_BATCHES, "conv_int8": 0, "maxpool3x3s2_int8": 0}
     if launches != want:
         fail(f"launch counts {launches} != {want}")
+
+
+def conv_bound(x, w, outs) -> dict:
+    """Least time of one int8 conv: ops at the int8 tensor-core peak, bytes
+    of the input, the weights, the outputs and the per-channel constants."""
+    B, H, W, cin = x.shape
+    cout, kh, kw, _ = w.shape
+    _, ho, wo, _ = outs[0].shape
+    m = B * ho * wo
+    nbytes = B * H * W * cin + w.numel() + sum(o.numel() * o.element_size() for o in outs)
+    return bound(2.0 * m * cout * kh * kw * cin, nbytes + 16.0 * cout, peak=H100_INT8_OPS)
+
+
+def record_calls(obj, name: str, log: list, label):
+    """Wrap ``obj.name`` so each call appends (label(), args, kwargs) to
+    ``log``; returns a function that restores it."""
+    orig = getattr(obj, name)
+
+    def wrapped(*a, **k):
+        log.append((label(), a, k))
+        return orig(*a, **k)
+
+    setattr(obj, name, wrapped)
+    return lambda: setattr(obj, name, orig)
+
+
+def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
+    """Phases 5-7: the int8 kernels at the served shapes, then the served
+    int8 program.  Returns ({kernel: [per-shape rows]}, launches)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import (
+        preprocess_for_eval, preprocess_for_eval_s2d)
+    from tumblr_emotions_torch.models.layers import to_nchw
+    from tumblr_emotions_torch.ops import int8_conv as ic
+    from tumblr_emotions_torch.ops import int8_pool as ip
+    from tumblr_emotions_torch.ops import quant
+    from tumblr_emotions_torch.ops.serving import build_forward
+
+    cfg = get_preset("fused_inference")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DEPTH))
+    calib = preprocess_for_eval(batches[0])
+    runner = build_forward(cfg, state, engine="int8", front="s2d", calib_images=calib,
+                           device=dev)
+    eng = runner.engine
+    rows = {"conv_int8": [], "maxpool3x3s2_int8": []}
+
+    def record(kernel, **r):
+        rows[kernel].append(r)
+        emit({"phase": "kernel_check", "kernel": kernel, **r})
+
+    # One forward with every conv and pool call recorded, with its input.
+    ops = eng.int8_ops()
+    scope = ["input"]
+
+    def label():
+        return scope[0]
+
+    for meth in ("conv", "conv_s2d", "packed"):
+        orig = getattr(ops, meth)
+
+        def tagged(t, scopes, *a, _orig=orig, **k):
+            scope[0] = scopes if isinstance(scopes, str) else "+".join(scopes)
+            return _orig(t, scopes, *a, **k)
+
+        setattr(ops, meth, tagged)
+    convs, pools = [], []
+    undo = [record_calls(ops, "_conv", convs, label),
+            record_calls(ops, "_pool", pools, label)]
+    x0 = preprocess_for_eval_s2d(batches[0])
+    eng(x0)
+    torch.cuda.synchronize()
+    for u in undo:
+        u()
+    for meth in ("conv", "conv_s2d", "packed"):
+        delattr(ops, meth)
+
+    # ---- 5. conv_int8: one conv of each distinct form, and K1's own entry ----
+    def check_conv(label_, x, w, epi, strides, pad, fn=None, plain=None):
+        fn = fn or (lambda: ic.conv_int8(x, w, epi, strides, pad))
+        plain = plain or (lambda: ic.conv_int8_plain(x, w, epi, strides, pad))
+        got, want = fn(), plain()
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        torch.cuda.synchronize()
+        err = 0.0
+        for g, wt in zip(got, want):
+            if g.dtype != wt.dtype or g.shape != wt.shape:
+                fail(f"conv_int8 {label_}: {g.dtype} {tuple(g.shape)} != {wt.dtype} {tuple(wt.shape)}")
+            d = (g.float() - wt.float()).abs()
+            if g.dtype == torch.bfloat16:    # one bf16 ulp at most
+                if (d > wt.float().abs() * 2.0 ** -8).any():
+                    fail(f"conv_int8 {label_}: dequant output beyond one bf16 ulp")
+            elif d.max().item() != 0:
+                fail(f"conv_int8 {label_}: max|kernel - plain| {d.max().item()} != 0")
+            err = max(err, d.max().item())
+        B, H, W_, cin = x.shape
+        cout, kh, kw, _ = w.shape
+        lib, lib_note, bf16_ms = None, None, None
+        if (kh, kw) == (1, 1) and tuple(strides) == (1, 1):
+            a2 = x.reshape(-1, cin) if x.is_contiguous() else x.contiguous().reshape(-1, cin)
+            b2 = w.reshape(cout, cin).t()
+            try:
+                lib = cuda_ms(lambda: torch._int_mm(a2, b2))
+                lib_note = "torch._int_mm of the same [M,Cin]x[Cin,Cout] product (no epilogue)"
+            except RuntimeError as e:
+                lib_note = f"torch._int_mm refused: {str(e)[:120]}"
+        xb = to_nchw(x).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=tuple(strides), padding=tuple(pad)))
+        record("conv_int8", shape=f"{label_} [{B},{H},{W_},{cin}]->{cout} k{(kh, kw)} "
+               f"s{tuple(strides)} p{tuple(pad)} {'/'.join(epi.kinds)}",
+               max_abs_err=err, tol=0, ms=cuda_ms(fn), plain_ms=cuda_ms(plain, iters=5, warmup=1),
+               library_ms=lib, library_note=lib_note, bf16_conv2d_ms=bf16_ms,
+               bf16_conv2d_note="bf16 F.conv2d of the same shape: not the same function",
+               **conv_bound(x, w, got))
+
+    seen = set()
+    for lab, a, k in convs:
+        x, w, epi, strides, pad = a[:5]
+        key = (tuple(w.shape[1:3]), tuple(strides), tuple(pad), epi.kinds)
+        if key in seen:
+            continue
+        seen.add(key)
+        check_conv(lab, x, w, epi, strides, pad)
+    rng = np.random.RandomState(SEED)
+    for lab, a, k in convs:
+        if lab not in ("Conv2d_2a_3x3", "Conv2d_4a_3x3"):
+            continue
+        x, w, epi = a[:3]
+        if epi.kinds == ("shift",):
+            b_i, k_i = epi.bias_i.cpu().numpy(), epi.shift.cpu().numpy()
+        else:    # the site fell back to f32: K1's shift epilogue on made-up constants
+            b_i = rng.randint(0, 5000, w.shape[0]).astype(np.int32)
+            k_i = rng.randint(6, 12, w.shape[0]).astype(np.int32)
+        w_hwio = w.permute(1, 2, 3, 0).contiguous()
+        epi_s = ic.Epilogue.build([("shift", w.shape[0], b_i, k_i)], dev)
+        check_conv(f"valid_conv3x3_int8_shift {lab}", x, w, epi_s, (1, 1), (0, 0),
+                   fn=lambda x=x, w_hwio=w_hwio, b_i=b_i, k_i=k_i:
+                   ic.valid_conv3x3_int8_shift(x, w_hwio, b_i, k_i),
+                   plain=lambda x=x, w=w, epi_s=epi_s: ic.conv_int8_plain(x, w, epi_s))
+
+    # ---- 6. maxpool3x3s2_int8: K4a's own shape and the served shapes ----
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    k4a = torch.randint(-128, 128, (BATCH, 147, 147, 32), generator=g, device=dev,
+                        dtype=torch.int8)
+    served = ("MaxPool_3a_3x3", "MaxPool_5a_3x3", "Mixed_6a/Branch_2", "Mixed_7a/Branch_2")
+    for lab, x, r in [("K4a MaxPool_3a shape (random)", k4a, None)] + [
+            (name, a[0], a[1]) for name, (_, a, _) in zip(served, pools)]:
+        got, want = ip.maxpool3x3s2_int8(x, r), ip.maxpool3x3s2_int8_plain(x, r)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if err != 0:
+            fail(f"maxpool3x3s2_int8 {lab}: max|kernel - plain| {err} != 0")
+        try:
+            lib = cuda_ms(lambda: F.max_pool2d(to_nchw(x), 3, 2))
+            lib_note = "F.max_pool2d on int8"
+        except RuntimeError as e:
+            lib, lib_note = None, f"F.max_pool2d refuses int8 on the card: {str(e)[:120]}"
+        record("maxpool3x3s2_int8", shape=f"{lab} {list(x.shape)} rescale={r}",
+               max_abs_err=err, tol=0, ms=cuda_ms(lambda: ip.maxpool3x3s2_int8(x, r)),
+               plain_ms=cuda_ms(lambda: ip.maxpool3x3s2_int8_plain(x, r), iters=5, warmup=1),
+               library_ms=lib, library_note=lib_note,
+               **bound(8.0 * got.numel(), x.numel() + got.numel(), peak=H100_F32_FLOPS))
+    del convs, pools
+
+    # ---- 7. e2e_int8: the default served program ----
+    for batch in batches:                      # warm-up: per-site constants, allocator
+        runner(batch)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    probs = [runner(raw) for raw in batches]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    want = {"conv_int8": 66 * N_BATCHES, "maxpool3x3s2_int8": 4 * N_BATCHES}
+    if {k: launches[k] for k in want} != want or any(
+            v for k, v in launches.items() if k not in want):
+        fail(f"int8 launch counts {launches}, expected {want} and no others")
+    for p in probs:
+        if p.shape != (BATCH, 15) or not torch.isfinite(p).all():
+            fail(f"int8 probabilities: shape {tuple(p.shape)} or non-finite")
+        if (p.sum(-1) - 1).abs().max().item() > 1e-3:
+            fail("int8 probability rows do not sum to 1")
+
+    plain = quant.QuantizedInceptionV3(state, calib, stem_s2d="pre", use_kernels=False,
+                                       device=dev)
+    plain.scales = eng.scales
+    stage_diff = {}
+    with torch.inference_mode():
+        for stop in STAGES:
+            got = quant._tower(eng.int8_ops(), x0, stop_at=stop)
+            ref = quant._tower(plain.int8_ops(), x0, stop_at=stop)
+            if got[1] != ref[1]:
+                fail(f"e2e_int8 {stop}: scale {got[1]} != {ref[1]}")
+            stage_diff[stop] = int((got[0] != ref[0]).sum().item())
+    if any(stage_diff.values()):
+        fail(f"e2e_int8: int8 activations differ from the plain engine: {stage_diff}")
+    pdiff = 0.0
+    for raw, p in zip(batches, probs):
+        ref_p, _ = plain(preprocess_for_eval_s2d(raw))
+        pdiff = max(pdiff, (p - torch.softmax(ref_p, -1)).abs().max().item())
+    if pdiff > INT8_PROB_TOL:
+        fail(f"e2e_int8: probabilities {pdiff} from the plain engine > {INT8_PROB_TOL}")
+    delta = quant.quantization_delta(state, preprocess_for_eval(batches[1]),
+                                     calibration_images=calib, device=dev,
+                                     stem_s2d="pre")
+    kinds = list(eng.last_epilogue_kinds.values())
+    emit({"phase": "e2e_int8", "batch": BATCH, "batches": N_BATCHES, "src_hw": SRC_HW,
+          "launches": launches, "stage_int8_mismatches_vs_plain": stage_diff,
+          "prob_max_abs_diff_vs_plain": pdiff, "prob_tol": INT8_PROB_TOL,
+          "epilogue_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
+          "quantization_delta_vs_bf16_kernels": delta,
+          "img_s_int8": img_s(eng), "img_s_bf16_kernels": img_s(eng_k),
+          "img_s_cudnn": img_s(eng_c), "card": smi})
+    return rows, launches
+
+
+def _wrappers():
+    from tumblr_emotions_torch.ops import fused_inception as fi
+    from tumblr_emotions_torch.ops import int8_conv as ic
+    from tumblr_emotions_torch.ops import int8_pool as ip
+
+    return (fi.fused_inception_a, fi.fused_inception_b, fi.conv_same_bias_relu,
+            fi.avg_pool3_same, ic.conv_int8, ip.maxpool3x3s2_int8)
+
+
+def reset_all_launches() -> None:
+    for fn in _wrappers():
+        fn.launches = 0
+
+
+def all_launches() -> dict:
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def main() -> int:
@@ -131,7 +392,7 @@ def main() -> int:
     from tumblr_emotions_torch._device import card_line, resolve_device
     from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
     from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
-    from tumblr_emotions_torch.models.layers import to_nchw, to_nhwc
+    from tumblr_emotions_torch.models.layers import to_nchw
     from tumblr_emotions_torch.ops import _build
     from tumblr_emotions_torch.ops import fused_inception as fi
     from tumblr_emotions_torch.ops.inference import FusedInceptionV3
@@ -149,13 +410,16 @@ def main() -> int:
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
-    log = lib_path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+    libs = _build.build()
+    for name in libs:
+        _build.library(name)
+    ptxas = {}
+    for name, lib_path in libs.items():
+        log = lib_path.with_suffix(".log")
+        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
+                       if "registers" in ln or "spill" in ln] if log.exists() else []
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": lib_path.name, "ptxas": ptxas})
+          "libraries": [p.name for p in libs.values()], "ptxas": ptxas})
 
     # ---- seeded full-width weights (depth 1.0, 15 classes, aux head) ----
     model = InceptionV3(num_classes=15, depth_multiplier=DEPTH,
@@ -273,12 +537,10 @@ def main() -> int:
 
     batches = [make_batch() for _ in range(N_BATCHES)]
     server = image_server(eng_k, device=dev)
-    fi.reset_launches()
+    reset_all_launches()
     outs = [server(raw) for raw in batches]
     torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in
-                (fi.fused_inception_a, fi.fused_inception_b, fi.conv_same_bias_relu,
-                 fi.avg_pool3_same)}
+    launches = all_launches()
     check_launches(launches)
     n_feat = eng_k.logits_w[0].shape[0]
     for probs, feature in outs:
@@ -331,23 +593,41 @@ def main() -> int:
           "img_s_kernels": img_s(eng_k), "img_s_cudnn": img_s(eng_c),
           "card": smi})
 
-    # ---- 5. the kernels line ----
+    # ---- 5-7. the int8 served program and its kernels ----
+    int8_rows, int8_launches = int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c)
+    rows.update(int8_rows)
+
+    # ---- 8. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
-    replaces = {"fused_inception_a": f"{REPLACES}:230", "fused_inception_b": f"{REPLACES}:283",
-                "conv_same_bias_relu": f"{REPLACES}:127", "avg_pool3_same": f"{REPLACES}:147"}
+    info = {  # name -> (source, replaces, launches in its path's run)
+        "fused_inception_a": (src, f"{REPLACES}:230", launches),
+        "fused_inception_b": (src, f"{REPLACES}:283", launches),
+        "conv_same_bias_relu": (src, f"{REPLACES}:127", launches),
+        "avg_pool3_same": (src, f"{REPLACES}:147", launches),
+        "conv_int8": ("tumblr_emotions_torch/csrc/int8_conv.cu",
+                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", int8_launches),
+        "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
+                              "experiments/pallas_pool.py:53", int8_launches),
+    }
     kernels = []
-    for name in ("fused_inception_a", "fused_inception_b", "conv_same_bias_relu",
-                 "avg_pool3_same"):
+    for name, (source, replaces, counts) in info.items():
         rs = rows[name]
         t_ops, t_bytes = sum(r["ops_ms"] for r in rs), sum(r["bytes_ms"] for r in rs)
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces[name],
-            "launches": launches[name],
+        libs = [r["library_ms"] for r in rs]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": sum(r["library_ms"] for r in rs)})
+            # Sums over the shapes timed; null where no PyTorch call computes
+            # the same function at every shape (int8 conv with its epilogue).
+            "library_ms": sum(libs) if all(v is not None for v in libs) else None,
+            "shapes": len(rs)}
+        if name == "maxpool3x3s2_int8":
+            entry["also_replaces"] = "experiments/pallas_pool.py:88"
+        kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,11 +4,14 @@ CUDA kernels have no CPU mode, so these tests skip without an NVIDIA card.
 On one:  python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import numpy as np
 import pytest
 import torch
 
 from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
 from tumblr_emotions_torch.ops import fused_inception as fi
+from tumblr_emotions_torch.ops import int8_conv as ic
+from tumblr_emotions_torch.ops import int8_pool as ip
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +104,168 @@ def test_block_kernels_match_plain(dev, taps, scope):
     else:
         got, want = fi.fused_inception_b(x, taps, scope), fi.fused_inception_b_plain(x, taps, scope)
     _close(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The int8 engine's kernels: conv_int8 (K1, widened) and the int8 max pool
+# (K4a/K4b).  Both must equal their plain versions bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _i8(dev, shape, lo, hi, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int8)
+
+
+def _segment(kind, n, rng):
+    if kind == "shift":
+        return (kind, n, rng.randint(-3000, 6000, n), rng.randint(4, 13, n))
+    if kind in ("f32", "dequant"):
+        return (kind, n, rng.uniform(1e-4, 2e-2, n), rng.uniform(-4, 4, n))
+    return (kind, n, None, None)
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype == torch.bfloat16:     # one bf16 ulp at most
+        g, w = got.float(), want.float()
+        assert ((g - w).abs() <= w.abs() * 2.0 ** -8).all()
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kernel,strides,padding,cin,cout,hw", [
+    ((1, 1), (1, 1), "SAME", 64, 48, 35),
+    ((3, 3), (1, 1), "SAME", 32, 64, 37),
+    ((3, 3), (1, 1), "VALID", 80, 192, 25),
+    ((5, 5), (1, 1), "SAME", 48, 64, 35),
+    ((1, 3), (1, 1), "SAME", 384, 384, 8),
+    ((3, 1), (1, 1), "SAME", 448, 384, 8),
+    ((1, 7), (1, 1), "SAME", 128, 128, 17),
+    ((7, 1), (1, 1), "SAME", 160, 192, 17),
+    ((3, 3), (2, 2), "VALID", 288, 384, 35),
+    ((2, 2), (1, 1), "VALID", 12, 32, 150),     # the space-to-depth stem
+    ((3, 3), (2, 2), "VALID", 3, 32, 299),      # the stem on the float front
+    ((3, 3), (1, 1), "SAME", 40, 20, 19),       # Cin % 16 != 0, Cout % 8 != 0
+])
+def test_conv_int8_matches_plain(dev, kernel, strides, padding, cin, cout, hw):
+    rng = np.random.RandomState(cin + cout)
+    x = _i8(dev, (2, hw, hw, cin), 0, 40, seed=1)
+    w = _i8(dev, (cout, *kernel, cin), -60, 61, seed=2)
+    epi = ic.Epilogue.build([_segment("shift", cout, rng)], dev)
+    pad = ic.conv_padding(kernel, strides, padding)
+    before = ic.conv_int8.launches
+    (got,) = ic.conv_int8(x, w, epi, strides, pad)
+    (want,) = ic.conv_int8_plain(x, w, epi, strides, pad)
+    _same(got, want)
+    assert ic.conv_int8.launches == before + 1
+
+
+@pytest.mark.parametrize("kind", ["shift", "f32", "dequant", "pre"])
+def test_conv_int8_epilogue_kinds(dev, kind):
+    rng = np.random.RandomState(3)
+    x = _i8(dev, (2, 17, 17, 96), -20, 60, seed=3)
+    w = _i8(dev, (72, 3, 3, 96), -127, 128, seed=4)
+    epi = ic.Epilogue.build([_segment(kind, 72, rng)], dev)
+    (got,) = ic.conv_int8(x, w, epi, (1, 1), (1, 1))
+    (want,) = ic.conv_int8_plain(x, w, epi, (1, 1), (1, 1))
+    _same(got, want)
+
+
+def test_conv_int8_packed_segments_into_slices(dev):
+    """A packed 1x1 with four kinds; segment 0 writes into a channel slice
+    of a larger buffer and reads a channel slice of its input."""
+    rng = np.random.RandomState(5)
+    big = _i8(dev, (2, 35, 35, 16 + 288 + 16), 0, 50, seed=5)
+    x = big[..., 16:16 + 288]
+    widths = [64, 48, 64, 32]
+    w = _i8(dev, (sum(widths), 1, 1, 288), -80, 81, seed=6)
+    epi = ic.Epilogue.build([_segment(k, n, rng) for k, n in
+                             zip(("shift", "f32", "dequant", "pre"), widths)], dev)
+    buf = torch.zeros(2, 35, 35, 256, dtype=torch.int8, device=dev)
+    outs = ic.conv_int8(x, w, epi, outs=[buf[..., 32:96], None, None, None])
+    want = ic.conv_int8_plain(x, w, epi)
+    for g, wt in zip(outs, want):
+        _same(g, wt)
+    assert buf[..., :32].abs().max().item() == 0 and buf[..., 96:].abs().max().item() == 0
+
+
+def test_valid_conv3x3_int8_shift_matches_plain(dev):
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randint(-127, 128, (2, 19, 17, 16)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (3, 3, 16, 32)).astype(np.int8))
+    b = rng.randint(0, 5000, 32).astype(np.int32)
+    k = rng.randint(6, 12, 32).astype(np.int32)
+    got = ic.valid_conv3x3_int8_shift(x.to(dev), w, b, k)
+    want = ic.valid_conv3x3_int8_shift(x, w, b, k)      # CPU: the plain version
+    assert torch.equal(got.cpu(), want)
+
+
+def test_conv_int8_rejects_what_it_does_not_take(dev):
+    rng = np.random.RandomState(1)
+    x = _i8(dev, (1, 9, 9, 32), 0, 10)
+    w = _i8(dev, (40, 1, 1, 32), -5, 5)
+    with pytest.raises(ValueError):     # five segments
+        ic.conv_int8(x, w, ic.Epilogue.build([_segment("shift", 8, rng)] * 5, dev))
+    epi = ic.Epilogue.build([_segment("shift", 40, rng)], dev)
+    with pytest.raises(ValueError):     # float input
+        ic.conv_int8(x.float(), w, epi)
+    with pytest.raises(ValueError):     # output of the wrong dtype
+        ic.conv_int8(x, w, epi, outs=[torch.empty(1, 9, 9, 40, device=dev)])
+    with pytest.raises(ValueError):     # non-contiguous weights
+        ic.conv_int8(x, w.permute(3, 1, 2, 0).contiguous().permute(3, 1, 2, 0), epi)
+
+
+@pytest.mark.parametrize("shape,rescale", [
+    ((2, 147, 147, 32), None), ((2, 147, 147, 64), None), ((2, 35, 35, 288), 0.7731),
+    ((2, 17, 17, 768), 1.37), ((2, 15, 13, 20), 0.9)])
+def test_maxpool_int8_matches_plain(dev, shape, rescale):
+    x = _i8(dev, shape, -128, 128, seed=7)
+    before = ip.maxpool3x3s2_int8.launches
+    _same(ip.maxpool3x3s2_int8(x, rescale), ip.maxpool3x3s2_int8_plain(x, rescale))
+    assert ip.maxpool3x3s2_int8.launches == before + 1
+
+
+def test_maxpool_int8_writes_a_channel_slice(dev):
+    x = _i8(dev, (2, 35, 35, 288), 0, 128, seed=8)
+    buf = torch.zeros(2, 17, 17, 32 + 288, dtype=torch.int8, device=dev)
+    ip.maxpool3x3s2_int8(x, 0.5, out=buf[..., 32:])
+    _same(buf[..., 32:], ip.maxpool3x3s2_int8_plain(x, 0.5))
+    assert buf[..., :32].abs().max().item() == 0
+    with pytest.raises(ValueError):
+        ip.maxpool3x3s2_int8(x.float())
+
+
+@pytest.fixture(scope="module")
+def int8_engines(dev):
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
+
+    state = init_state(InceptionV3(depth_multiplier=0.5, device="meta"), seed=0)
+    raw = _i8(dev, (4, 347, 347, 3), 0, 127, seed=9).to(torch.uint8) * 2
+    calib = preprocess_for_eval(raw)
+    kern = QuantizedInceptionV3(state, calib, stem_s2d="pre", device=dev)
+    plain = QuantizedInceptionV3(state, calib, stem_s2d="pre", use_kernels=False,
+                                 device=dev)
+    plain.scales = kern.scales
+    return kern, plain, raw
+
+
+def test_int8_engine_kernels_match_plain(dev, int8_engines):
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval_s2d
+    from tumblr_emotions_torch.ops import quant
+
+    kern, plain, raw = int8_engines
+    x = preprocess_for_eval_s2d(raw)
+    for stop in ("stem", "Mixed_5d", "Mixed_6a", "Mixed_6e", "Mixed_7a"):
+        with torch.inference_mode():
+            got = quant._tower(kern.int8_ops(), x, stop_at=stop)
+            want = quant._tower(plain.int8_ops(), x, stop_at=stop)
+        _same(got[0], want[0])
+        assert got[1] == want[1]
+    c0, p0 = ic.conv_int8.launches, ip.maxpool3x3s2_int8.launches
+    got, _ = kern(x)
+    assert (ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0) == (66, 4)
+    want, _ = plain(x)
+    assert torch.equal(got, want)

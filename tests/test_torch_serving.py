@@ -1,8 +1,10 @@
-"""The whole slice on the CPU: the port's served program
+"""The whole slice on the CPU: the port's served programs.  The bf16 program
 ``image_server(FusedInceptionV3(..., use_kernels=True))`` (uint8 ->
 preprocess -> fused tower -> softmax; the block kernels take their plain
 versions on CPU tensors) against the JAX package's ``FusedInceptionV3``
-with its Pallas blocks in interpret mode behind ``_checked``."""
+with its Pallas blocks in interpret mode behind ``_checked``; the default
+int8 program (``build_forward(engine="int8")``, s2d and float fronts)
+against the JAX package's int8 engine behind ``_forward``."""
 
 import jax
 import jax.numpy as jnp
@@ -97,12 +99,46 @@ def test_build_forward_parity_and_bf16_engines(setup, cfg):
     np.testing.assert_allclose(bf16.numpy(), parity.numpy(), atol=BF16_PROB_ATOL, rtol=0)
 
 
+# The int8 served program against the reference's, each engine calibrated
+# by its own package on the same batch: the scales differ by a few bf16
+# rounding steps (tests/test_torch_quant.py), which moves requantized
+# values by a level here and there, about 30 convs deep (measured: 6.8e-3
+# at most, both fronts; with the scales injected the two agree to 1.2e-7).
+INT8_PROB_ATOL = 2e-2
+
+
+@pytest.mark.parametrize("front", ["s2d", "float"])
+def test_build_forward_int8_engine(setup, cfg, front):
+    """The default engine: int8, shift epilogues, behind the s2d (default)
+    or the float front, against the JAX package's int8 engine served by
+    its own ``_forward``."""
+    from tumblr_emotions_tpu.data.preprocessing import preprocess_for_eval as jax_pp
+    from tumblr_emotions_tpu.ops.quant import QuantizedInceptionV3 as JaxQuant
+
+    state, variables, raw = setup
+    calib = np.asarray(jax_pp(jnp.asarray(raw), IMAGE, IMAGE, dtype=jnp.float32))
+    kw = {} if front == "s2d" else dict(front=front)
+    got = build_forward(cfg, state, device="cpu", calib_images=calib, **kw)(raw).numpy()
+    jeng = JaxQuant(variables, calib, epilogue="shift",
+                    stem_s2d="pre" if front == "s2d" else False)
+    want, _ = jserving._checked(*jserving._forward(
+        jeng, jnp.asarray(raw), False, jnp.bfloat16, image_size=IMAGE))
+    assert got.shape == (4, 15) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, np.asarray(want), atol=INT8_PROB_ATOL, rtol=0)
+    np.testing.assert_array_equal(got.argmax(-1), np.asarray(want).argmax(-1))
+
+
 def test_build_forward_rejects_what_is_not_ported(setup, cfg):
-    state, _, _ = setup
-    with pytest.raises(ValueError):
-        build_forward(cfg, state, engine="int8", device="cpu")
+    state, _, raw = setup
+    with pytest.raises(NotImplementedError):
+        build_forward(cfg, state, engine="int8", front="uint8", device="cpu",
+                      calib_images=np.zeros((1, IMAGE, IMAGE, 3), np.float32))
     with pytest.raises(NotImplementedError):
         build_forward(cfg.replace(model="joint"), state, device="cpu")
+    with pytest.raises(ValueError):
+        build_forward(cfg, state, device="cpu")           # int8 without calib_images
+    with pytest.raises(ValueError):
+        build_forward(cfg, state, front="jpeg", device="cpu")
 
 
 def test_server_rejects_non_uint8_batches(setup):

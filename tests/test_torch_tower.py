@@ -19,6 +19,7 @@ from tumblr_emotions_torch import convert, get_preset
 from tumblr_emotions_torch.data import preprocessing as tpp
 from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
+from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
 from tumblr_emotions_torch.ops.serving import build_forward, image_server
 
 torch.set_num_threads(2)
@@ -133,6 +134,8 @@ def test_port_imports_with_jax_blocked():
             "for m in %r: sys.modules[m] = None\n"
             "import tumblr_emotions_torch, tumblr_emotions_torch.ops.serving\n"
             "import tumblr_emotions_torch.convert, tumblr_emotions_torch.ops._build\n"
+            "import tumblr_emotions_torch.ops.quant, tumblr_emotions_torch.ops.int8_conv\n"
+            "import tumblr_emotions_torch.ops.int8_pool, tumblr_emotions_torch.profile_serving\n"
             "print('ok')\n" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
@@ -144,7 +147,7 @@ def _cpu_state():
 
 
 @pytest.mark.parametrize("entry", ["InceptionV3", "FusedInceptionV3", "image_server",
-                                   "build_forward"])
+                                   "build_forward", "QuantizedInceptionV3"])
 def test_entry_points_default_to_the_card_and_raise_without_one(entry):
     if torch.cuda.is_available():
         pytest.skip("a card is present, so the default device is valid")
@@ -155,6 +158,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(entry):
         "image_server": lambda: image_server(
             FusedInceptionV3(_cpu_state(), device="cpu")),
         "build_forward": lambda: build_forward(cfg, _cpu_state()),
+        "QuantizedInceptionV3": lambda: QuantizedInceptionV3(
+            _cpu_state(), np.zeros((1, IMAGE, IMAGE, 3), np.float32)),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[entry]()

@@ -9,9 +9,11 @@ present.
 
 Layer map:
   entry points -> ops.serving   (image_server, build_forward)
-  engines      -> ops.inference (FusedInceptionV3), models.inception_v3
-  kernels      -> ops.fused_inception + csrc/inception_blocks.cu
-  data         -> data.preprocessing (eval), convert (weights from JAX)
+  engines      -> ops.quant (QuantizedInceptionV3, int8, the default),
+                  ops.inference (FusedInceptionV3, bf16), models.inception_v3
+  kernels      -> ops.int8_conv + csrc/int8_conv.cu, ops.int8_pool +
+                  csrc/int8_pool.cu, ops.fused_inception + csrc/inception_blocks.cu
+  data         -> data.preprocessing (eval, s2d), convert (weights from JAX)
 """
 
 __version__ = "0.1.0"
@@ -32,4 +34,5 @@ from tumblr_emotions_torch.ops.fused_inception import (  # noqa: F401
     fused_inception_b,
 )
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3  # noqa: F401
+from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3  # noqa: F401
 from tumblr_emotions_torch.ops.serving import build_forward, image_server  # noqa: F401

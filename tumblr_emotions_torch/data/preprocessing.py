@@ -7,8 +7,9 @@ semantics, in PyTorch (port of the eval part of
 
 The resize is two separable 1-D interpolations, each a dense [out, in]
 matrix product.  In float32 they run in full f32 on the card (no TF32).
-The space-to-depth front and the train-time distortions come with later
-slices.
+``preprocess_for_eval_s2d`` emits the 2x2 space-to-depth layout of the int8
+engine's stem straight from the two resize products.  The train-time
+distortions come with a later slice.
 """
 
 from __future__ import annotations
@@ -58,14 +59,27 @@ def _interp_matrix_cached(out_size: int, in_size: int, method: str) -> np.ndarra
     return m
 
 
+@functools.lru_cache(maxsize=64)
+def _interp_tensor(out_size: int, in_size: int, method: str, dtype: torch.dtype,
+                   device: torch.device, s2d: bool = False) -> torch.Tensor:
+    """The interpolation matrix as a tensor on ``device``, uploaded once (an
+    upload from pageable memory per batch would make the host wait for the
+    card); ``s2d``: zero-padded to an even row count and reshaped to
+    [out/2, 2, in]."""
+    m = _interp_matrix_cached(out_size, in_size, method)
+    if s2d:
+        m = np.pad(m, ((0, -out_size % 2), (0, 0))).reshape(-1, 2, in_size)
+    return torch.tensor(m, dtype=dtype, device=device)
+
+
 def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int,
                     method: str = "tf1",
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Batched NHWC bilinear resize as two matrix products."""
     n, h, w, c = images.shape
     dev = images.device
-    rh = torch.tensor(_interp_matrix_cached(out_h, h, method), dtype=dtype, device=dev)
-    rw = torch.tensor(_interp_matrix_cached(out_w, w, method), dtype=dtype, device=dev)
+    rh = _interp_tensor(out_h, h, method, dtype, dev)
+    rw = _interp_tensor(out_w, w, method, dtype, dev)
     x = images.to(dtype)
     with full_f32():
         x = torch.einsum("oh,nhwc->nowc", rh, x)
@@ -97,3 +111,55 @@ def preprocess_for_eval(images: torch.Tensor, height: int = 299, width: int = 29
         x = x[:, oh:oh + ch, ow:ow + cw, :]
     x = resize_bilinear(x, height, width, method=resize_method, dtype=dtype)
     return x * 2.0 - 1.0
+
+
+def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """[B,H,W,C] -> [B,ceil(H/2),ceil(W/2),4C]; odd H/W zero-pad at the end.
+
+    A kxk stride-2 conv over [H,W,C] equals a ceil(k/2) x ceil(k/2)
+    stride-1 conv over this layout with the kernel rearranged by
+    ``ops.quant._s2d_kernel`` (the padded row/col only meets zero kernel
+    taps).  Merged channel order is (dy, dx, c).
+    """
+    b, h, w, c = x.shape
+    ph, pw = -h % 2, -w % 2
+    if ph or pw:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pw, 0, ph))
+    x = x.reshape(b, (h + ph) // 2, 2, (w + pw) // 2, 2, c)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h + ph) // 2, (w + pw) // 2, 4 * c)
+
+
+def preprocess_for_eval_s2d(images: torch.Tensor, height: int = 299, width: int = 299,
+                            central_fraction: float = 0.875,
+                            resize_method: str = "tf1",
+                            dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """``preprocess_for_eval`` emitting the 2x2 space-to-depth layout directly.
+
+    Returns [N, ceil(height/2), ceil(width/2), 4C] such that
+    ``space_to_depth_2x2(preprocess_for_eval(images))`` holds (channel
+    order (dy, dx, c)) on every real lane: the row and column interpolation
+    matrices are reshaped to [out/2, 2, in], so the two resize products
+    emit the (dy, dx) parity planes as separate dims and the merge to 4C is
+    a reshape.  Same arithmetic in another contraction order, so bf16/f32
+    results can differ from the non-s2d path by about one ulp.  For an odd
+    height/width the padded parity plane holds -1 (the ``x*2 - 1`` of a
+    zero row), where ``space_to_depth_2x2`` pads 0: it is inert, since the
+    s2d kernel's padded taps are zero.
+    """
+    n, h, w, c = images.shape
+    x = images.to(dtype)
+    if not images.is_floating_point():
+        x = x / 255.0
+    if central_fraction and central_fraction < 1.0:
+        oh, ow, ch, cw = central_crop_sizes(h, w, central_fraction)
+        x = x[:, oh:oh + ch, ow:ow + cw, :]
+        h, w = ch, cw
+    ph, pw = -height % 2, -width % 2
+    rh3 = _interp_tensor(height, h, resize_method, dtype, images.device, s2d=True)
+    rw3 = _interp_tensor(width, w, resize_method, dtype, images.device, s2d=True)
+    with full_f32():
+        y = torch.einsum("idh,nhwc->nidwc", rh3, x)
+        z = torch.einsum("jew,nidwc->nijdec", rw3, y)
+    z = z.reshape(n, (height + ph) // 2, (width + pw) // 2, 4 * c)
+    return z * 2.0 - 1.0

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``csrc/inception_blocks.cu`` has a plain C interface, so it is compiled by
-``nvcc`` alone into a shared library (seconds, where a source that includes
+Every ``csrc/*.cu`` has a plain C interface, so each is compiled by ``nvcc``
+alone into its own shared library (seconds, where a source that includes
 PyTorch's headers takes minutes) under ``build/torch_kernels/`` beside the
 package, named by a hash of the source and flags so an edited source is
-rebuilt.  Pointers and the stream are passed as ``ctypes.c_void_p``; each
-entry point returns ``cudaGetLastError()`` and :func:`check` raises on it.
+rebuilt.  :func:`build` starts one ``nvcc`` per missing library, all at
+once.  Pointers and the stream are passed as ``ctypes.c_void_p``; each entry
+point returns ``cudaGetLastError()`` and :func:`check` raises on it.
 """
 
 from __future__ import annotations
@@ -17,12 +18,28 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "inception_blocks.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# Entry points of each source: name -> argtypes (all return an int error).
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "inception_blocks": {
+        "conv_same_bias_relu_bf16": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        "avg_pool3_same_bf16": [_P, _P, _I, _I, _I, _I, _P],
+    },
+    "int8_conv": {
+        "conv_int8": [_P, _L, _P] + [_I] * 13 + [_P] * 4 + [_I, _P, _P, _P, _P, _P],
+    },
+    "int8_pool": {
+        "maxpool3x3s2_int8": [_P, _L, _P, _L, _I, _I, _I, _I, _I, _F, _P],
+    },
+}
 
 
 def _nvcc() -> str:
@@ -33,43 +50,59 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile the kernels if this source has no library yet; return its path.
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
-    The compiler's resource report (``-Xptxas -v``) is kept beside the
+
+def build() -> Dict[str, Path]:
+    """Compile every source that has no library yet, in parallel; return
+    {source name: library path}.
+
+    The compiler's resource report (``-Xptxas -v``) is kept beside each
     library as ``.log``.
     """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode())
-    lib = BUILD_DIR / f"libinception_blocks_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    r = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stdout}{r.stderr}")
-    lib.with_suffix(".log").write_text(r.stdout + r.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    libs = {name: _target(name) for name in SIGNATURES}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name, lib in todo.items():
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu ({proc.returncode}):\n{out}")
+                continue
+            lib = todo[name]
+            lib.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib = ctypes.CDLL(str(build()))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.conv_same_bias_relu_bf16.argtypes = [P, I, P, P, P, I, I, I, I, I, I, I, I, P]
-    lib.conv_same_bias_relu_bf16.restype = I
-    lib.avg_pool3_same_bf16.argtypes = [P, P, I, I, I, I, P]
-    lib.avg_pool3_same_bf16.restype = I
-    lib.inception_blocks_error_string.argtypes = [I]
-    lib.inception_blocks_error_string.restype = ctypes.c_char_p
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (all built on first call)."""
+    lib = ctypes.CDLL(str(build()[name]))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes, err.restype = [_I], ctypes.c_char_p
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a launch reported a CUDA error."""
+def check(err: int, name: str, source: str) -> None:
+    """Raise if a launch of ``name`` (from ``csrc/<source>.cu``) reported a
+    CUDA error."""
     if err:
-        msg = library().inception_blocks_error_string(err).decode()
+        msg = getattr(library(source), f"{source}_error_string")(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

@@ -174,10 +174,10 @@ def conv_same_bias_relu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                          f"pixel strides that are multiples of 8, got {cin}, "
                          f"{cout}, {xs}, {os_}")
     with torch.cuda.device(x.device):
-        err = _build.library().conv_same_bias_relu_bf16(
+        err = _build.library("inception_blocks").conv_same_bias_relu_bf16(
             x.data_ptr(), xs, w.data_ptr(), bias.data_ptr(), out.data_ptr(), os_,
             B, H, W, cin, cout, kh, kw, torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "conv_same_bias_relu")
+    _build.check(err, "conv_same_bias_relu", "inception_blocks")
     conv_same_bias_relu.launches += 1
     return out
 
@@ -198,10 +198,10 @@ def avg_pool3_same(x: torch.Tensor) -> torch.Tensor:
     _check_cuda("avg_pool3_same", dict(x=x, out=out),
                 dict(x=torch.bfloat16, out=torch.bfloat16))
     with torch.cuda.device(x.device):
-        err = _build.library().avg_pool3_same_bf16(
+        err = _build.library("inception_blocks").avg_pool3_same_bf16(
             x.data_ptr(), out.data_ptr(), B, H, W, C,
             torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "avg_pool3_same")
+    _build.check(err, "avg_pool3_same", "inception_blocks")
     avg_pool3_same.launches += 1
     return out
 

@@ -1,11 +1,15 @@
 """Where the served program's time goes on the card: a torch.profiler trace.
 
-    python -m tumblr_emotions_torch.profile_serving [--batch 64] [--batches 3]
+    python -m tumblr_emotions_torch.profile_serving [--engine bf16|int8]
+        [--batch 64] [--batches 3]
 
 Builds seeded full-width weights (as chip_smoke.py does), warms up, then
-profiles ``--batches`` served uint8 [B,347,347,3] batches through
-``image_server(FusedInceptionV3(state, use_kernels=...))`` for the kernel
-engine and the cuDNN engine.  Prints one JSON line per engine: host wall
+profiles ``--batches`` served uint8 [B,347,347,3] batches.  ``--engine
+bf16`` (default) profiles ``image_server(FusedInceptionV3(state,
+use_kernels=...))`` for the kernel engine and the cuDNN engine; ``--engine
+int8`` the default served program, ``QuantizedInceptionV3`` behind the
+space-to-depth front, calibrated on one seeded batch.  Prints one JSON
+line per engine: host wall
 ms per batch, device busy ms per batch (sum of kernel times on the one
 stream), the idle share (1 - busy/wall), and device time by kernel group.
 Needs a CUDA card; raises without one.
@@ -22,11 +26,15 @@ import torch
 
 from tumblr_emotions_torch._device import card_line
 from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
+from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
+from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
 from tumblr_emotions_torch.ops.serving import image_server
 
 # Kernel-name substrings -> group, first match wins.
 GROUPS = [
+    ("conv_int8", "int8 conv kernel (ours)"),
+    ("maxpool_", "int8 max-pool kernel (ours)"),
     ("conv_same_bias_relu", "block conv kernel (ours)"),
     ("avg_pool3_same", "block pool kernel (ours)"),
     ("fprop", "cuDNN conv"),          # sm90_xmma_fprop_implicit_gemm_*
@@ -84,6 +92,7 @@ def profile_engine(server, batches) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", choices=("bf16", "int8"), default="bf16")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -95,11 +104,15 @@ def main() -> None:
                              device="cuda", dtype=torch.uint8)
                for _ in range(args.batches)]
     card = card_line()
-    for use_kernels in (True, False):
-        server = image_server(FusedInceptionV3(state, use_kernels=use_kernels))
-        print(json.dumps({"engine": "kernels" if use_kernels else "cudnn",
-                          "batch": args.batch, "card": card,
-                          **profile_engine(server, batches)}), flush=True)
+    if args.engine == "int8":
+        calib = preprocess_for_eval(batches[0])
+        engines = {"int8": QuantizedInceptionV3(state, calib, stem_s2d="pre")}
+    else:
+        engines = {"kernels": FusedInceptionV3(state, use_kernels=True),
+                   "cudnn": FusedInceptionV3(state, use_kernels=False)}
+    for name, engine in engines.items():
+        print(json.dumps({"engine": name, "batch": args.batch, "card": card,
+                          **profile_engine(image_server(engine), batches)}), flush=True)
 
 
 if __name__ == "__main__":
