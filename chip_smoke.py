@@ -8,7 +8,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device   -- needs torch.cuda.is_available(); prints the card's name and
                power limit (nvidia-smi).
 2. build    -- compiles every csrc/*.cu with nvcc (first use, one nvcc per
-               source, in parallel); prints each kernel's ptxas report.
+               source, in parallel); prints each kernel's registers and
+               spills from ptxas (-Xptxas -v), by kernel and template.
 3. kernels  -- each hand-written kernel against its plain PyTorch version on
                the card, in bf16, at the full-width shapes the served path
                gives it (B=64): conv_same_bias_relu at every conv of Mixed_5b
@@ -23,14 +24,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. kernel_check conv_int8 -- the int8 engine's conv kernel against its
                plain version (float64 conv, exact) on the card, bit for bit,
                at one conv of each (kernel shape, stride, padding, epilogue
-               kinds) the served int8 path issues, with that conv's real
-               input (B=64, full width), and through valid_conv3x3_int8_shift
-               at Conv2d_2a and Conv2d_4a.
+               kinds, tile configuration) the served int8 path issues, with
+               that conv's real input (B=64, full width), and through
+               valid_conv3x3_int8_shift at Conv2d_2a and Conv2d_4a; each row
+               gives the tile and the share of the bound reached.
 6. kernel_check maxpool3x3s2_int8 -- the int8 max pool, exact, at K4a's own
                shape and the four served shapes (two with the rescale).
 7. e2e_int8 -- the default served program build_forward(cfg, state,
                engine="int8", front="s2d", calib_images=...) on the same 3
-               batches: launch counts (66 convs + 4 pools per forward), every
+               batches: launch counts (66 convs + 4 pools per forward, none
+               on the conv's byte-load path), every
                stage's int8 activations equal to the same engine's plain
                path on the card (same scales), probabilities within
                INT8_PROB_TOL of it; quantization_delta against the bf16
@@ -107,6 +110,35 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's launch
+    overhead (the wrapper's Python) is not in the time."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up on a side stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS) -> dict:
     """Least time on an H100 SXM: the larger of the operations over the
     peak rate and the bytes (each input read once, each output written
@@ -152,6 +184,36 @@ def conv_bound(x, w, outs) -> dict:
     m = B * ho * wo
     nbytes = B * H * W * cin + w.numel() + sum(o.numel() * o.element_size() for o in outs)
     return bound(2.0 * m * cout * kh * kw * cin, nbytes + 16.0 * cout, peak=H100_INT8_OPS)
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spills of each kernel in an ``-Xptxas -v`` log, by
+    name with its template's arguments (``conv_int8_wgmma<16,128,64>``)."""
+    import re
+
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled, name = m.group(1), m.group(1)
+            # The mangled name holds "<length><name>" then "I...E" template args.
+            for n in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+                digits, at = n.group(1), n.end()
+                lens = [int(digits[i:]) for i in range(len(digits))]
+                cand = next((mangled[at:at + k] for k in lens
+                             if mangled[at:at + k].startswith(("conv_", "maxpool", "avg_pool"))
+                             and at + k <= len(mangled)), None)
+                if cand:
+                    rest = mangled[at + len(cand):]
+                    args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+                    name = cand + (f"<{','.join(args)}>" if args else "")
+                    break
+            out.append({"kernel": name})
+        elif out and "registers" in ln:
+            out[-1]["ptxas"] = ln.split(":", 1)[-1].strip()
+        elif out and "spill" in ln:
+            out[-1]["spills"] = ln.strip()
+    return out
 
 
 def record_calls(obj, name: str, log: list, label):
@@ -221,9 +283,13 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
     for meth in ("conv", "conv_s2d", "packed"):
         delattr(ops, meth)
 
-    # ---- 5. conv_int8: one conv of each distinct form, and K1's own entry ----
+    # ---- 5. conv_int8: one conv of each distinct form and tile, and K1's own entry ----
     def check_conv(label_, x, w, epi, strides, pad, fn=None, plain=None):
-        fn = fn or (lambda: ic.conv_int8(x, w, epi, strides, pad))
+        # A given fn (K1's own entry point) uploads constants per call, which
+        # a CUDA graph cannot capture: its device time is taken on conv_int8
+        # with the same operands, and the entry point is timed eagerly.
+        kernel = lambda: ic.conv_int8(x, w, epi, strides, pad)  # noqa: E731
+        fn = fn or kernel
         plain = plain or (lambda: ic.conv_int8_plain(x, w, epi, strides, pad))
         got, want = fn(), plain()
         got = got if isinstance(got, list) else [got]
@@ -247,24 +313,30 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
             a2 = x.reshape(-1, cin) if x.is_contiguous() else x.contiguous().reshape(-1, cin)
             b2 = w.reshape(cout, cin).t()
             try:
-                lib = cuda_ms(lambda: torch._int_mm(a2, b2))
+                lib = graph_ms(lambda: torch._int_mm(a2, b2))
                 lib_note = "torch._int_mm of the same [M,Cin]x[Cin,Cout] product (no epilogue)"
             except RuntimeError as e:
                 lib_note = f"torch._int_mm refused: {str(e)[:120]}"
         xb = to_nchw(x).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=tuple(strides), padding=tuple(pad)))
+        bf16_ms = graph_ms(lambda: F.conv2d(xb, wb, stride=tuple(strides), padding=tuple(pad)))
+        ms, b = graph_ms(kernel), conv_bound(x, w, got)
         record("conv_int8", shape=f"{label_} [{B},{H},{W_},{cin}]->{cout} k{(kh, kw)} "
                f"s{tuple(strides)} p{tuple(pad)} {'/'.join(epi.kinds)}",
-               max_abs_err=err, tol=0, ms=cuda_ms(fn), plain_ms=cuda_ms(plain, iters=5, warmup=1),
+               tile=ic.conv_config(x, w, strides, pad).name,
+               max_abs_err=err, tol=0, ms=ms, ms_eager=cuda_ms(fn),
+               timing="ms, bf16_conv2d_ms, library_ms: CUDA graph of 20 calls (device time); "
+                      "ms_eager: 20 calls launched from Python between CUDA events",
+               plain_ms=cuda_ms(plain, iters=5, warmup=1),
+               pct_of_bound=100.0 * b["bound_ms"] / ms,
                library_ms=lib, library_note=lib_note, bf16_conv2d_ms=bf16_ms,
-               bf16_conv2d_note="bf16 F.conv2d of the same shape: not the same function",
-               **conv_bound(x, w, got))
+               bf16_conv2d_note="bf16 F.conv2d of the same shape: not the same function", **b)
 
     seen = set()
     for lab, a, k in convs:
         x, w, epi, strides, pad = a[:5]
-        key = (tuple(w.shape[1:3]), tuple(strides), tuple(pad), epi.kinds)
+        key = (tuple(w.shape[1:3]), tuple(strides), tuple(pad), epi.kinds,
+               ic.conv_config(x, w, strides, pad))
         if key in seen:
             continue
         seen.add(key)
@@ -322,6 +394,10 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
     if {k: launches[k] for k in want} != want or any(
             v for k, v in launches.items() if k not in want):
         fail(f"int8 launch counts {launches}, expected {want} and no others")
+    launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
+    if ic.conv_int8.byte_launches:
+        fail(f"the served int8 path took conv_int8's byte-load kernel "
+             f"{ic.conv_int8.byte_launches} times")
     for p in probs:
         if p.shape != (BATCH, 15) or not torch.isfinite(p).all():
             fail(f"int8 probabilities: shape {tuple(p.shape)} or non-finite")
@@ -371,8 +447,11 @@ def _wrappers():
 
 
 def reset_all_launches() -> None:
+    from tumblr_emotions_torch.ops import int8_conv as ic
+
     for fn in _wrappers():
         fn.launches = 0
+    ic.conv_int8.byte_launches = 0
 
 
 def all_launches() -> dict:
@@ -416,8 +495,7 @@ def main() -> int:
     ptxas = {}
     for name, lib_path in libs.items():
         log = lib_path.with_suffix(".log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln] if log.exists() else []
+        ptxas[name] = ptxas_report(log.read_text()) if log.exists() else []
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
           "libraries": [p.name for p in libs.values()], "ptxas": ptxas})
 
@@ -627,6 +705,9 @@ def main() -> int:
             "shapes": len(rs)}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
+        if name == "conv_int8":
+            entry["byte_path_launches"] = counts["conv_int8 byte path"]
+            entry["tiles"] = sorted({r["tile"] for r in rs})
         kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -155,11 +155,87 @@ def test_conv_int8_matches_plain(dev, kernel, strides, padding, cin, cout, hw):
     w = _i8(dev, (cout, *kernel, cin), -60, 61, seed=2)
     epi = ic.Epilogue.build([_segment("shift", cout, rng)], dev)
     pad = ic.conv_padding(kernel, strides, padding)
-    before = ic.conv_int8.launches
+    before, bytes_before = ic.conv_int8.launches, ic.conv_int8.byte_launches
     (got,) = ic.conv_int8(x, w, epi, strides, pad)
     (want,) = ic.conv_int8_plain(x, w, epi, strides, pad)
     _same(got, want)
     assert ic.conv_int8.launches == before + 1
+    # Only an input that is not 4-byte aligned (the Cin 3 stem) takes the
+    # byte-load kernel.
+    assert ic.conv_int8.byte_launches - bytes_before == (cin % 4 != 0)
+
+
+_TILES = [ic.TileConfig(g, bm, bn) for g, tiles in sorted(ic.CONFIGS.items())
+          for bm, bn in tiles] + [ic.TileConfig(1, 64, 64)]
+
+
+@pytest.mark.parametrize("tile", _TILES, ids=lambda t: t.name.replace(" ", "-"))
+def test_conv_int8_every_tile_ragged(dev, tile):
+    """Every kernel and tile the rule can pick, forced, on ragged edges: M
+    not a multiple of BM, Cout not a multiple of BN, K not a multiple of
+    128 (nor of 32), a channel-slice input, outputs whose pixel stride is
+    not their width (one not a multiple of 16 bytes), four segments of
+    mixed kinds."""
+    rng = np.random.RandomState(tile.bm + tile.bn + tile.load_bytes)
+    cin = 20 if tile.load_bytes == 4 else 48      # K = 180 or 432
+    big = _i8(dev, (3, 13, 11, 16 + cin + 16), -30, 90, seed=11)
+    x = big[..., 16:16 + cin]                     # M = 3 * 13 * 11 = 429
+    cout = tile.bn + 40
+    widths = [16, cout - 48, 24, 8]
+    w = _i8(dev, (cout, 3, 3, cin), -90, 91, seed=12)
+    epi = ic.Epilogue.build([_segment(k, n, rng) for k, n in
+                             zip(("shift", "f32", "dequant", "pre"), widths)], dev)
+    buf0 = torch.zeros(3, 13, 11, widths[0] + 32, dtype=torch.int8, device=dev)
+    buf1 = torch.zeros(3, 13, 11, widths[1] + 5, dtype=torch.int8, device=dev)
+    outs = ic.conv_int8(x, w, epi, (1, 1), (1, 1),
+                        outs=[buf0[..., 16:16 + widths[0]], buf1[..., 3:3 + widths[1]], None, None],
+                        tile=tile)
+    want = ic.conv_int8_plain(x, w, epi, (1, 1), (1, 1))
+    for g, wt in zip(outs, want):
+        _same(g, wt)
+    assert buf0[..., :16].abs().max().item() == 0 and buf0[..., -16:].abs().max().item() == 0
+    assert buf1[..., :3].abs().max().item() == 0 and buf1[..., -2:].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("widths", [(13, 20, 7, 24), (30, 34)], ids=["odd", "even"])
+def test_conv_int8_mixed_tiles(dev, widths):
+    """Segments that share a tile: bounds odd (converted element by element)
+    and even (pair by pair), on every tile width of 16-byte copies."""
+    rng = np.random.RandomState(sum(widths))
+    x = _i8(dev, (2, 9, 11, 64), -40, 80, seed=15)
+    w = _i8(dev, (sum(widths), 3, 3, 64), -90, 91, seed=16)
+    kinds = ("shift", "f32", "dequant", "pre")[:len(widths)]
+    epi = ic.Epilogue.build([_segment(k, n, rng) for k, n in zip(kinds, widths)], dev)
+    want = ic.conv_int8_plain(x, w, epi, (1, 1), (1, 1))
+    for bm, bn in ic.CONFIGS[16]:
+        got = ic.conv_int8(x, w, epi, (1, 1), (1, 1), tile=ic.TileConfig(16, bm, bn))
+        for g, wt in zip(got, want):
+            _same(g, wt)
+
+
+def test_conv_int8_takes_a_permuted_stem_input(dev):
+    """The float front's stem input is a permuted view (channels not
+    contiguous in NHWC pixels): the wrapper copies it and takes the
+    byte-load kernel for its 3 channels."""
+    rng = np.random.RandomState(4)
+    x = _i8(dev, (2, 3, 41, 37), -50, 50, seed=13).permute(0, 2, 3, 1)
+    w = _i8(dev, (32, 3, 3, 3), -60, 61, seed=14)
+    epi = ic.Epilogue.build([_segment("shift", 32, rng)], dev)
+    before = ic.conv_int8.byte_launches
+    (got,) = ic.conv_int8(x, w, epi, (2, 2), (0, 0))
+    _same(got, ic.conv_int8_plain(x, w, epi, (2, 2), (0, 0))[0])
+    assert ic.conv_int8.byte_launches == before + 1
+
+
+def test_conv_int8_rejects_a_tile_it_does_not_have(dev):
+    rng = np.random.RandomState(2)
+    x = _i8(dev, (1, 9, 9, 20), 0, 10)
+    w = _i8(dev, (40, 1, 1, 20), -5, 5)
+    epi = ic.Epilogue.build([_segment("shift", 40, rng)], dev)
+    with pytest.raises(ValueError):     # 16-byte copies of Cin 20
+        ic.conv_int8(x, w, epi, tile=ic.TileConfig(16, 128, 64))
+    with pytest.raises(ValueError):     # not an instantiated width
+        ic.conv_int8(x, w, epi, tile=ic.TileConfig(4, 128, 48))
 
 
 @pytest.mark.parametrize("kind", ["shift", "f32", "dequant", "pre"])

@@ -51,3 +51,18 @@ def full_f32():
         yield
     finally:
         cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def tf32_convs():
+    """Let cuDNN run float32 convolutions in TF32, for convs whose operands
+    are bf16 values held in float32: TF32 keeps 10 mantissa bits, so it
+    holds every bf16 value exactly, and the tensor cores form the products
+    exactly and accumulate in float32.  Nothing else runs in TF32 inside."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = saved

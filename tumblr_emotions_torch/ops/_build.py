@@ -34,7 +34,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "avg_pool3_same_bf16": [_P, _P, _I, _I, _I, _I, _P],
     },
     "int8_conv": {
-        "conv_int8": [_P, _L, _P] + [_I] * 13 + [_P] * 4 + [_I, _P, _P, _P, _P, _P],
+        "conv_int8": [_P, _L, _P] + [_I] * 13 + [_P] * 4 + [_I, _P, _P, _P, _P]
+                     + [_I] * 3 + [_P],
     },
     "int8_pool": {
         "maxpool3x3s2_int8": [_P, _L, _P, _L, _I, _I, _I, _I, _I, _F, _P],

@@ -12,10 +12,14 @@ convs with packed 1x1 branches (``use_kernels=False``, the ablation).  The
 package's default (``pack_branches=True``); its unpacked variant has no
 caller here.
 
-Rounding: the JAX package adds the f32 bias to the f32 accumulator and
-rounds once; ``F.conv2d`` on bf16 returns bf16, so on the cuDNN convs here
-the accumulator is rounded to bf16 before the bias is added and the sum is
-rounded again.  The block kernels round once, as the TPU kernels do.
+Rounding: as the JAX package (``preferred_element_type=float32``), every
+conv accumulates in f32, adds the f32 bias and rounds to the working dtype
+once.  The cuDNN convs run in f32 on the bf16-valued activations and
+weights (``F.conv2d`` on bf16 would return a bf16 accumulator, rounded
+before the bias and again after); on the card they allow TF32, which is
+exact here: TF32 holds every bf16 value, and the tensor cores form the
+products exactly and accumulate in f32.  The block kernels round once, as
+the TPU kernels do.
 
 The TPU knob ``images_per_block`` (images stacked per Pallas grid step to
 fill the MXU) is not carried over: the CUDA kernels tile over all pixels of
@@ -29,7 +33,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from tumblr_emotions_torch._device import full_f32, resolve_device
+from tumblr_emotions_torch._device import full_f32, resolve_device, tf32_convs
 from tumblr_emotions_torch.models.layers import to_nchw, to_nhwc
 from tumblr_emotions_torch.ops.fused_inception import (
     INCEPTION_B_BRANCHES, _taps, fold_batchnorm, fused_inception_a,
@@ -55,6 +59,8 @@ class FusedInceptionV3:
         folded = fold_batchnorm(state)
         dev = self.device
         self.w = {s: (w.to(dev, dtype), b.to(dev)) for s, (w, b) in folded.items()}
+        # The cuDNN convs' f32 copies of the (dtype-valued) weights.
+        self.w32 = {s: w.float() for s, (w, _) in self.w.items()}
         # The block kernels take tap stacks [kh*kw, Cin, Cout].
         self.taps = {s: (_taps(w).to(dev, dtype), b.to(dev))
                      for s, (w, b) in folded.items()
@@ -69,10 +75,10 @@ class FusedInceptionV3:
     # ---- building blocks ----
 
     def _conv(self, x, scope, strides=(1, 1), padding="VALID", relu=True):
-        w, b = self.w[scope]
+        w, b = self.w32[scope], self.w[scope][1]
         pad = (w.shape[2] // 2, w.shape[3] // 2) if padding == "SAME" else (0, 0)
-        y = to_nhwc(F.conv2d(to_nchw(x), w, stride=strides, padding=pad))
-        y = y.float() + b
+        with tf32_convs():
+            y = to_nhwc(F.conv2d(to_nchw(x).float(), w, stride=strides, padding=pad)) + b
         return (torch.relu(y) if relu else y).to(self.dtype)
 
     def _packed_conv1x1(self, x, scopes: Sequence[str]):
@@ -86,10 +92,11 @@ class FusedInceptionV3:
         """
         key = tuple(scopes)
         if key not in self._packs:
-            self._packs[key] = (torch.cat([self.w[s][0] for s in scopes]),
+            self._packs[key] = (torch.cat([self.w32[s] for s in scopes]),
                                 torch.cat([self.w[s][1] for s in scopes]))
         w, b = self._packs[key]
-        y = to_nhwc(F.conv2d(to_nchw(x), w)).float() + b
+        with tf32_convs():
+            y = to_nhwc(F.conv2d(to_nchw(x).float(), w)) + b
         return torch.split(y, [self.w[s][0].shape[0] for s in scopes], dim=-1)
 
     def _relu(self, y):

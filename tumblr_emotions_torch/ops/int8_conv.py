@@ -11,9 +11,17 @@ the engine runs on the card only through this kernel.
 ``conv_int8`` (``csrc/int8_conv.cu``) is one implicit GEMM on the int8
 tensor cores for every conv form the engine issues (1x1 single and packed,
 3x3 SAME/VALID, 5x5, 1x3/3x1/1x7/7x1 SAME, 3x3 stride 2, the 2x2
-space-to-depth stem, the 3x3/2 stem on Cin 3).  Its epilogue is chosen per
-output-channel segment (:class:`Epilogue`), so a packed 1x1 conv is one
-launch whose slices end in different kinds and different tensors:
+space-to-depth stem, the 3x3/2 stem on Cin 3): ``wgmma`` fed by a 3-slot
+shared-memory ring (``cp.async`` for the gathered pixels, TMA for the
+weights), persistent blocks, an epilogue stored by bulk copies, on a tile
+that :func:`pick_tile` chooses per conv from a fixed set (:data:`CONFIGS`).
+Inputs whose channels or strides are not multiples of 4 bytes (the Cin 3
+stem of the float front) take the older ``mma.sync`` kernel with byte
+loads instead, by that fixed rule and never as a recovery;
+``conv_int8.byte_launches`` counts those launches apart.
+The epilogue is chosen per output-channel segment (:class:`Epilogue`), so
+a packed 1x1 conv is one launch whose slices end in different kinds and
+different tensors:
 
 - ``shift``: ``clamp((acc + b_i) >> k, 0, 127)`` -> int8 (pure integer);
 - ``f32``: ``clip(float(acc) * m + bq, 0, 127)`` -> int8 by truncation;
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +57,116 @@ KINDS = ("shift", "f32", "dequant", "pre")
 OUT_DTYPE = {"shift": torch.int8, "f32": torch.int8, "dequant": torch.bfloat16,
              "pre": torch.int32}
 MAX_SEGMENTS = 4  # csrc/int8_conv.cu MAX_SEGS
+
+# The tiles csrc/int8_conv.cu instantiates (WGMMA_CONFIGS), per copy width:
+# BM output pixels (one warpgroup per 64) by BN output channels (a width
+# that wgmma m64nNk32 takes for .s8).
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+TILE_BM = (64, 128)
+TILE_BN = (32, 64, 96, 128, 192, 256)
+CONFIGS = {16: tuple((bm, bn) for bm in TILE_BM for bn in TILE_BN if bm * bn < 128 * 256),
+           4: tuple((bm, bn) for bm in TILE_BM for bn in (32, 64))}
+_BK = 128                 # csrc/int8_conv.cu BK
+_SMEM, _REGS = 232_448, 65_536   # per SM: shared-memory bytes a block may use, registers
+
+
+@dataclasses.dataclass(frozen=True)
+class TileConfig:
+    """The kernel and tile of one conv: ``load_bytes`` 16 or 4 is the
+    wgmma kernel with copies of that width on a ``bm`` x ``bn`` tile; 1 is
+    the byte-load ``mma.sync`` kernel (64 x 64)."""
+
+    load_bytes: int
+    bm: int
+    bn: int
+
+    @property
+    def name(self) -> str:
+        if self.load_bytes == 1:
+            return "bytes 64x64"
+        return f"wgmma {self.bm}x{self.bn} cp.async{self.load_bytes}"
+
+    def tiles(self, m: int, cout: int) -> int:
+        """Output tiles of a conv with ``m`` pixels and ``cout`` channels."""
+        return -(-m // self.bm) * -(-cout // self.bn)
+
+
+def _smem_bytes(bm: int, bn: int) -> int:
+    """Shared memory of one block (csrc/int8_conv.cu wgmma_smem_bytes): a
+    3-step ring, the output tile (at most 4 bytes an element), the channel
+    constants and column descriptors, the segment and part tables, the
+    ring's barriers and 1024 bytes of alignment slack."""
+    return 3 * (bm + bn) * _BK + bm * bn * 4 + 64 + 32 * bn + 128 + 256 + 64 + 1024
+
+
+def _tile_cost(m: int, cout: int, k: int, bm: int, bn: int) -> float:
+    """Relative time of one conv on a bm x bn tile, in SM clocks, from a
+    model fitted to the kernel's times on an H100 at ten served shapes and
+    every tile (``python -m tumblr_emotions_torch.tile_sweep`` measures
+    them; on the final kernel the pick was the fastest tile at six shapes
+    and within 9% of it at the others).  A tile costs its shared-memory fill (bm + bn
+    bytes per K byte at 24 bytes a clock per SM), its output (6 bytes a
+    clock), its MMAs (4,096 MACs a clock) and 800 clocks per K step; blocks
+    resident together on an SM overlap a third of that with each other."""
+    k32 = -(-k // 32) * 32
+    steps = -(-k // _BK)
+    per_tile = (k32 * (bm + bn) / 24 + bm * min(bn, cout) / 6 + bm * bn * k32 / 4096
+                + 800 * steps)
+    threads = 2 * bm
+    regs = 8 * -(-(bn // 2 + 48) // 8)
+    occ = max(1, min(_SMEM // _smem_bytes(bm, bn), _REGS // (threads * regs), 2048 // threads))
+    waves = -(-(-(-m // bm) * -(-cout // bn)) // (SMS * occ))
+    return waves * occ * per_tile / (1 + 0.35 * (min(occ, 4) - 1))
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile(m: int, cout: int, k: int, load_bytes: int) -> TileConfig:
+    """The tile of a conv with ``m`` output pixels, ``cout`` channels and
+    ``k`` = kh*kw*Cin: among the tiles that cut the output into at least
+    one tile per SM (or, where none does, into the most tiles), the one of
+    least :func:`_tile_cost`, the larger on a tie.  ``load_bytes`` 1 (the
+    byte-load kernel) has one tile."""
+    if load_bytes == 1:
+        return TileConfig(1, 64, 64)
+    cands = [TileConfig(load_bytes, bm, bn) for bm, bn in CONFIGS[load_bytes]]
+    tiles = {c: c.tiles(m, cout) for c in cands}
+    pool = [c for c in cands if tiles[c] >= SMS] or \
+        [c for c in cands if tiles[c] == max(tiles.values())]
+    return min(pool, key=lambda c: (_tile_cost(m, cout, k, c.bm, c.bn), -c.bm * c.bn))
+
+
+def _pixel_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where its channels are contiguous within NHWC pixels (a channel
+    slice qualifies), else a contiguous copy (the float front's stem input
+    is a permuted view)."""
+    B, H, W, C = x.shape
+    s = x.stride()
+    if s[3] == 1 and s[2] >= C and s[1] == W * s[2] and s[0] == H * s[1]:
+        return x
+    return x.contiguous()
+
+
+def _copy_width(cin: int, x_stride: int, x_ptr: int, w_ptr: int) -> int:
+    for a in (16, 4):
+        if cin % a == 0 and x_stride % a == 0 and x_ptr % a == 0 and w_ptr % a == 0:
+            return a
+    return 1
+
+
+def load_bytes(x: torch.Tensor, w: torch.Tensor) -> int:
+    """Copy width of a conv's input: 16 bytes where Cin, the input pixel
+    stride and both pointers are multiples of 16, else 4 where they are
+    multiples of 4, else 1 (the byte-load kernel)."""
+    x = _pixel_layout(x)
+    return _copy_width(x.shape[-1], _pixel_stride(x, "x"), x.data_ptr(), w.data_ptr())
+
+
+def conv_config(x: torch.Tensor, w: torch.Tensor, strides=(1, 1), pad=(0, 0)) -> TileConfig:
+    """The kernel and tile :func:`conv_int8` launches for these operands."""
+    B = x.shape[0]
+    cout, kh, kw, cin = w.shape
+    ho, wo = _out_hw(x, w, strides, pad)
+    return pick_tile(B * ho * wo, cout, kh * kw * cin, load_bytes(x, w))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,15 +279,18 @@ def conv_int8_plain(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
 
 def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
               strides: Tuple[int, int] = (1, 1), pad: Tuple[int, int] = (0, 0),
-              outs: Optional[Sequence[Optional[torch.Tensor]]] = None
-              ) -> List[torch.Tensor]:
+              outs: Optional[Sequence[Optional[torch.Tensor]]] = None,
+              tile: Optional[TileConfig] = None) -> List[torch.Tensor]:
     """int8 conv + per-segment epilogue: one tensor per segment of ``epi``.
 
     x: [B,H,W,Cin] int8 NHWC; may be a channel slice of a larger tensor.
     w: [Cout,kh,kw,Cin] int8, contiguous.  ``pad``: zero padding (top and
     bottom, left and right).  outs: optional destination per segment
     ([B,Ho,Wo,width] of the kind's dtype, channels contiguous; a channel
-    slice qualifies); None entries are allocated.
+    slice qualifies); None entries are allocated.  ``tile``: the kernel
+    and tile to launch instead of :func:`conv_config`'s (the card tests
+    run every configuration); it must be one the kernel has and the
+    operands allow.
     """
     B, H, W, cin = x.shape
     cout, kh, kw, cin_w = w.shape
@@ -198,14 +320,26 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
         raise ValueError("conv_int8: w must be contiguous")
     outs = [torch.empty(B, Ho, Wo, n, dtype=OUT_DTYPE[kind], device=dev)
             if dst is None else dst for dst, kind, n in zip(outs, epi.kinds, epi.widths)]
+    x = _pixel_layout(x)
+    x_stride = _pixel_stride(x, "x")
+    cfg = pick_tile(B * Ho * Wo, cout, kh * kw * cin,
+                    _copy_width(cin, x_stride, x.data_ptr(), w.data_ptr()))
+    if tile is not None:
+        allowed = (tile.bm, tile.bn) == (64, 64) if tile.load_bytes == 1 else (
+            (tile.bm, tile.bn) in CONFIGS.get(tile.load_bytes, ()) and
+            tile.load_bytes <= cfg.load_bytes)
+        if not allowed:
+            raise ValueError(f"conv_int8: tile {tile} is not one the kernel has for these "
+                             f"operands (copy width {cfg.load_bytes})")
+        cfg = tile
     n = len(outs)
-    args = (x.data_ptr(), _pixel_stride(x, "x"), w.data_ptr(), B, H, W, cin, Ho, Wo, cout,
+    args = (x.data_ptr(), x_stride, w.data_ptr(), B, H, W, cin, Ho, Wo, cout,
             kh, kw, int(strides[0]), int(strides[1]), int(pad[0]), int(pad[1]),
             epi.bias_i.data_ptr(), epi.shift.data_ptr(), epi.mul.data_ptr(),
             epi.add.data_ptr(), n, epi.c_ends, epi.c_kinds,
             (ctypes.c_longlong * n)(*[_pixel_stride(o, f"output {i}") for i, o in enumerate(outs)]),
             (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
-            torch.cuda.current_stream(dev).cuda_stream)
+            cfg.load_bytes, cfg.bm, cfg.bn, torch.cuda.current_stream(dev).cuda_stream)
     lib = _build.library("int8_conv")
     if dev.index == torch.cuda.current_device():
         err = lib.conv_int8(*args)
@@ -214,10 +348,13 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
             err = lib.conv_int8(*args)
     _build.check(err, "conv_int8", "int8_conv")
     conv_int8.launches += 1
+    if cfg.load_bytes == 1:
+        conv_int8.byte_launches += 1
     return outs
 
 
 conv_int8.launches = 0
+conv_int8.byte_launches = 0
 
 
 def valid_conv3x3_int8_shift(x, w_q, b_i32, k_i32) -> torch.Tensor:
@@ -238,3 +375,4 @@ def valid_conv3x3_int8_shift(x, w_q, b_i32, k_i32) -> torch.Tensor:
 
 def reset_launches() -> None:
     conv_int8.launches = 0
+    conv_int8.byte_launches = 0
