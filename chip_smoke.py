@@ -27,7 +27,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                kinds, tile configuration) the served int8 path issues, with
                that conv's real input (B=64, full width), and through
                valid_conv3x3_int8_shift at Conv2d_2a and Conv2d_4a; each row
-               gives the tile and the share of the bound reached.
+               gives the tile, its time launched from Python between CUDA
+               events (ms) and in a CUDA graph (graph_ms, device time), and
+               the share of the bound each reaches.
 6. kernel_check maxpool3x3s2_int8 -- the int8 max pool, exact, at K4a's own
                shape and the four served shapes (two with the rescale).
 7. e2e_int8 -- the default served program build_forward(cfg, state,
@@ -49,6 +51,8 @@ from __future__ import annotations
 import json
 import sys
 import time
+
+from tumblr_emotions_torch.timing import cuda_ms, graph_ms
 
 SEED = 0
 DEVICE = "cuda"
@@ -92,51 +96,6 @@ def emit(obj) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
-    graph, replayed ``reps`` times between CUDA events, so the host's launch
-    overhead (the wrapper's Python) is not in the time."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):       # warm-up on a side stream, as capture wants
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        g.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
 
 
 def bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS) -> dict:
@@ -284,10 +243,12 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
         delattr(ops, meth)
 
     # ---- 5. conv_int8: one conv of each distinct form and tile, and K1's own entry ----
-    def check_conv(label_, x, w, epi, strides, pad, fn=None, plain=None):
-        # A given fn (K1's own entry point) uploads constants per call, which
-        # a CUDA graph cannot capture: its device time is taken on conv_int8
-        # with the same operands, and the entry point is timed eagerly.
+    def check_conv(label_, x, w, epi, strides, pad, fn=None, plain=None, first_of_form=True):
+        # ms, library_ms, bf16_conv2d_ms: calls launched from Python between
+        # CUDA events (a small conv's time is then its wrapper's host time);
+        # the *graph_ms beside them: device time in CUDA graphs.  A given fn
+        # (K1's own entry point) uploads constants per call, which a graph
+        # cannot capture: its graph time is conv_int8's on the same operands.
         kernel = lambda: ic.conv_int8(x, w, epi, strides, pad)  # noqa: E731
         fn = fn or kernel
         plain = plain or (lambda: ic.conv_int8_plain(x, w, epi, strides, pad))
@@ -308,39 +269,46 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
             err = max(err, d.max().item())
         B, H, W_, cin = x.shape
         cout, kh, kw, _ = w.shape
-        lib, lib_note, bf16_ms = None, None, None
+        lib, lib_graph, lib_note = None, None, None
         if (kh, kw) == (1, 1) and tuple(strides) == (1, 1):
             a2 = x.reshape(-1, cin) if x.is_contiguous() else x.contiguous().reshape(-1, cin)
             b2 = w.reshape(cout, cin).t()
             try:
-                lib = graph_ms(lambda: torch._int_mm(a2, b2))
+                lib = cuda_ms(lambda: torch._int_mm(a2, b2))
+                lib_graph = graph_ms(lambda: torch._int_mm(a2, b2))
                 lib_note = "torch._int_mm of the same [M,Cin]x[Cin,Cout] product (no epilogue)"
             except RuntimeError as e:
                 lib_note = f"torch._int_mm refused: {str(e)[:120]}"
         xb = to_nchw(x).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        bf16_ms = graph_ms(lambda: F.conv2d(xb, wb, stride=tuple(strides), padding=tuple(pad)))
-        ms, b = graph_ms(kernel), conv_bound(x, w, got)
+        bf16 = lambda: F.conv2d(xb, wb, stride=tuple(strides), padding=tuple(pad))  # noqa: E731
+        ms, g_ms, b = cuda_ms(fn), graph_ms(kernel), conv_bound(x, w, got)
         record("conv_int8", shape=f"{label_} [{B},{H},{W_},{cin}]->{cout} k{(kh, kw)} "
                f"s{tuple(strides)} p{tuple(pad)} {'/'.join(epi.kinds)}",
-               tile=ic.conv_config(x, w, strides, pad).name,
-               max_abs_err=err, tol=0, ms=ms, ms_eager=cuda_ms(fn),
-               timing="ms, bf16_conv2d_ms, library_ms: CUDA graph of 20 calls (device time); "
-                      "ms_eager: 20 calls launched from Python between CUDA events",
+               tile=ic.conv_config(x, w, strides, pad).name, first_of_form=first_of_form,
+               max_abs_err=err, tol=0, ms=ms, graph_ms=g_ms,
+               timing="ms, library_ms, bf16_conv2d_ms: 20 calls launched from Python "
+                      "between CUDA events; graph_ms, library_graph_ms, "
+                      "bf16_conv2d_graph_ms: a CUDA graph of 20 calls (device time)",
                plain_ms=cuda_ms(plain, iters=5, warmup=1),
                pct_of_bound=100.0 * b["bound_ms"] / ms,
-               library_ms=lib, library_note=lib_note, bf16_conv2d_ms=bf16_ms,
+               graph_pct_of_bound=100.0 * b["bound_ms"] / g_ms,
+               library_ms=lib, library_graph_ms=lib_graph, library_note=lib_note,
+               bf16_conv2d_ms=cuda_ms(bf16), bf16_conv2d_graph_ms=graph_ms(bf16),
                bf16_conv2d_note="bf16 F.conv2d of the same shape: not the same function", **b)
 
-    seen = set()
+    # One row per (form, tile); the first of each form is the set of shapes
+    # the kernels line sums over (one conv per form, as the check began).
+    seen, forms = set(), set()
     for lab, a, k in convs:
         x, w, epi, strides, pad = a[:5]
-        key = (tuple(w.shape[1:3]), tuple(strides), tuple(pad), epi.kinds,
-               ic.conv_config(x, w, strides, pad))
+        form = (tuple(w.shape[1:3]), tuple(strides), tuple(pad), epi.kinds)
+        key = form + (ic.conv_config(x, w, strides, pad),)
         if key in seen:
             continue
         seen.add(key)
-        check_conv(lab, x, w, epi, strides, pad)
+        check_conv(lab, x, w, epi, strides, pad, first_of_form=form not in forms)
+        forms.add(form)
     rng = np.random.RandomState(SEED)
     for lab, a, k in convs:
         if lab not in ("Conv2d_2a_3x3", "Conv2d_4a_3x3"):
@@ -530,7 +498,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 err = compare(f"conv {scope}/{name}", got, want, KERNEL_TOL)
                 w_oihw = eng_c.w[f"{scope}/{name}"][0].to(
-                    memory_format=torch.channels_last)
+                    torch.bfloat16, memory_format=torch.channels_last)
                 x_nchw = to_nchw(x)
                 pad = (kernel[0] // 2, kernel[1] // 2)
                 b_bf16 = b.to(torch.bfloat16)
@@ -689,13 +657,14 @@ def main() -> int:
     }
     kernels = []
     for name, (source, replaces, counts) in info.items():
-        rs = rows[name]
+        checked = rows[name]
+        rs = [r for r in checked if r.get("first_of_form", True)]
         t_ops, t_bytes = sum(r["ops_ms"] for r in rs), sum(r["bytes_ms"] for r in rs)
         libs = [r["library_ms"] for r in rs]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -706,8 +675,12 @@ def main() -> int:
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
         if name == "conv_int8":
+            # ms: calls from Python between CUDA events; graph_ms: device
+            # time in CUDA graphs; both over one conv per form (shapes).
+            entry["graph_ms"] = sum(r["graph_ms"] for r in rs)
             entry["byte_path_launches"] = counts["conv_int8 byte path"]
-            entry["tiles"] = sorted({r["tile"] for r in rs})
+            entry["rows_checked"] = len(checked)
+            entry["tiles"] = sorted({r["tile"] for r in checked})
         kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -164,3 +164,45 @@ def test_pick_is_the_cheapest_tile_of_a_full_wave():
     small = ic.pick_tile(2 * 3 * 3, 40, 360, 16)
     assert small.tiles(18, 40) == max(ic.TileConfig(16, bm, bn).tiles(18, 40)
                                         for bm, bn in ic.CONFIGS[16])
+
+
+def _shift_epilogue(cout, rng):
+    return ic.Epilogue.build([("shift", cout, rng.randint(0, 3000, cout),
+                               rng.randint(4, 10, cout))], "cpu")
+
+
+def test_conv_int8_plans_once_per_geometry():
+    """The wrapper decides the tile once per operand geometry and keeps it
+    on the epilogue (an engine builds one per conv site): a second call of
+    the same geometry adds no plan, a channel slice at another alignment
+    gets its own with its own copy width, and the CPU result is the plain
+    version's."""
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randint(-50, 50, (40, 3, 3, 32)).astype(np.int8))
+    epi = _shift_epilogue(40, rng)
+    big = torch.from_numpy(rng.randint(-50, 50, (2, 9, 9, 48)).astype(np.int8))
+    x = big[..., :32]
+    (got,) = ic.conv_int8(x, w, epi, (1, 1), (1, 1))
+    ic.conv_int8(x, w, epi, (1, 1), (1, 1))
+    assert len(epi.plans) == 1
+    (plan,) = epi.plans.values()
+    assert plan.cfg == ic.conv_config(x, w, (1, 1), (1, 1)) and plan.cfg.load_bytes == 16
+    assert plan.out_shapes == ((2, 9, 9, 40),) and plan.x_stride == 48 and not plan.copy
+    ic.conv_int8(big[..., 4:36], w, epi, (1, 1), (1, 1))
+    assert [p.cfg.load_bytes for p in epi.plans.values()] == [16, 4]
+    assert torch.equal(got, ic.conv_int8_plain(x, w, epi, (1, 1), (1, 1))[0])
+
+
+def test_forced_tiles_are_checked():
+    """``_launch`` (the card tests' and tile_sweep's way to run a given
+    tile) refuses a tile the kernel does not have for the operands."""
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randint(0, 10, (1, 9, 9, 20)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-5, 5, (40, 1, 1, 20)).astype(np.int8))
+    epi = _shift_epilogue(40, rng)
+    with pytest.raises(ValueError):     # 16-byte copies of Cin 20
+        ic._launch(ic.TileConfig(16, 128, 64), x, w, epi)
+    with pytest.raises(ValueError):     # not an instantiated width
+        ic._launch(ic.TileConfig(4, 128, 48), x, w, epi)
+    (got,) = ic._launch(ic.TileConfig(4, 64, 32), x, w, epi)
+    assert torch.equal(got, ic.conv_int8_plain(x, w, epi)[0])

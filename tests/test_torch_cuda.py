@@ -77,6 +77,55 @@ def test_conv_kernel_rejects_what_it_does_not_take(dev, taps):
         fi.conv_same_bias_relu(x[..., :-4], w[:, :-4].contiguous(), b, (1, 1))  # Cin % 8
 
 
+# The bf16 engine's cuDNN-side convs round once on the card too: f32 (TF32
+# allowed) on the bf16 values, bias, ReLU, one rounding.  Held against an f64
+# conv of the same values plus the bias, rounded to bf16 once: no element
+# more than one bf16 ulp off beyond what any f32 summation order may add
+# (K * 2^-24 * sum|x*w| for K products; it matters only where the sum nearly
+# cancels), and at most this share of the elements not bit-equal, the bound
+# tests/test_torch_serving.py holds the CPU path to (double rounding gave
+# 11-14% there).
+ROUNDING_SHARE_MAX = 0.01
+
+
+def _bf16_ulp(v):
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("which", ["stem", "packed"])
+def test_bf16_convs_round_once_on_the_card(dev, which):
+    state = init_state(InceptionV3(depth_multiplier=0.5, device="meta"), seed=0)
+    eng = FusedInceptionV3(state, use_kernels=False, device=dev)
+    if which == "stem":
+        scopes = ["Conv2d_2b_3x3"]
+    else:
+        scopes = [f"Mixed_5b/{b}" for b in ("Branch_0/Conv2d_0a_1x1", "Branch_1/Conv2d_0a_1x1",
+                                            "Branch_2/Conv2d_0a_1x1", "Branch_3/Conv2d_0b_1x1")]
+    cin = eng.w[scopes[0]][0].shape[1]
+    x = _act(dev, 4, 35, 35, cin, seed=2)
+    if which == "stem":
+        got = [eng._conv(x, scopes[0], padding="SAME")]
+    else:
+        got = [torch.relu(p).to(torch.bfloat16) for p in eng._packed_conv1x1(x, scopes)]
+    x64 = x.permute(0, 3, 1, 2).double()
+    want, slack = [], []
+    for s in scopes:
+        w, b = eng.w[s]
+        pad = (w.shape[2] // 2, w.shape[3] // 2)
+        conv = torch.nn.functional.conv2d
+        y = conv(x64, w.double(), padding=pad).permute(0, 2, 3, 1) + b.double()
+        mag = conv(x64.abs(), w.double().abs(), padding=pad).permute(0, 2, 3, 1) + b.double().abs()
+        want.append(torch.relu(y).to(torch.bfloat16))
+        slack.append(w[0].numel() * 2.0 ** -24 * mag)
+    got = torch.cat([g.double().flatten() for g in got])
+    want = torch.cat([v.double().flatten() for v in want])
+    slack = torch.cat([v.flatten() for v in slack])
+    assert torch.isfinite(got).all() and got.shape == want.shape
+    off = ((got - want).abs() - slack).clamp_min(0)
+    assert (off <= _bf16_ulp(torch.maximum(got.abs(), want.abs()))).all()
+    assert (got != want).double().mean().item() <= ROUNDING_SHARE_MAX
+
+
 @pytest.mark.parametrize("hw,c", [(35, 144), (17, 384)])
 def test_avg_pool_kernel_matches_plain(dev, hw, c):
     x = _act(dev, 2, hw, hw, c)
@@ -187,9 +236,8 @@ def test_conv_int8_every_tile_ragged(dev, tile):
                              zip(("shift", "f32", "dequant", "pre"), widths)], dev)
     buf0 = torch.zeros(3, 13, 11, widths[0] + 32, dtype=torch.int8, device=dev)
     buf1 = torch.zeros(3, 13, 11, widths[1] + 5, dtype=torch.int8, device=dev)
-    outs = ic.conv_int8(x, w, epi, (1, 1), (1, 1),
-                        outs=[buf0[..., 16:16 + widths[0]], buf1[..., 3:3 + widths[1]], None, None],
-                        tile=tile)
+    outs = ic._launch(tile, x, w, epi, (1, 1), (1, 1),
+                      outs=[buf0[..., 16:16 + widths[0]], buf1[..., 3:3 + widths[1]], None, None])
     want = ic.conv_int8_plain(x, w, epi, (1, 1), (1, 1))
     for g, wt in zip(outs, want):
         _same(g, wt)
@@ -208,7 +256,7 @@ def test_conv_int8_mixed_tiles(dev, widths):
     epi = ic.Epilogue.build([_segment(k, n, rng) for k, n in zip(kinds, widths)], dev)
     want = ic.conv_int8_plain(x, w, epi, (1, 1), (1, 1))
     for bm, bn in ic.CONFIGS[16]:
-        got = ic.conv_int8(x, w, epi, (1, 1), (1, 1), tile=ic.TileConfig(16, bm, bn))
+        got = ic._launch(ic.TileConfig(16, bm, bn), x, w, epi, (1, 1), (1, 1))
         for g, wt in zip(got, want):
             _same(g, wt)
 
@@ -233,9 +281,9 @@ def test_conv_int8_rejects_a_tile_it_does_not_have(dev):
     w = _i8(dev, (40, 1, 1, 20), -5, 5)
     epi = ic.Epilogue.build([_segment("shift", 40, rng)], dev)
     with pytest.raises(ValueError):     # 16-byte copies of Cin 20
-        ic.conv_int8(x, w, epi, tile=ic.TileConfig(16, 128, 64))
+        ic._launch(ic.TileConfig(16, 128, 64), x, w, epi)
     with pytest.raises(ValueError):     # not an instantiated width
-        ic.conv_int8(x, w, epi, tile=ic.TileConfig(4, 128, 48))
+        ic._launch(ic.TileConfig(4, 128, 48), x, w, epi)
 
 
 @pytest.mark.parametrize("kind", ["shift", "f32", "dequant", "pre"])

@@ -74,8 +74,9 @@
 //   (the Cin 3 stem of the float front).  The served s2d program never
 //   takes it; ops/int8_conv.py counts its launches apart.
 //
-// The extern "C" entry point launches on the given stream, allocates
-// nothing, and returns cudaGetLastError().
+// The extern "C" entry point launches on the given stream of the given
+// device (the caller's current one), allocates nothing, and returns
+// cudaGetLastError().
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
@@ -1109,14 +1110,13 @@ int weight_map(const int8_t* w, int K, int Cout, int bn, CUtensorMap* out) {
 
 template <int G, int BM, int BN>
 int launch_wgmma(const int8_t* x, const int8_t* w, const Geom& g, int M, int K,
-                 const Consts& cst, const Segs& segs, cudaStream_t st) {
+                 const Consts& cst, const Segs& segs, int dev, cudaStream_t st) {
   constexpr int smem = wgmma_smem_bytes<BM, BN>();
-  // Per device: the shared-memory limit raised once, and blocks per SM.
+  // Per device (the caller's current one): the shared-memory limit raised
+  // once, and blocks per SM.
   static int resident[32] = {0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (dev < 0 || dev >= 32) return (int)cudaErrorInvalidDevice;
+  cudaError_t err = cudaSuccess;
   if (!resident[dev]) {
     err = cudaFuncSetAttribute(conv_int8_wgmma<G, BM, BN>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1158,7 +1158,8 @@ extern "C" int conv_int8(const void* x, long long x_stride, const void* w, int B
                          int sw, int ph, int pw, const void* bias_i, const void* shift,
                          const void* mul, const void* add, int nseg, const int* seg_end,
                          const int* seg_kind, const long long* seg_stride,
-                         void* const* seg_out, int load_bytes, int bm, int bn, void* stream) {
+                         void* const* seg_out, int load_bytes, int bm, int bn, int device,
+                         void* stream) {
   if (nseg < 1 || nseg > MAX_SEGS || seg_end[nseg - 1] != Cout) return (int)cudaErrorInvalidValue;
   Segs segs;
   segs.n = nseg;
@@ -1191,7 +1192,7 @@ extern "C" int conv_int8(const void* x, long long x_stride, const void* w, int B
     return (int)cudaErrorInvalidValue;
 #define DISPATCH(G_, BM_, BN_)                                                  \
   if (load_bytes == G_ && bm == BM_ && bn == BN_)                               \
-    return launch_wgmma<G_, BM_, BN_>(xp, wp, g, (int)M, (int)K, cst, segs, st);
+    return launch_wgmma<G_, BM_, BN_>(xp, wp, g, (int)M, (int)K, cst, segs, device, st);
   WGMMA_CONFIGS(DISPATCH)
 #undef DISPATCH
   return (int)cudaErrorInvalidValue;

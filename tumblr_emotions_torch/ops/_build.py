@@ -35,7 +35,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "int8_conv": {
         "conv_int8": [_P, _L, _P] + [_I] * 13 + [_P] * 4 + [_I, _P, _P, _P, _P]
-                     + [_I] * 3 + [_P],
+                     + [_I] * 4 + [_P],
     },
     "int8_pool": {
         "maxpool3x3s2_int8": [_P, _L, _P, _L, _I, _I, _I, _I, _I, _F, _P],

@@ -18,8 +18,9 @@ once.  The cuDNN convs run in f32 on the bf16-valued activations and
 weights (``F.conv2d`` on bf16 would return a bf16 accumulator, rounded
 before the bias and again after); on the card they allow TF32, which is
 exact here: TF32 holds every bf16 value, and the tensor cores form the
-products exactly and accumulate in f32.  The block kernels round once, as
-the TPU kernels do.
+products exactly and accumulate in f32 (``tests/test_torch_cuda.py``
+holds these convs to one rounding on the card).  The block kernels round
+once, as the TPU kernels do.
 
 The TPU knob ``images_per_block`` (images stacked per Pallas grid step to
 fill the MXU) is not carried over: the CUDA kernels tile over all pixels of
@@ -58,9 +59,9 @@ class FusedInceptionV3:
         self.use_kernels = use_kernels
         folded = fold_batchnorm(state)
         dev = self.device
-        self.w = {s: (w.to(dev, dtype), b.to(dev)) for s, (w, b) in folded.items()}
-        # The cuDNN convs' f32 copies of the (dtype-valued) weights.
-        self.w32 = {s: w.float() for s, (w, _) in self.w.items()}
+        # The cuDNN convs' weights: rounded to dtype, held in f32 (see Rounding).
+        self.w = {s: (w.to(dtype).to(dev, torch.float32), b.to(dev))
+                  for s, (w, b) in folded.items()}
         # The block kernels take tap stacks [kh*kw, Cin, Cout].
         self.taps = {s: (_taps(w).to(dev, dtype), b.to(dev))
                      for s, (w, b) in folded.items()
@@ -75,7 +76,7 @@ class FusedInceptionV3:
     # ---- building blocks ----
 
     def _conv(self, x, scope, strides=(1, 1), padding="VALID", relu=True):
-        w, b = self.w32[scope], self.w[scope][1]
+        w, b = self.w[scope]
         pad = (w.shape[2] // 2, w.shape[3] // 2) if padding == "SAME" else (0, 0)
         with tf32_convs():
             y = to_nhwc(F.conv2d(to_nchw(x).float(), w, stride=strides, padding=pad)) + b
@@ -92,7 +93,7 @@ class FusedInceptionV3:
         """
         key = tuple(scopes)
         if key not in self._packs:
-            self._packs[key] = (torch.cat([self.w32[s] for s in scopes]),
+            self._packs[key] = (torch.cat([self.w[s][0] for s in scopes]),
                                 torch.cat([self.w[s][1] for s in scopes]))
         w, b = self._packs[key]
         with tf32_convs():

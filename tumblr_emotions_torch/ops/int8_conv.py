@@ -135,15 +135,15 @@ def pick_tile(m: int, cout: int, k: int, load_bytes: int) -> TileConfig:
     return min(pool, key=lambda c: (_tile_cost(m, cout, k, c.bm, c.bn), -c.bm * c.bn))
 
 
-def _pixel_layout(x: torch.Tensor) -> torch.Tensor:
-    """``x`` where its channels are contiguous within NHWC pixels (a channel
-    slice qualifies), else a contiguous copy (the float front's stem input
-    is a permuted view)."""
+def _nhwc_stride(x: torch.Tensor) -> Optional[int]:
+    """The pixel stride of ``x`` where its channels are contiguous within
+    NHWC pixels (a channel slice qualifies), else None: the wrapper then
+    copies it (the float front's stem input is a permuted view)."""
     B, H, W, C = x.shape
     s = x.stride()
     if s[3] == 1 and s[2] >= C and s[1] == W * s[2] and s[0] == H * s[1]:
-        return x
-    return x.contiguous()
+        return s[2]
+    return None
 
 
 def _copy_width(cin: int, x_stride: int, x_ptr: int, w_ptr: int) -> int:
@@ -156,9 +156,13 @@ def _copy_width(cin: int, x_stride: int, x_ptr: int, w_ptr: int) -> int:
 def load_bytes(x: torch.Tensor, w: torch.Tensor) -> int:
     """Copy width of a conv's input: 16 bytes where Cin, the input pixel
     stride and both pointers are multiples of 16, else 4 where they are
-    multiples of 4, else 1 (the byte-load kernel)."""
-    x = _pixel_layout(x)
-    return _copy_width(x.shape[-1], _pixel_stride(x, "x"), x.data_ptr(), w.data_ptr())
+    multiples of 4, else 1 (the byte-load kernel).  An input that must be
+    copied counts as its copy: contiguous and aligned."""
+    cin = x.shape[-1]
+    xs = _nhwc_stride(x)
+    if xs is None:
+        return _copy_width(cin, cin, 0, w.data_ptr())
+    return _copy_width(cin, xs, x.data_ptr(), w.data_ptr())
 
 
 def conv_config(x: torch.Tensor, w: torch.Tensor, strides=(1, 1), pad=(0, 0)) -> TileConfig:
@@ -194,10 +198,12 @@ class Epilogue:
                     or t.device != self.bias_i.device:
                 raise ValueError(f"epilogue {name}: {t.dtype} {tuple(t.shape)} on {t.device}, "
                                  f"expected contiguous {dt} ({n},) beside bias_i")
-        # The kernel's segment table, built once (ctypes arrays).
+        # The kernel's segment table, built once (ctypes arrays), and the
+        # plans of the operand geometries this epilogue's conv has seen.
         k = len(self.kinds)
         object.__setattr__(self, "c_ends", (ctypes.c_int * k)(*np.cumsum(self.widths).tolist()))
         object.__setattr__(self, "c_kinds", (ctypes.c_int * k)(*[KINDS.index(x) for x in self.kinds]))
+        object.__setattr__(self, "plans", {})
 
     @staticmethod
     def build(segments: Sequence[tuple], device) -> "Epilogue":
@@ -277,21 +283,23 @@ def conv_int8_plain(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
     return apply_epilogue_plain(to_nhwc(acc).to(torch.int32), epi, outs)
 
 
-def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
-              strides: Tuple[int, int] = (1, 1), pad: Tuple[int, int] = (0, 0),
-              outs: Optional[Sequence[Optional[torch.Tensor]]] = None,
-              tile: Optional[TileConfig] = None) -> List[torch.Tensor]:
-    """int8 conv + per-segment epilogue: one tensor per segment of ``epi``.
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """What :func:`conv_int8` decides once per operand geometry: the kernel
+    and tile, the outputs' shapes, the input's pixel stride (of its copy
+    where ``copy``), and the C call's geometry arguments."""
 
-    x: [B,H,W,Cin] int8 NHWC; may be a channel slice of a larger tensor.
-    w: [Cout,kh,kw,Cin] int8, contiguous.  ``pad``: zero padding (top and
-    bottom, left and right).  outs: optional destination per segment
-    ([B,Ho,Wo,width] of the kind's dtype, channels contiguous; a channel
-    slice qualifies); None entries are allocated.  ``tile``: the kernel
-    and tile to launch instead of :func:`conv_config`'s (the card tests
-    run every configuration); it must be one the kernel has and the
-    operands allow.
-    """
+    cfg: TileConfig
+    out_shapes: Tuple[Tuple[int, int, int, int], ...]
+    x_stride: int
+    copy: bool
+    geom: Tuple[int, ...]
+
+
+def _plan(x: torch.Tensor, w: torch.Tensor, epi: Epilogue, strides, pad,
+          cfg: Optional[TileConfig] = None) -> _Plan:
+    """Check the operands' shapes and decide the launch (:func:`conv_config`'s
+    tile, or ``cfg`` where it is one the kernel has for these operands)."""
     B, H, W, cin = x.shape
     cout, kh, kw, cin_w = w.shape
     if cin_w != cin or sum(epi.widths) != cout:
@@ -303,11 +311,58 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
     if Ho < 1 or Wo < 1:
         raise ValueError(f"conv_int8: empty output for x {tuple(x.shape)}, kernel "
                          f"{(kh, kw)}, strides {strides}, pad {pad}")
-    outs = list(outs) if outs is not None else [None] * len(epi.kinds)
-    for dst, kind, n in zip(outs, epi.kinds, epi.widths):
-        if dst is not None and (tuple(dst.shape) != (B, Ho, Wo, n) or dst.dtype != OUT_DTYPE[kind]):
-            raise ValueError(f"conv_int8: {kind} output {tuple(dst.shape)} {dst.dtype}, "
-                             f"expected {(B, Ho, Wo, n)} {OUT_DTYPE[kind]}")
+    xs = _nhwc_stride(x)
+    auto = pick_tile(B * Ho * Wo, cout, kh * kw * cin, load_bytes(x, w))
+    if cfg is None:
+        cfg = auto
+    elif not ((cfg.bm, cfg.bn) == (64, 64) if cfg.load_bytes == 1 else (
+            (cfg.bm, cfg.bn) in CONFIGS.get(cfg.load_bytes, ()) and
+            cfg.load_bytes <= auto.load_bytes)):
+        raise ValueError(f"conv_int8: tile {cfg} is not one the kernel has for these "
+                         f"operands (copy width {auto.load_bytes})")
+    return _Plan(cfg, tuple((B, Ho, Wo, n) for n in epi.widths),
+                 cin if xs is None else xs, xs is None,
+                 (B, H, W, cin, Ho, Wo, cout, kh, kw, int(strides[0]), int(strides[1]),
+                  int(pad[0]), int(pad[1])))
+
+
+def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
+              strides: Tuple[int, int] = (1, 1), pad: Tuple[int, int] = (0, 0),
+              outs: Optional[Sequence[Optional[torch.Tensor]]] = None) -> List[torch.Tensor]:
+    """int8 conv + per-segment epilogue: one tensor per segment of ``epi``.
+
+    x: [B,H,W,Cin] int8 NHWC; may be a channel slice of a larger tensor.
+    w: [Cout,kh,kw,Cin] int8, contiguous.  ``pad``: zero padding (top and
+    bottom, left and right).  outs: optional destination per segment
+    ([B,Ho,Wo,width] of the kind's dtype, channels contiguous; a channel
+    slice qualifies); None entries are allocated.  The shape checks and the
+    tile are decided once per operand geometry and kept on ``epi``, which
+    an engine builds once per conv site.
+    """
+    key = (x.shape, x.stride(), x.data_ptr() & 15, w.shape, w.data_ptr() & 15, *strides, *pad)
+    plan = epi.plans.get(key)
+    if plan is None:
+        plan = epi.plans[key] = _plan(x, w, epi, strides, pad)
+    return _run(plan, x, w, epi, strides, pad, outs)
+
+
+def _launch(cfg: TileConfig, x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
+            strides=(1, 1), pad=(0, 0), outs=None) -> List[torch.Tensor]:
+    """:func:`conv_int8` on a given kernel and tile (the card tests and
+    ``tile_sweep`` run every one); raises ValueError for a tile the kernel
+    does not have for these operands."""
+    return _run(_plan(x, w, epi, strides, pad, cfg), x, w, epi, strides, pad, outs)
+
+
+def _run(plan: _Plan, x, w, epi: Epilogue, strides, pad, outs) -> List[torch.Tensor]:
+    if outs is None:
+        outs = [None] * len(plan.out_shapes)
+    else:
+        outs = list(outs)
+        for dst, kind, shape in zip(outs, epi.kinds, plan.out_shapes):
+            if dst is not None and (dst.shape != shape or dst.dtype != OUT_DTYPE[kind]):
+                raise ValueError(f"conv_int8: {kind} output {tuple(dst.shape)} {dst.dtype}, "
+                                 f"expected {shape} {OUT_DTYPE[kind]}")
     if x.device.type == "cpu":
         return conv_int8_plain(x, w, epi, strides, pad, outs)
     dev = x.device
@@ -318,28 +373,17 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
         raise ValueError(f"conv_int8: w, the epilogue and the outputs must be on {dev}")
     if not w.is_contiguous():
         raise ValueError("conv_int8: w must be contiguous")
-    outs = [torch.empty(B, Ho, Wo, n, dtype=OUT_DTYPE[kind], device=dev)
-            if dst is None else dst for dst, kind, n in zip(outs, epi.kinds, epi.widths)]
-    x = _pixel_layout(x)
-    x_stride = _pixel_stride(x, "x")
-    cfg = pick_tile(B * Ho * Wo, cout, kh * kw * cin,
-                    _copy_width(cin, x_stride, x.data_ptr(), w.data_ptr()))
-    if tile is not None:
-        allowed = (tile.bm, tile.bn) == (64, 64) if tile.load_bytes == 1 else (
-            (tile.bm, tile.bn) in CONFIGS.get(tile.load_bytes, ()) and
-            tile.load_bytes <= cfg.load_bytes)
-        if not allowed:
-            raise ValueError(f"conv_int8: tile {tile} is not one the kernel has for these "
-                             f"operands (copy width {cfg.load_bytes})")
-        cfg = tile
-    n = len(outs)
-    args = (x.data_ptr(), x_stride, w.data_ptr(), B, H, W, cin, Ho, Wo, cout,
-            kh, kw, int(strides[0]), int(strides[1]), int(pad[0]), int(pad[1]),
+    outs = [torch.empty(shape, dtype=OUT_DTYPE[kind], device=dev) if dst is None else dst
+            for dst, kind, shape in zip(outs, epi.kinds, plan.out_shapes)]
+    if plan.copy:
+        x = x.contiguous()
+    cfg, n = plan.cfg, len(outs)
+    args = (x.data_ptr(), plan.x_stride, w.data_ptr(), *plan.geom,
             epi.bias_i.data_ptr(), epi.shift.data_ptr(), epi.mul.data_ptr(),
             epi.add.data_ptr(), n, epi.c_ends, epi.c_kinds,
             (ctypes.c_longlong * n)(*[_pixel_stride(o, f"output {i}") for i, o in enumerate(outs)]),
             (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
-            cfg.load_bytes, cfg.bm, cfg.bn, torch.cuda.current_stream(dev).cuda_stream)
+            cfg.load_bytes, cfg.bm, cfg.bn, dev.index, _raw_stream(dev))
     lib = _build.library("int8_conv")
     if dev.index == torch.cuda.current_device():
         err = lib.conv_int8(*args)
@@ -351,6 +395,14 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, epi: Epilogue,
     if cfg.load_bytes == 1:
         conv_int8.byte_launches += 1
     return outs
+
+
+def _raw_stream(dev: torch.device) -> int:
+    """The current stream's handle on ``dev``, by the call PyTorch's own
+    kernel launchers use (a fraction of ``current_stream(dev).cuda_stream``'s
+    host time) where this build of PyTorch has it."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(dev.index) if get is not None else torch.cuda.current_stream(dev).cuda_stream
 
 
 conv_int8.launches = 0

@@ -20,6 +20,7 @@ import torch
 
 from tumblr_emotions_torch._device import card_line, resolve_device
 from tumblr_emotions_torch.ops import int8_conv as ic
+from tumblr_emotions_torch.timing import graph_ms
 
 # (site, H, W, Cin, Cout, kernel, SAME padding)
 SHAPES = [
@@ -34,24 +35,6 @@ SHAPES = [
     ("Mixed_7b 1x3", 8, 8, 384, 384, (1, 3), True),
     ("Mixed_7c packed", 8, 8, 2048, 1344, (1, 1), False),
 ]
-
-
-def graph_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(iters):
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        g.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (iters * reps)
 
 
 def main() -> int:
@@ -76,10 +59,9 @@ def main() -> int:
         times = {}
         for bm, bn in ic.CONFIGS[pick.load_bytes]:
             tile = ic.TileConfig(pick.load_bytes, bm, bn)
-            if not torch.equal(ic.conv_int8(x, w, epi, (1, 1), pad, tile=tile)[0], want):
+            if not torch.equal(ic._launch(tile, x, w, epi, (1, 1), pad)[0], want):
                 raise SystemExit(f"{site}: tile {tile.name} differs from the plain version")
-            times[tile.name] = graph_ms(lambda t=tile: ic.conv_int8(x, w, epi, (1, 1), pad,
-                                                                    tile=t))
+            times[tile.name] = graph_ms(lambda t=tile: ic._launch(t, x, w, epi, (1, 1), pad))
         best = min(times, key=times.get)
         off.append(times[pick.name] / times[best] - 1)
         print(json.dumps({"site": site, "shape": [args.batch, H, W, cin, cout, *kernel],
