@@ -12,13 +12,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                spills from ptxas (-Xptxas -v), by kernel and template.
 3. kernels  -- each hand-written kernel against its plain PyTorch version on
                the card, in bf16, at the full-width shapes the served path
-               gives it (B=64): conv_same_bias_relu at every conv of Mixed_5b
-               and Mixed_6b, avg_pool3_same at 35x35x288 and 17x17x768, the
-               Inception-A block (Mixed_5b/5c/5d) and the Inception-B block
-               (Mixed_6b/6c/6e).  Times by CUDA events.
+               gives it (B=64): the block conv at every conv of Mixed_5b and
+               Mixed_6b and at both blocks' packed and pooled 1x1 launches
+               (tile, ms from Python and graph_ms in CUDA graphs, each with
+               its share of the bound, beside bf16 F.conv2d and the cuDNN
+               engine's f32-on-bf16 conv), the Inception-A block
+               (Mixed_5b/5c/5d) and the Inception-B block (Mixed_6b/6c/6e)
+               beside the cuDNN engine's blocks.
 4. e2e      -- the served program image_server(FusedInceptionV3(state,
                use_kernels=True)) on 3 uint8 [64,347,347,3] batches with
-               seeded full-width weights; launch counts, probabilities, and
+               seeded full-width weights; launch counts (5 and 8 block-conv
+               launches per Inception-A/B block), probabilities, and
                logits/top-1 against the f32 slim tower (TF32 off); img/s of
                the kernel engine and of the cuDNN engine (use_kernels=False).
 5. kernel_check conv_int8 -- the int8 engine's conv kernel against its
@@ -87,6 +91,9 @@ INT8_PROB_TOL = 1e-6
 STAGES = ("stem", "Mixed_5d", "Mixed_6a", "Mixed_6e", "Mixed_7a")
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
+# The block conv's pooled form (the 3x3 average pool fused into Branch_3's
+# 1x1): a template of the same kernel, listed and counted apart.
+POOLED = "conv_same_bias_relu pooled"
 
 
 def emit(obj) -> None:
@@ -124,12 +131,12 @@ def compare(name: str, got, want, tol: float) -> float:
 
 
 def check_launches(launches) -> None:
-    """Per served batch: 3 Inception-A and 4 Inception-B blocks, whose
-    7 and 10 convs and one pool each go through the kernels; the int8
-    kernels are not on this path."""
+    """Per served batch: 3 Inception-A and 4 Inception-B blocks, each a plan
+    of 5 and 8 launches of the block conv, one of them its pooled form; the
+    int8 kernels are not on this path."""
     want = {"fused_inception_a": 3 * N_BATCHES, "fused_inception_b": 4 * N_BATCHES,
-            "conv_same_bias_relu": (3 * 7 + 4 * 10) * N_BATCHES,
-            "avg_pool3_same": 7 * N_BATCHES, "conv_int8": 0, "maxpool3x3s2_int8": 0}
+            "conv_same_bias_relu": (3 * 5 + 4 * 8) * N_BATCHES, POOLED: 7 * N_BATCHES,
+            "conv_int8": 0, "maxpool3x3s2_int8": 0}
     if launches != want:
         fail(f"launch counts {launches} != {want}")
 
@@ -164,7 +171,8 @@ def ptxas_report(log: str) -> list:
                              and at + k <= len(mangled)), None)
                 if cand:
                     rest = mangled[at + len(cand):]
-                    args = re.findall(r"Li(\d+)E", rest.split("EEv")[0]) if rest.startswith("I") else []
+                    args = re.findall(r"L[ib](\d+)(?=E)", rest.split("EEv")[0] + "E") \
+                        if rest.startswith("I") else []
                     name = cand + (f"<{','.join(args)}>" if args else "")
                     break
             out.append({"kernel": name})
@@ -411,19 +419,24 @@ def _wrappers():
     from tumblr_emotions_torch.ops import int8_pool as ip
 
     return (fi.fused_inception_a, fi.fused_inception_b, fi.conv_same_bias_relu,
-            fi.avg_pool3_same, ic.conv_int8, ip.maxpool3x3s2_int8)
+            ic.conv_int8, ip.maxpool3x3s2_int8)
 
 
 def reset_all_launches() -> None:
+    from tumblr_emotions_torch.ops import fused_inception as fi
     from tumblr_emotions_torch.ops import int8_conv as ic
 
     for fn in _wrappers():
         fn.launches = 0
+    fi.conv_same_bias_relu.pooled_launches = 0
     ic.conv_int8.byte_launches = 0
 
 
 def all_launches() -> dict:
-    return {fn.__name__: fn.launches for fn in _wrappers()}
+    from tumblr_emotions_torch.ops import fused_inception as fi
+
+    return {**{fn.__name__: fn.launches for fn in _wrappers()},
+            POOLED: fi.conv_same_bias_relu.pooled_launches}
 
 
 def main() -> int:
@@ -436,10 +449,10 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from tumblr_emotions_torch._device import card_line, resolve_device
+    from tumblr_emotions_torch._device import card_line, resolve_device, tf32_convs
     from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
     from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
-    from tumblr_emotions_torch.models.layers import to_nchw
+    from tumblr_emotions_torch.models.layers import to_nchw, to_nhwc
     from tumblr_emotions_torch.ops import _build
     from tumblr_emotions_torch.ops import fused_inception as fi
     from tumblr_emotions_torch.ops.inference import FusedInceptionV3
@@ -485,50 +498,83 @@ def main() -> int:
         rows.setdefault(kernel, []).append(r)
         emit({"phase": "kernel_check", "kernel": kernel, **r})
 
-    # ---- 3a. conv_same_bias_relu at every conv of Mixed_5b and Mixed_6b ----
-    for scope, hw, branches in (("Mixed_5b", 35, fi.inception_a_branches(False)),
-                                ("Mixed_6b", 17, fi.INCEPTION_B_BRANCHES)):
+    # ---- 3a. the block conv: every conv of Mixed_5b and Mixed_6b, and the
+    # packed and pooled launches of both blocks ----
+    def conv_rows(scope, hw):
+        """(label, form, ConvOp, input, the conv scopes whose cuDNN weights
+        compute the same function, kernel) per launch timed."""
+        plan = eng_k.block_plans[scope]
+        branches = fi.inception_a_branches(False) if scope == "Mixed_5b" else \
+            fi.INCEPTION_B_BRANCHES
+        out = []
         for _, chain in branches:
             for name, kernel in chain:
-                w, b = eng_k.taps[f"{scope}/{name}"]
-                _, cin, cout = w.shape
-                x = act(BATCH, hw, hw, cin)
-                got = fi.conv_same_bias_relu(x, w, b, kernel)
-                want = fi.conv_same_bias_relu_plain(x, w, b, kernel)
-                torch.cuda.synchronize()
-                err = compare(f"conv {scope}/{name}", got, want, KERNEL_TOL)
-                w_oihw = eng_c.w[f"{scope}/{name}"][0].to(
-                    torch.bfloat16, memory_format=torch.channels_last)
-                x_nchw = to_nchw(x)
-                pad = (kernel[0] // 2, kernel[1] // 2)
-                b_bf16 = b.to(torch.bfloat16)
-                m = BATCH * hw * hw
-                flops = 2.0 * m * cout * cin * kernel[0] * kernel[1]
-                nbytes = 2.0 * (m * cin + m * cout + w.numel()) + 4 * cout
-                record("conv_same_bias_relu", shape=f"{scope}/{name} [{BATCH},{hw},{hw},{cin}]->{cout} k{kernel}",
-                       max_abs_err=err, max_rel_err=err / want.float().abs().max().item(),
-                       tol=KERNEL_TOL,
-                       ms=cuda_ms(lambda: fi.conv_same_bias_relu(x, w, b, kernel)),
-                       plain_ms=cuda_ms(lambda: fi.conv_same_bias_relu_plain(x, w, b, kernel)),
-                       library_ms=cuda_ms(lambda: F.conv2d(x_nchw, w_oihw, b_bf16, padding=pad)),
-                       **bound(flops, nbytes))
+                s = f"{scope}/{name}"
+                op = fi.ConvOp([eng_k.taps[s]], kernel)
+                out.append((s, "conv", op, act(BATCH, hw, hw, op.cin), [s], kernel))
+        packed, pooled = plan.launches[0], plan.launches[-1]
+        heads = [f"{scope}/{chain[0][0]}" for p, chain in branches if not p]
+        out.append((f"{scope} packed 1x1", "packed", packed.op,
+                    act(BATCH, hw, hw, packed.op.cin), heads, (1, 1)))
+        out.append((f"{scope} pooled 1x1", "pooled", pooled.op,
+                    act(BATCH, hw, hw, pooled.op.cin), [f"{scope}/{branches[3][1][0][0]}"],
+                    (1, 1)))
+        return out
 
-    # ---- 3b. avg_pool3_same ----
-    for hw, c in ((35, 288), (17, 768)):
-        x = act(BATCH, hw, hw, c)
-        got, want = fi.avg_pool3_same(x), fi.avg_pool3_same_plain(x)
-        torch.cuda.synchronize()
-        err = compare(f"avg_pool3 {hw}x{hw}x{c}", got, want, KERNEL_TOL)
-        n = BATCH * hw * hw * c
-        x_nchw = to_nchw(x)
-        record("avg_pool3_same", shape=f"[{BATCH},{hw},{hw},{c}]", max_abs_err=err,
-               max_rel_err=err / want.float().abs().max().item(), tol=KERNEL_TOL,
-               ms=cuda_ms(lambda: fi.avg_pool3_same(x)),
-               plain_ms=cuda_ms(lambda: fi.avg_pool3_same_plain(x)),
-               library_ms=cuda_ms(lambda: F.avg_pool2d(x_nchw, 3, 1, 1, count_include_pad=False)),
-               **bound(9.0 * n, 4.0 * n, peak=H100_F32_FLOPS))
+    for scope, hw in (("Mixed_5b", 35), ("Mixed_6b", 17)):
+        for label, form, op, x, scopes, kernel in conv_rows(scope, hw):
+            got = op(x)
+            want = fi.conv_segments_plain(x, op, [torch.empty_like(g) for g in got])
+            torch.cuda.synchronize()
+            err = max(compare(f"conv {label}", g, w, KERNEL_TOL) for g, w in zip(got, want))
+            wmax = max(w.float().abs().max().item() for w in want)
+            pad = (kernel[0] // 2, kernel[1] // 2)
+            # The same function in one PyTorch call: bf16 F.conv2d (rounds its
+            # accumulator before the bias), and the f32-on-bf16 cuDNN conv the
+            # cuDNN engine runs (TF32 allowed, one rounding); the pooled form
+            # pools first in each.
+            w_oihw = torch.cat([eng_c.w[s][0] for s in scopes])
+            b32 = torch.cat([eng_c.w[s][1] for s in scopes])
+            w16 = w_oihw.to(torch.bfloat16, memory_format=torch.channels_last)
+            b16 = b32.to(torch.bfloat16)
+            x_nchw = to_nchw(x)
+            pool = (lambda t: F.avg_pool2d(t, 3, 1, 1, count_include_pad=False)) \
+                if form == "pooled" else (lambda t: t)
 
-    # ---- 3c. the blocks (K2, K3) against their plain versions ----
+            def bf16_conv(x_nchw=x_nchw, w16=w16, b16=b16, pad=pad, pool=pool):
+                return F.relu(F.conv2d(pool(x_nchw), w16, b16, padding=pad))
+
+            def cudnn_conv(x_nchw=x_nchw, w_oihw=w_oihw, b32=b32, pad=pad, pool=pool):
+                with tf32_convs():
+                    y = F.conv2d(pool(x_nchw.float()), w_oihw, padding=pad)
+                return to_nhwc(y).add_(b32).relu_().to(torch.bfloat16)
+
+            m = BATCH * hw * hw
+            flops = 2.0 * m * op.cout * op.w.shape[1]
+            nbytes = 2.0 * (m * op.cin + m * op.cout + op.w.numel()) + 4 * op.cout
+            b = bound(flops, nbytes)
+            ms, g_ms = cuda_ms(lambda: op(x)), graph_ms(lambda: op(x))
+            record("conv_same_bias_relu" if form != "pooled" else POOLED,
+                   shape=f"{label} [{BATCH},{hw},{hw},{op.cin}]->{op.cout} k{kernel}",
+                   form=form, segments=list(op.widths),
+                   tile=fi.pick_tile(m, op.cout, op.w.shape[1], op.pooled,
+                                     hw if op.pooled else 0).name,
+                   max_abs_err=err, max_rel_err=err / wmax, tol=KERNEL_TOL,
+                   ms=ms, graph_ms=g_ms, pct_of_bound=100.0 * b["bound_ms"] / ms,
+                   graph_pct_of_bound=100.0 * b["bound_ms"] / g_ms,
+                   timing="ms, library_ms, cudnn_f32_ms: 20 calls launched from Python "
+                          "between CUDA events; *graph_ms: a CUDA graph of 20 calls "
+                          "(device time)",
+                   plain_ms=cuda_ms(lambda: fi.conv_segments_plain(x, op, want), iters=5,
+                                    warmup=1),
+                   library_ms=cuda_ms(bf16_conv), library_graph_ms=graph_ms(bf16_conv),
+                   library_note="bf16 F.conv2d + bias + ReLU (rounds twice: not the same "
+                                "rounding)",
+                   cudnn_f32_ms=cuda_ms(cudnn_conv), cudnn_f32_graph_ms=graph_ms(cudnn_conv),
+                   cudnn_f32_note="the cuDNN engine's conv: f32 on the bf16 values, TF32, "
+                                  "bias, ReLU, one rounding", **b)
+
+    # ---- 3b. the blocks (K2, K3) against their plain versions ----
     def block_cost(scope, branches, hw, cin):
         m = BATCH * hw * hw
         flops, wbytes, cout = 0.0, 0.0, 0
@@ -559,10 +605,15 @@ def main() -> int:
         got, want = kfn(x), pfn(x)
         torch.cuda.synchronize()
         err = compare(f"{kname} {scope}", got, want, KERNEL_TOL)
+        b = block_cost(scope, branches, hw, cin)
+        ms, g_ms = cuda_ms(lambda: kfn(x)), graph_ms(lambda: kfn(x))
         record(kname, shape=f"{scope} [{BATCH},{hw},{hw},{cin}]->{got.shape[-1]}",
                max_abs_err=err, max_rel_err=err / want.float().abs().max().item(),
-               tol=KERNEL_TOL, ms=cuda_ms(lambda: kfn(x)), plain_ms=cuda_ms(lambda: pfn(x)),
-               library_ms=cuda_ms(lambda: lfn(x)), **block_cost(scope, branches, hw, cin))
+               tol=KERNEL_TOL, ms=ms, graph_ms=g_ms, pct_of_bound=100.0 * b["bound_ms"] / ms,
+               graph_pct_of_bound=100.0 * b["bound_ms"] / g_ms,
+               plain_ms=cuda_ms(lambda: pfn(x)),
+               library_ms=cuda_ms(lambda: lfn(x)), library_graph_ms=graph_ms(lambda: lfn(x)),
+               library_note="the cuDNN engine's block (FusedInceptionV3._cudnn_block)", **b)
 
     # ---- 4. end to end: the served kernel path ----
     rng = np.random.RandomState(SEED)
@@ -649,7 +700,7 @@ def main() -> int:
         "fused_inception_a": (src, f"{REPLACES}:230", launches),
         "fused_inception_b": (src, f"{REPLACES}:283", launches),
         "conv_same_bias_relu": (src, f"{REPLACES}:127", launches),
-        "avg_pool3_same": (src, f"{REPLACES}:147", launches),
+        POOLED: (src, f"{REPLACES}:147", launches),
         "conv_int8": ("tumblr_emotions_torch/csrc/int8_conv.cu",
                       "tumblr_emotions_tpu/ops/pallas_conv.py:105", int8_launches),
         "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
@@ -674,6 +725,25 @@ def main() -> int:
             "shapes": len(rs)}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
+        if name in ("conv_same_bias_relu", POOLED):
+            # ms: calls from Python between CUDA events; graph_ms: device time
+            # in CUDA graphs; over Mixed_5b's and 6b's convs and their packed
+            # 1x1s (the 17 convs alone in ms_17, graph_ms_17, as the kernels
+            # line summed them before the packed launch), or their pooled
+            # 1x1s.  cudnn_f32: the cuDNN engine's conv of the same function.
+            entry["graph_ms"] = sum(r["graph_ms"] for r in rs)
+            entry["library_graph_ms"] = sum(r["library_graph_ms"] for r in rs)
+            entry["cudnn_f32_ms"] = sum(r["cudnn_f32_ms"] for r in rs)
+            entry["cudnn_f32_graph_ms"] = sum(r["cudnn_f32_graph_ms"] for r in rs)
+            entry["tiles"] = sorted({r["tile"] for r in rs})
+            if name == "conv_same_bias_relu":
+                single = [r for r in rs if r["form"] == "conv"]
+                entry["ms_17"] = sum(r["ms"] for r in single)
+                entry["graph_ms_17"] = sum(r["graph_ms"] for r in single)
+                entry["bound_ms_17"] = sum(r["bound_ms"] for r in single)
+        if name in ("fused_inception_a", "fused_inception_b"):
+            entry["graph_ms"] = sum(r["graph_ms"] for r in rs)
+            entry["library_graph_ms"] = sum(r["library_graph_ms"] for r in rs)
         if name == "conv_int8":
             # ms: calls from Python between CUDA events; graph_ms: device
             # time in CUDA graphs; both over one conv per form (shapes).

@@ -184,8 +184,8 @@ def test_wrappers_never_fall_back_off_the_cpu(folded):
     before = (tfi.conv_same_bias_relu.launches, tfi.fused_inception_a.launches)
     with pytest.raises((ValueError, RuntimeError)):
         tfi.conv_same_bias_relu(x, w.to(torch.bfloat16), b, (1, 1))
-    with pytest.raises((ValueError, RuntimeError)):
-        tfi.avg_pool3_same(x)
+    with pytest.raises((ValueError, RuntimeError)):       # the pooled form
+        tfi.ConvOp([(w.to(torch.bfloat16), b)], (1, 1), pooled=True)(x)
     with pytest.raises((ValueError, RuntimeError)):
         tfi.fused_inception_a(x, taps, "Mixed_5b")
     assert (tfi.conv_same_bias_relu.launches, tfi.fused_inception_a.launches) == before

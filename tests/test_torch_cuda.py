@@ -126,33 +126,148 @@ def test_bf16_convs_round_once_on_the_card(dev, which):
     assert (got != want).double().mean().item() <= ROUNDING_SHARE_MAX
 
 
-@pytest.mark.parametrize("hw,c", [(35, 144), (17, 384)])
-def test_avg_pool_kernel_matches_plain(dev, hw, c):
-    x = _act(dev, 2, hw, hw, c)
-    _close(fi.avg_pool3_same(x), fi.avg_pool3_same_plain(x))
-
-
-def test_avg_pool_kernel_rejects_what_it_does_not_take(dev):
-    x = _act(dev, 1, 17, 17, 24)
-    with pytest.raises(ValueError):
-        fi.avg_pool3_same(x[..., :20].contiguous())          # C % 8
-    with pytest.raises(ValueError):
-        fi.avg_pool3_same(x[..., :16])                       # not contiguous
-    with pytest.raises(ValueError):
-        fi.avg_pool3_same(x.float())                         # f32
-
-
-@pytest.mark.parametrize("scope", ["Mixed_5b", "Mixed_5c", "Mixed_6b", "Mixed_6e"])
+@pytest.mark.parametrize("scope", ["Mixed_5b", "Mixed_5c", "Mixed_5d", "Mixed_6b", "Mixed_6c",
+                                   "Mixed_6e"])
 def test_block_kernels_match_plain(dev, taps, scope):
     cin = taps[f"{scope}/Branch_0/Conv2d_0a_1x1"][0].shape[1]
     hw = 35 if scope.startswith("Mixed_5") else 17
     x = _act(dev, 2, hw, hw, cin, seed=1)
+    before = (fi.conv_same_bias_relu.launches, fi.conv_same_bias_relu.pooled_launches)
     if scope.startswith("Mixed_5"):
         q = scope == "Mixed_5c"
         got, want = fi.fused_inception_a(x, taps, scope, q), fi.fused_inception_a_plain(x, taps, scope, q)
     else:
         got, want = fi.fused_inception_b(x, taps, scope), fi.fused_inception_b_plain(x, taps, scope)
     _close(got, want)
+    n = 5 if scope.startswith("Mixed_5") else 8
+    assert (fi.conv_same_bias_relu.launches - before[0],
+            fi.conv_same_bias_relu.pooled_launches - before[1]) == (n, 1)
+
+
+# ---------------------------------------------------------------------------
+# The block conv's forms and tiles (csrc/inception_blocks.cu)
+# ---------------------------------------------------------------------------
+
+
+def _op(dev, cin, widths, kernel, pooled=False, seed=0):
+    """A ConvOp over random weights: one tap stack per segment width."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kh, kw = kernel
+    parts = [((torch.randn(kh * kw, cin, n, generator=g, device=dev) / (kh * kw * cin) ** 0.5)
+              .to(torch.bfloat16), torch.randn(n, generator=g, device=dev) * 0.1)
+             for n in widths]
+    return fi.ConvOp(parts, kernel, pooled)
+
+
+def _same_outs(got, op, x):
+    want = fi.conv_segments_plain(x, op, [torch.empty_like(g) for g in got])
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+_BF16_TILES = [fi.TileConfig(bm, bn, p) for p, tiles in sorted(fi.CONFIGS.items())
+               for bm, bn in tiles]
+
+
+@pytest.mark.parametrize("tile", _BF16_TILES, ids=lambda t: t.name.replace(" ", "-"))
+def test_block_conv_every_tile_ragged(dev, tile):
+    """Every tile the rule can pick, forced, on ragged edges: M = 3*13*11
+    not a multiple of BM, Cout = BN + 40 (a partial channel tile), K not a
+    multiple of 64, a channel-slice input, four segments, two of them into
+    channel slices of two different tensors."""
+    cin = 40 if tile.pooled else 48                # K = 40 or 432
+    kernel = (1, 1) if tile.pooled else (3, 3)
+    cout = tile.bn + 40
+    widths = (16, cout - 48, 24, 8)
+    op = _op(dev, cin, widths, kernel, tile.pooled, seed=tile.bm + tile.bn)
+    x = _act(dev, 3, 13, 11, 16 + cin + 8, seed=3)[..., 16:16 + cin]
+    buf0 = torch.zeros(3, 13, 11, widths[0] + 32, dtype=torch.bfloat16, device=dev)
+    buf1 = torch.zeros(3, 13, 11, widths[1] + 24, dtype=torch.bfloat16, device=dev)
+    outs = fi._run(op, x, [buf0[..., 16:16 + widths[0]], buf1[..., 8:8 + widths[1]], None, None],
+                   tile)
+    _same_outs(outs, op, x)
+    assert buf0[..., :16].abs().max().item() == 0 and buf0[..., -16:].abs().max().item() == 0
+    assert buf1[..., :8].abs().max().item() == 0 and buf1[..., -16:].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("cin,kernel", [(48, (5, 5)), (96, (3, 3)), (160, (1, 7)),
+                                        (288, (1, 1))])
+def test_block_conv_partial_k_steps(dev, cin, kernel):
+    """Cin not a multiple of 64: K steps that span two taps."""
+    op = _op(dev, cin, (96,), kernel, seed=cin)
+    x = _act(dev, 2, 17, 17, cin, seed=4)
+    _same_outs(op(x), op, x)
+
+
+@pytest.mark.parametrize("kernel", [(1, 7), (7, 1), (3, 3), (5, 5)])
+def test_block_conv_at_image_corners(dev, kernel):
+    """Images smaller than the kernel's reach: every pixel near a corner."""
+    op = _op(dev, 64, (64,), kernel, seed=sum(kernel))
+    x = _act(dev, 5, 4, 6, 64, seed=5)
+    _same_outs(op(x), op, x)
+
+
+def test_block_conv_packed_segments_into_two_tensors(dev):
+    """The packed 1x1: three segments, the first into a channel slice of
+    one tensor, the others into slices of another, as a block writes its
+    Branch_0 output and its intermediates."""
+    op = _op(dev, 192, (64, 48, 64), (1, 1), seed=6)
+    x = _act(dev, 2, 35, 35, 192, seed=6)
+    out = torch.zeros(2, 35, 35, 256, dtype=torch.bfloat16, device=dev)
+    tmp = torch.zeros(2, 35, 35, 48 + 64, dtype=torch.bfloat16, device=dev)
+    before = fi.conv_same_bias_relu.launches
+    got = op(x, [out[..., :64], tmp[..., :48], tmp[..., 48:]])
+    assert fi.conv_same_bias_relu.launches == before + 1
+    _same_outs(got, op, x)
+    assert out[..., 64:].abs().max().item() == 0
+
+
+@pytest.mark.parametrize("hw,cin,cout", [(35, 288, 64), (17, 768, 192)])
+def test_pooled_form_matches_plain(dev, hw, cin, cout):
+    op = _op(dev, cin, (cout,), (1, 1), pooled=True, seed=hw)
+    x = _act(dev, 4, hw, hw, cin, seed=7)
+    before = fi.conv_same_bias_relu.pooled_launches
+    got = op(x)
+    assert fi.conv_same_bias_relu.pooled_launches == before + 1
+    _close(got[0], fi.conv_same_bias_relu_plain(fi.avg_pool3_same_plain(x),
+                                                op.w.reshape(cout, 1, cin).permute(1, 2, 0),
+                                                op.bias, (1, 1)))
+
+
+def test_pooled_form_rounds_as_the_reference(dev):
+    """Through an identity 1x1 the pooled form returns its A operand: the
+    f32 sum of the in-image taps in the TPU kernel's order (dy, then dx),
+    divided by their count, rounded to bf16, bit for bit."""
+    c = 64
+    x = _act(dev, 2, 7, 9, c, seed=8) + 0.01
+    eye = torch.eye(c, device=dev).to(torch.bfloat16).reshape(1, c, c)
+    (got,) = fi.ConvOp([(eye, torch.zeros(c, device=dev))], (1, 1), pooled=True)(x)
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    ones = torch.nn.functional.pad(torch.ones(2, 7, 9, 1, device=dev), (0, 0, 1, 1, 1, 1))
+    s, n = torch.zeros(2, 7, 9, c, device=dev), torch.zeros(2, 7, 9, 1, device=dev)
+    for dy in range(3):
+        for dx in range(3):
+            s = s + xp[:, dy:dy + 7, dx:dx + 9]
+            n = n + ones[:, dy:dy + 7, dx:dx + 9]
+    torch.cuda.synchronize()
+    assert torch.equal(got, (s / n).to(torch.bfloat16))
+
+
+def test_block_conv_refuses_what_it_does_not_take(dev):
+    op = _op(dev, 32, (32,), (3, 3))
+    x = _act(dev, 1, 9, 9, 48)
+    with pytest.raises(ValueError):                   # f32 input
+        op(x[..., :32].float())
+    with pytest.raises(ValueError):                   # 8-byte aligned slice
+        op(x[..., 4:36])
+    with pytest.raises(ValueError):                   # a pixel stride not a multiple of 8
+        op(_act(dev, 1, 9, 9, 36)[..., :32])
+    with pytest.raises(ValueError):                   # output of the wrong dtype
+        op(x[..., :32], [torch.empty(1, 9, 9, 32, device=dev)])
+    with pytest.raises(ValueError):                   # a pooled 3x3
+        _op(dev, 32, (32,), (3, 3), pooled=True)
+    with pytest.raises(ValueError):                   # a tile of the other form
+        fi._run(op, x[..., :32], None, fi.TileConfig(64, 32, pooled=True))
 
 
 # ---------------------------------------------------------------------------

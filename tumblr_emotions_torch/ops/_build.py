@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` has a plain C interface, so each is compiled by ``nvcc``
 alone into its own shared library (seconds, where a source that includes
 PyTorch's headers takes minutes) under ``build/torch_kernels/`` beside the
-package, named by a hash of the source and flags so an edited source is
-rebuilt.  :func:`build` starts one ``nvcc`` per missing library, all at
-once.  Pointers and the stream are passed as ``ctypes.c_void_p``; each entry
-point returns ``cudaGetLastError()`` and :func:`check` raises on it.
+package, named by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header is rebuilt.  :func:`build`
+starts one ``nvcc`` per missing library, all at once.  Pointers and the
+stream are passed as ``ctypes.c_void_p``; each entry point returns
+``cudaGetLastError()`` and :func:`check` raises on it.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
@@ -30,8 +33,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # Entry points of each source: name -> argtypes (all return an int error).
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "inception_blocks": {
-        "conv_same_bias_relu_bf16": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-        "avg_pool3_same_bf16": [_P, _P, _I, _I, _I, _I, _P],
+        "conv_bf16": [_P, _L, _P, _P] + [_I] * 8 + [_I, _P, _P, _P] + [_I] * 3 + [_P],
     },
     "int8_conv": {
         "conv_int8": [_P, _L, _P] + [_I] * 13 + [_P] * 4 + [_I, _P, _P, _P, _P]
@@ -52,8 +54,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers under ``csrc/`` (any of which it may include) and the flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -99,6 +105,14 @@ def library(name: str) -> ctypes.CDLL:
     err = getattr(lib, f"{name}_error_string")
     err.argtypes, err.restype = [_I], ctypes.c_char_p
     return lib
+
+
+def raw_stream(dev) -> int:
+    """The current stream's handle on ``dev``, by the call PyTorch's own
+    kernel launchers use (a fraction of ``current_stream(dev).cuda_stream``'s
+    host time) where this build of PyTorch has it."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return get(dev.index) if get is not None else torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(err: int, name: str, source: str) -> None:

@@ -6,7 +6,9 @@ Inception-C blocks are plain ``F.conv2d`` (cuDNN on the card) in the working
 dtype with an f32 bias and ReLU, as the JAX package leaves them to XLA.  The
 repeated constant-size stages (3x Inception-A at 35x35, 4x Inception-B at
 17x17) run either as the hand-written block kernels
-(``ops/fused_inception.py``, ``use_kernels=True``) or as the same cuDNN
+(``ops/fused_inception.py``, ``use_kernels=True``: 5 and 8 launches of one
+conv kernel per block, the 1x1s over the block input packed into one and
+the pool fused into its 1x1) or as the same cuDNN
 convs with packed 1x1 branches (``use_kernels=False``, the ablation).  The
 1x1 branches over a block input are always packed into one conv, the JAX
 package's default (``pack_branches=True``); its unpacked variant has no
@@ -37,7 +39,7 @@ import torch.nn.functional as F
 from tumblr_emotions_torch._device import full_f32, resolve_device, tf32_convs
 from tumblr_emotions_torch.models.layers import to_nchw, to_nhwc
 from tumblr_emotions_torch.ops.fused_inception import (
-    INCEPTION_B_BRANCHES, _taps, fold_batchnorm, fused_inception_a,
+    INCEPTION_B_BRANCHES, _taps, block_plan, fold_batchnorm, fused_inception_a,
     fused_inception_b, inception_a_branches)
 
 _A_SCOPES = ("Mixed_5b", "Mixed_5c", "Mixed_5d")
@@ -62,11 +64,16 @@ class FusedInceptionV3:
         # The cuDNN convs' weights: rounded to dtype, held in f32 (see Rounding).
         self.w = {s: (w.to(dtype).to(dev, torch.float32), b.to(dev))
                   for s, (w, b) in folded.items()}
-        # The block kernels take tap stacks [kh*kw, Cin, Cout].
+        # The block kernels take tap stacks [kh*kw, Cin, Cout]; each block's
+        # launch plan packs them once, here.
         self.taps = {s: (_taps(w).to(dev, dtype), b.to(dev))
                      for s, (w, b) in folded.items()
                      if s.split("/")[0] in _A_SCOPES + _B_SCOPES} \
             if use_kernels else {}
+        self.block_plans = {
+            scope: block_plan(self.taps, scope, inception_a_branches(scope == "Mixed_5c")
+                              if scope in _A_SCOPES else INCEPTION_B_BRANCHES)
+            for scope in _A_SCOPES + _B_SCOPES} if use_kernels else {}
         self.logits_w: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         if "Logits/Conv2d_1c_1x1" in folded:
             w, b = folded["Logits/Conv2d_1c_1x1"]

@@ -383,7 +383,7 @@ def _run(plan: _Plan, x, w, epi: Epilogue, strides, pad, outs) -> List[torch.Ten
             epi.add.data_ptr(), n, epi.c_ends, epi.c_kinds,
             (ctypes.c_longlong * n)(*[_pixel_stride(o, f"output {i}") for i, o in enumerate(outs)]),
             (ctypes.c_void_p * n)(*[o.data_ptr() for o in outs]),
-            cfg.load_bytes, cfg.bm, cfg.bn, dev.index, _raw_stream(dev))
+            cfg.load_bytes, cfg.bm, cfg.bn, dev.index, _build.raw_stream(dev))
     lib = _build.library("int8_conv")
     if dev.index == torch.cuda.current_device():
         err = lib.conv_int8(*args)
@@ -395,14 +395,6 @@ def _run(plan: _Plan, x, w, epi: Epilogue, strides, pad, outs) -> List[torch.Ten
     if cfg.load_bytes == 1:
         conv_int8.byte_launches += 1
     return outs
-
-
-def _raw_stream(dev: torch.device) -> int:
-    """The current stream's handle on ``dev``, by the call PyTorch's own
-    kernel launchers use (a fraction of ``current_stream(dev).cuda_stream``'s
-    host time) where this build of PyTorch has it."""
-    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return get(dev.index) if get is not None else torch.cuda.current_stream(dev).cuda_stream
 
 
 conv_int8.launches = 0

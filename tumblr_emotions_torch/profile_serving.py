@@ -35,8 +35,7 @@ from tumblr_emotions_torch.ops.serving import image_server
 GROUPS = [
     ("conv_int8", "int8 conv kernel (ours)"),
     ("maxpool_", "int8 max-pool kernel (ours)"),
-    ("conv_same_bias_relu", "block conv kernel (ours)"),
-    ("avg_pool3_same", "block pool kernel (ours)"),
+    ("conv_bf16", "block conv kernel (ours)"),  # conv_bf16_wgmma<BM,BN,POOL>
     ("fprop", "cuDNN conv"),          # sm90_xmma_fprop_implicit_gemm_*
     ("conv", "cuDNN conv"),           # precomputed_convolve_sgemm, ...
     ("gemm", "matmul (resize, logits)"),
