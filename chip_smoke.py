@@ -45,7 +45,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
                INT8_PROB_TOL of it; quantization_delta against the bf16
                kernel engine; img/s of the int8, bf16 kernel and cuDNN
                engines.
-8. kernels  -- one JSON line listing every ported kernel.
+8. e2e_joint -- the slice's main path: build_forward(joint_finetune,
+               joint_state, engine="int8", front="s2d") (the int8 tower, the
+               mean text branch over a 50,000 x 200 embedding, the fusion
+               head) on the same 3 batches, each with seeded [64,50] tokens
+               (lengths 0 to 50, one row all pad): launch counts (66 convs +
+               4 pools per forward, none on the byte-load path), finite rows
+               summing to 1, probabilities within INT8_PROB_TOL of the same
+               runner on the plain int8 engine; top-1 agreement with the
+               parity (f32) joint runner, reported; img/s of the joint and
+               the image-only int8 runners, alternating.
+9. e2e_uint8 -- the int8 image runner behind the all-int8 uint8 front:
+               preprocess_for_eval_int8 on the card (torch._int_mm resize)
+               against its CPU plain version, every stage equal to the plain
+               engine's, launch counts, img/s beside the s2d front's.
+10. pool_int8 -- the engine with pool_mode="int8" against its plain version
+               on the card, every stage and the features equal.
+11. text_rnn -- the rnn text model at full width (V 50,000, D 200, H 256,
+               T 50, batch 64) on the card against the same module on the
+               CPU.
+12. kernels -- one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -89,6 +108,15 @@ TOP1_MIN_SHARE = 0.95
 # summation order, which is shared too:
 INT8_PROB_TOL = 1e-6
 STAGES = ("stem", "Mixed_5d", "Mixed_6a", "Mixed_6e", "Mixed_7a")
+# The uint8 front on the card (torch._int_mm) against its CPU plain version
+# (float64 GEMMs): both GEMMs are exact and the float steps are the same
+# rounded multiplies and adds, so equal; allowed, as the CPU tests allow
+# against the reference, one int8 level on this share of the elements:
+FLOAT_SITE_SHARE = 1e-3
+# The rnn text model on the card against the same module on the CPU, f32
+# with TF32 off, 50 LSTM steps: max|d| / max|feature|:
+TEXT_TOL = 1e-5
+TEXT_T = 50                   # joint_finetune's max_len
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 # The block conv's pooled form (the 3x3 average pool fused into Branch_3's
@@ -198,7 +226,8 @@ def record_calls(obj, name: str, log: list, label):
 
 def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
     """Phases 5-7: the int8 kernels at the served shapes, then the served
-    int8 program.  Returns ({kernel: [per-shape rows]}, launches)."""
+    int8 program.  Returns ({kernel: [per-shape rows]}, launches, the int8
+    runner, its calibration batch)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -351,11 +380,17 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
             lib_note = "F.max_pool2d on int8"
         except RuntimeError as e:
             lib, lib_note = None, f"F.max_pool2d refuses int8 on the card: {str(e)[:120]}"
+        b = bound(8.0 * got.numel(), x.numel() + got.numel(), peak=H100_F32_FLOPS)
+        ms, g_ms = (cuda_ms(lambda: ip.maxpool3x3s2_int8(x, r)),
+                    graph_ms(lambda: ip.maxpool3x3s2_int8(x, r)))
         record("maxpool3x3s2_int8", shape=f"{lab} {list(x.shape)} rescale={r}",
-               max_abs_err=err, tol=0, ms=cuda_ms(lambda: ip.maxpool3x3s2_int8(x, r)),
+               served=lab in served, max_abs_err=err, tol=0, ms=ms, graph_ms=g_ms,
+               pct_of_bound=100.0 * b["bound_ms"] / ms,
+               graph_pct_of_bound=100.0 * b["bound_ms"] / g_ms,
+               timing="ms: 20 calls launched from Python between CUDA events; graph_ms: "
+                      "a CUDA graph of 20 calls (device time)",
                plain_ms=cuda_ms(lambda: ip.maxpool3x3s2_int8_plain(x, r), iters=5, warmup=1),
-               library_ms=lib, library_note=lib_note,
-               **bound(8.0 * got.numel(), x.numel() + got.numel(), peak=H100_F32_FLOPS))
+               library_ms=lib, library_note=lib_note, **b)
     del convs, pools
 
     # ---- 7. e2e_int8: the default served program ----
@@ -366,14 +401,7 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
     probs = [runner(raw) for raw in batches]
     torch.cuda.synchronize()
     launches = all_launches()
-    want = {"conv_int8": 66 * N_BATCHES, "maxpool3x3s2_int8": 4 * N_BATCHES}
-    if {k: launches[k] for k in want} != want or any(
-            v for k, v in launches.items() if k not in want):
-        fail(f"int8 launch counts {launches}, expected {want} and no others")
-    launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
-    if ic.conv_int8.byte_launches:
-        fail(f"the served int8 path took conv_int8's byte-load kernel "
-             f"{ic.conv_int8.byte_launches} times")
+    check_int8_launches("e2e_int8", launches)
     for p in probs:
         if p.shape != (BATCH, 15) or not torch.isfinite(p).all():
             fail(f"int8 probabilities: shape {tuple(p.shape)} or non-finite")
@@ -382,17 +410,7 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
 
     plain = quant.QuantizedInceptionV3(state, calib, stem_s2d="pre", use_kernels=False,
                                        device=dev)
-    plain.scales = eng.scales
-    stage_diff = {}
-    with torch.inference_mode():
-        for stop in STAGES:
-            got = quant._tower(eng.int8_ops(), x0, stop_at=stop)
-            ref = quant._tower(plain.int8_ops(), x0, stop_at=stop)
-            if got[1] != ref[1]:
-                fail(f"e2e_int8 {stop}: scale {got[1]} != {ref[1]}")
-            stage_diff[stop] = int((got[0] != ref[0]).sum().item())
-    if any(stage_diff.values()):
-        fail(f"e2e_int8: int8 activations differ from the plain engine: {stage_diff}")
+    stage_diff = stage_mismatches("e2e_int8", eng, plain, x0)
     pdiff = 0.0
     for raw, p in zip(batches, probs):
         ref_p, _ = plain(preprocess_for_eval_s2d(raw))
@@ -410,7 +428,216 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
           "quantization_delta_vs_bf16_kernels": delta,
           "img_s_int8": img_s(eng), "img_s_bf16_kernels": img_s(eng_k),
           "img_s_cudnn": img_s(eng_c), "card": smi})
-    return rows, launches
+    return rows, launches, runner, calib
+
+
+def check_int8_launches(phase: str, launches: dict, byte_path: int = 0) -> None:
+    """66 conv_int8 and 4 maxpool3x3s2_int8 launches per forward, no other
+    kernel, and ``byte_path`` of the convs on the byte-load kernel."""
+    from tumblr_emotions_torch.ops import int8_conv as ic
+
+    want = {"conv_int8": 66 * N_BATCHES, "maxpool3x3s2_int8": 4 * N_BATCHES}
+    if {k: launches[k] for k in want} != want or any(
+            v for k, v in launches.items() if k not in want):
+        fail(f"{phase}: launch counts {launches}, expected {want} and no others")
+    if ic.conv_int8.byte_launches != byte_path * N_BATCHES:
+        fail(f"{phase}: {ic.conv_int8.byte_launches} launches on conv_int8's byte-load "
+             f"kernel, expected {byte_path * N_BATCHES}")
+    launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
+
+
+def stage_mismatches(phase: str, eng, plain, x) -> dict:
+    """Elements of each stage's int8 activations where the kernel engine and
+    the plain engine (same scales) differ; fails unless all are 0."""
+    import torch
+
+    from tumblr_emotions_torch.ops import quant
+
+    plain.scales = eng.scales
+    diff = {}
+    with torch.inference_mode():
+        for stop in STAGES:
+            got = quant._tower(eng.int8_ops(), x, stop_at=stop)
+            ref = quant._tower(plain.int8_ops(), x, stop_at=stop)
+            if got[1] != ref[1]:
+                fail(f"{phase} {stop}: scale {got[1]} != {ref[1]}")
+            diff[stop] = int((got[0] != ref[0]).sum().item())
+    if any(diff.values()):
+        fail(f"{phase}: int8 activations differ from the plain engine: {diff}")
+    return diff
+
+
+def joint_phases(dev, state, batches, smi, serve_rate, runner, calib):
+    """Phases 8-11: the joint program (this slice's main path), the uint8
+    front, pool_mode="int8" and the rnn text model.  Returns {path:
+    launches}."""
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval_s2d
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, joint_model, text_model
+    from tumblr_emotions_torch.ops import quant
+    from tumblr_emotions_torch.ops.serving import build_forward, joint_server
+
+    rng = np.random.RandomState(SEED + 1)
+    paths = {}
+
+    # ---- 8. e2e_joint: the joint_finetune program, int8 tower ----
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DEPTH))
+    t0 = time.perf_counter()
+    joint_state = joint_model.init_state(build_model(cfg, device="meta"), SEED)
+    tower = joint_model.tower_state(joint_state)   # the image tower served above
+    if tower.keys() != state.keys() or any(not torch.equal(tower[k], v) for k, v in state.items()):
+        fail("e2e_joint: the joint state's tower differs from the image state")
+    tokens = [torch.from_numpy(synthetic_ids(rng, BATCH, TEXT_T, cfg.text.vocab_size)).to(dev)
+              for _ in batches]
+    jrun = build_forward(cfg, joint_state, engine="int8", front="s2d", calib_images=calib,
+                         device=dev)
+    setup_s = time.perf_counter() - t0
+    for raw, tok in zip(batches, tokens):      # warm-up
+        jrun(raw, tok)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    probs = [jrun(raw, tok) for raw, tok in zip(batches, tokens)]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check_int8_launches("e2e_joint", launches)
+    paths["e2e_joint"] = launches
+    for p in probs:
+        if p.shape != (BATCH, 15) or not torch.isfinite(p).all():
+            fail(f"e2e_joint probabilities: shape {tuple(p.shape)} or non-finite")
+        if (p.sum(-1) - 1).abs().max().item() > 1e-5:
+            fail("e2e_joint probability rows do not sum to 1")
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(joint_state)
+    plain = quant.QuantizedInceptionV3(tower, calib, stem_s2d="pre", use_kernels=False,
+                                       device=dev)
+    plain.scales = jrun.engine.scales
+    plain_srv = joint_server(plain, model, device=dev)
+    pdiff = max((p - plain_srv(raw, tok)).abs().max().item()
+                for p, raw, tok in zip(probs, batches, tokens))
+    if pdiff > INT8_PROB_TOL:
+        fail(f"e2e_joint: probabilities {pdiff} from the plain engine > {INT8_PROB_TOL}")
+    stages = stage_mismatches("e2e_joint", jrun.engine, plain,
+                              preprocess_for_eval_s2d(batches[0]))
+    parity = build_forward(cfg, joint_state, engine="parity", device=dev)
+    agree = sum(int((p.argmax(-1) == parity(raw, tok).argmax(-1)).sum())
+                for p, raw, tok in zip(probs, batches, tokens))
+    del parity
+    lens = torch.cat([(t != 0).sum(-1) for t in tokens])
+    rates = {"int8": [], "joint": []}
+    for name in ("int8", "joint", "joint", "int8"):
+        rates[name].append(serve_rate(
+            (lambda i: runner(batches[i])) if name == "int8" else
+            (lambda i: jrun(batches[i], tokens[i]))))
+    emit({"phase": "e2e_joint", "config": "joint_finetune", "depth": DEPTH,
+          "vocab": cfg.text.vocab_size, "embed": cfg.text.embed_dim,
+          "aggregator": cfg.text.aggregator, "max_len": TEXT_T, "batch": BATCH,
+          "batches": N_BATCHES, "src_hw": SRC_HW, "setup_s": setup_s,
+          "lengths_min_max": [int(lens.min()), int(lens.max())],
+          "launches": launches, "stage_int8_mismatches_vs_plain": stages,
+          "prob_max_abs_diff_vs_plain": pdiff, "prob_tol": INT8_PROB_TOL,
+          "all_pad_row_finite": all(bool(torch.isfinite(p[0]).all()) for p in probs),
+          "top1_agree_vs_parity": agree / (BATCH * N_BATCHES),
+          "img_s_joint": rates["joint"], "img_s_int8_image_only": rates["int8"],
+          "img_s_order": "int8, joint, joint, int8", "card": smi})
+    del jrun, plain, plain_srv, model
+
+    # ---- 9. e2e_uint8: the int8 image runner behind the uint8 front ----
+    icfg = get_preset("fused_inference")
+    icfg = icfg.replace(image=icfg.image.replace(depth_multiplier=DEPTH))
+    urun = build_forward(icfg, state, engine="int8", front="uint8", calib_images=calib,
+                         device=dev)
+    eng = urun.engine
+    s_in = eng.scales["input"]
+    q = quant.preprocess_for_eval_int8(batches[0], s_in)
+    q_cpu = quant.preprocess_for_eval_int8(batches[0].cpu(), s_in)
+    d = (q.cpu().int() - q_cpu.int()).abs()
+    if d.max().item() > 1 or (d > 0).double().mean().item() > FLOAT_SITE_SHARE:
+        fail(f"e2e_uint8: preprocess_for_eval_int8 on the card off its plain version: "
+             f"max {d.max().item()}, {int((d > 0).sum())} elements")
+    for raw in batches:
+        urun(raw)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    uprobs = [urun(raw) for raw in batches]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    # The stem reads the 3-channel int8 image: the conv's byte-load kernel.
+    check_int8_launches("e2e_uint8", launches, byte_path=1)
+    paths["e2e_uint8"] = launches
+    uplain = quant.QuantizedInceptionV3(state, calib, use_kernels=False, device=dev)
+    stages = stage_mismatches("e2e_uint8", eng, uplain, (q, s_in))
+    pdiff = 0.0
+    for raw, p in zip(batches, uprobs):
+        logits, _ = uplain.forward_from_uint8(raw)
+        pdiff = max(pdiff, (p - torch.softmax(logits, -1)).abs().max().item())
+    if pdiff > INT8_PROB_TOL:
+        fail(f"e2e_uint8: probabilities {pdiff} from the plain engine > {INT8_PROB_TOL}")
+    rates = {"s2d": [], "uint8": []}
+    for name in ("s2d", "uint8", "uint8", "s2d"):
+        rates[name].append(serve_rate(lambda i, r=runner if name == "s2d" else urun:
+                                      r(batches[i])))
+    emit({"phase": "e2e_uint8", "batch": BATCH, "batches": N_BATCHES, "src_hw": SRC_HW,
+          "preprocess_max_abs_diff_vs_cpu": d.max().item(),
+          "preprocess_mismatches_vs_cpu": int((d > 0).sum()),
+          "preprocess_elements": d.numel(), "launches": launches,
+          "stage_int8_mismatches_vs_plain": stages, "prob_max_abs_diff_vs_plain": pdiff,
+          "img_s_uint8": rates["uint8"], "img_s_s2d": rates["s2d"],
+          "img_s_order": "s2d, uint8, uint8, s2d", "card": smi})
+    del urun, uplain
+
+    # ---- 10. pool_int8: pool_mode="int8" against its plain version ----
+    peng = quant.QuantizedInceptionV3(state, calib, stem_s2d="pre", pool_mode="int8",
+                                      device=dev)
+    pplain = quant.QuantizedInceptionV3(state, calib, stem_s2d="pre", pool_mode="int8",
+                                        use_kernels=False, device=dev)
+    x0 = preprocess_for_eval_s2d(batches[0])
+    stages = stage_mismatches("pool_int8", peng, pplain, x0)
+    peng(x0)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    feats = [peng(preprocess_for_eval_s2d(raw))[1] for raw in batches]
+    torch.cuda.synchronize()
+    launches = all_launches()
+    check_int8_launches("pool_int8", launches)
+    paths["pool_int8"] = launches
+    fdiff = max((f - pplain(preprocess_for_eval_s2d(raw))[1]).abs().max().item()
+                for f, raw in zip(feats, batches))
+    if fdiff != 0:
+        fail(f"pool_int8: features {fdiff} from the plain engine")
+    emit({"phase": "pool_int8", "batch": BATCH, "stage_int8_mismatches_vs_plain": stages,
+          "feature_max_abs_diff_vs_plain": fdiff, "launches": launches, "card": smi})
+    del peng, pplain
+
+    # ---- 11. text_rnn: the rnn text model at full width, card vs CPU ----
+    tcfg = get_preset("text_only")
+    tcfg = tcfg.replace(text=tcfg.text.replace(aggregator="rnn"))
+    tstate = text_model.init_state(build_model(tcfg, device="meta"), SEED)
+    tok = torch.from_numpy(synthetic_ids(rng, BATCH, TEXT_T, tcfg.text.vocab_size))
+    feats = {}
+    for where in (dev, "cpu"):
+        m = build_model(tcfg, device=where)
+        m.load_state_dict(tstate)
+        with torch.inference_mode():
+            feats[str(where)] = m.represent(tok.to(where)).cpu()
+            if where == dev:
+                t_ms = cuda_ms(lambda: m.represent(tok.to(dev)), iters=5, warmup=1)
+    got, want = feats[str(dev)], feats["cpu"]
+    if not torch.isfinite(got).all():
+        fail("text_rnn: non-finite features")
+    tdiff = (got - want).abs().max().item() / want.abs().max().item()
+    if tdiff > TEXT_TOL:
+        fail(f"text_rnn: features {tdiff} of max|feature| from the CPU > {TEXT_TOL}")
+    emit({"phase": "text_rnn", "vocab": tcfg.text.vocab_size, "embed": tcfg.text.embed_dim,
+          "hidden": tcfg.text.rnn_hidden, "T": TEXT_T, "batch": BATCH,
+          "feature_rel_diff_vs_cpu": tdiff, "tol": TEXT_TOL, "represent_ms": t_ms,
+          "card": smi})
+    return paths
+
 
 
 def _wrappers():
@@ -669,17 +896,22 @@ def main() -> int:
     if agree < TOP1_MIN_SHARE * n_img:
         fail(f"top-1 agrees on {agree} of {n_img} images, below {TOP1_MIN_SHARE}")
 
-    def img_s(engine):
-        srv = image_server(engine, device=dev)
-        for raw in batches:
-            srv(raw)
+    def serve_rate(serve):
+        """img/s of ``serve(i)`` (serves batch i) over 3 passes of the
+        batches, after one pass of warm-up."""
+        for i in range(N_BATCHES):
+            serve(i)
         torch.cuda.synchronize()
         t = time.perf_counter()
         for _ in range(3):
-            for raw in batches:
-                srv(raw)
+            for i in range(N_BATCHES):
+                serve(i)
         torch.cuda.synchronize()
         return 3 * n_img / (time.perf_counter() - t)
+
+    def img_s(engine):
+        srv = image_server(engine, device=dev)
+        return serve_rate(lambda i: srv(batches[i]))
 
     emit({"phase": "e2e", "batch": BATCH, "batches": N_BATCHES, "src_hw": SRC_HW,
           "launches": launches, "logit_max_abs_diff": dmax, "logit_max_abs": lmax,
@@ -691,10 +923,16 @@ def main() -> int:
           "card": smi})
 
     # ---- 5-7. the int8 served program and its kernels ----
-    int8_rows, int8_launches = int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c)
+    int8_rows, int8_launches, runner, calib = int8_phases(dev, state, batches, smi, img_s,
+                                                          eng_k, eng_c)
     rows.update(int8_rows)
+    del eng_c
 
-    # ---- 8. the kernels line ----
+    # ---- 8-11. the joint program (the main path), uint8 front, int8 pool, text ----
+    paths = joint_phases(dev, state, batches, smi, serve_rate, runner, calib)
+    paths["e2e_int8"] = int8_launches
+
+    # ---- 12. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
     info = {  # name -> (source, replaces, launches in its path's run)
         "fused_inception_a": (src, f"{REPLACES}:230", launches),
@@ -702,9 +940,9 @@ def main() -> int:
         "conv_same_bias_relu": (src, f"{REPLACES}:127", launches),
         POOLED: (src, f"{REPLACES}:147", launches),
         "conv_int8": ("tumblr_emotions_torch/csrc/int8_conv.cu",
-                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", int8_launches),
+                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", paths["e2e_joint"]),
         "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
-                              "experiments/pallas_pool.py:53", int8_launches),
+                              "experiments/pallas_pool.py:53", paths["e2e_joint"]),
     }
     kernels = []
     for name, (source, replaces, counts) in info.items():
@@ -723,8 +961,20 @@ def main() -> int:
             # the same function at every shape (int8 conv with its epilogue).
             "library_ms": sum(libs) if all(v is not None for v in libs) else None,
             "shapes": len(rs)}
+        if name in ("conv_int8", "maxpool3x3s2_int8"):
+            # launches: the joint program's run (this slice's main path); the
+            # other int8 paths' runs beside it.
+            entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
+            # graph_ms: device time in CUDA graphs over the 5 shapes; *_served:
+            # the four served shapes alone (K4a's random shape left out).
+            served = [r for r in rs if r["served"]]
+            entry["graph_ms"] = sum(r["graph_ms"] for r in rs)
+            entry["graph_ms_served"] = sum(r["graph_ms"] for r in served)
+            entry["bound_ms_served"] = sum(r["bound_ms"] for r in served)
+            entry["graph_pct_of_bound_served"] = \
+                100.0 * entry["bound_ms_served"] / entry["graph_ms_served"]
         if name in ("conv_same_bias_relu", POOLED):
             # ms: calls from Python between CUDA events; graph_ms: device time
             # in CUDA graphs; over Mixed_5b's and 6b's convs and their packed
@@ -748,7 +998,8 @@ def main() -> int:
             # ms: calls from Python between CUDA events; graph_ms: device
             # time in CUDA graphs; both over one conv per form (shapes).
             entry["graph_ms"] = sum(r["graph_ms"] for r in rs)
-            entry["byte_path_launches"] = counts["conv_int8 byte path"]
+            entry["byte_path_launches"] = {p: c["conv_int8 byte path"]
+                                           for p, c in paths.items()}
             entry["rows_checked"] = len(checked)
             entry["tiles"] = sorted({r["tile"] for r in checked})
         kernels.append(entry)

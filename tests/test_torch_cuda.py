@@ -508,3 +508,100 @@ def test_int8_engine_kernels_match_plain(dev, int8_engines):
     assert (ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0) == (66, 4)
     want, _ = plain(x)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The uint8 front (torch._int_mm resize), pool_mode="int8", the joint and
+# text programs, on the card against their plain versions.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,size", [((4, 347, 347, 3), 299), ((3, 161, 197, 3), 139)],
+                         ids=["crop303-to-299", "odd-crop141x173-to-139"])
+def test_uint8_front_matches_plain(dev, shape, size):
+    """The int8 resize GEMMs by torch._int_mm (K padded to a multiple of 8
+    with zero taps) against the float64 products on the CPU: the row-resized
+    intermediate and the final int8 equal."""
+    from tumblr_emotions_torch.data.preprocessing import central_crop_sizes
+    from tumblr_emotions_torch.ops import quant as tq
+
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    raw = torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+    oh, ow, ch, cw = central_crop_sizes(shape[1], shape[2], 0.875)
+    crop = raw[:, oh:oh + ch, ow:ow + cw]
+    rows = tq._resize_rows_int8(crop, size)
+    torch.cuda.synchronize()
+    assert torch.equal(rows.cpu(), tq._resize_rows_int8(crop.cpu(), size))
+    got = tq.preprocess_for_eval_int8(raw, 0.0079, size, size)
+    want = tq.preprocess_for_eval_int8(raw.cpu(), 0.0079, size, size)
+    torch.cuda.synchronize()
+    assert got.shape == (shape[0], size, size, 3) and torch.equal(got.cpu(), want)
+
+
+def test_int8_pool_mode_matches_plain(dev, int8_engines):
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval, preprocess_for_eval_s2d
+    from tumblr_emotions_torch.ops import quant
+    from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
+
+    _, _, raw = int8_engines
+    state = init_state(InceptionV3(depth_multiplier=0.5, device="meta"), seed=0)
+    calib = preprocess_for_eval(raw)
+    kern = QuantizedInceptionV3(state, calib, stem_s2d="pre", pool_mode="int8", device=dev)
+    plain = QuantizedInceptionV3(state, calib, stem_s2d="pre", pool_mode="int8",
+                                 use_kernels=False, device=dev)
+    plain.scales = kern.scales
+    x = preprocess_for_eval_s2d(raw)
+    for stop in ("Mixed_5d", "Mixed_6e", "Mixed_7a"):
+        with torch.inference_mode():
+            got = quant._tower(kern.int8_ops(), x, stop_at=stop)
+            want = quant._tower(plain.int8_ops(), x, stop_at=stop)
+        _same(got[0], want[0])
+    assert torch.equal(kern(x)[1], plain(x)[1])
+
+
+def test_joint_runner_matches_plain_engine(dev, int8_engines):
+    """build_forward's joint program (int8 tower, s2d front, mean text
+    branch, fusion head) on the card: 66 + 4 kernel launches per forward and
+    the probabilities of the same runner on the plain int8 engine."""
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
+    from tumblr_emotions_torch.ops.serving import build_forward, joint_server
+
+    _, _, raw = int8_engines
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=0.5),
+                      text=cfg.text.replace(vocab_size=1000, embed_dim=32))
+    state = joint_model.init_state(build_model(cfg, device="meta"), 0)
+    calib = preprocess_for_eval(raw)
+    runner = build_forward(cfg, state, calib_images=calib, device=dev)
+    tok = torch.from_numpy(synthetic_ids(np.random.RandomState(0), raw.shape[0], 50, 1000))
+    runner(raw, tok)
+    c0, p0 = ic.conv_int8.launches, ip.maxpool3x3s2_int8.launches
+    got = runner(raw, tok)
+    assert (ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0) == (66, 4)
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(state)
+    plain = QuantizedInceptionV3(joint_model.tower_state(state), calib, stem_s2d="pre",
+                                 use_kernels=False, device=dev)
+    plain.scales = runner.engine.scales
+    want = joint_server(plain, model, device=dev)(raw, tok)
+    assert got.shape == (raw.shape[0], 15) and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+def test_rnn_text_model_matches_the_cpu(dev):
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import text_model
+
+    tok = torch.from_numpy(synthetic_ids(np.random.RandomState(1), 16, 50, 5000))
+    feats = []
+    for where in (dev, "cpu"):
+        m = text_model.TextEmotionModel(5000, 64, aggregator="rnn", rnn_hidden=128, device=where)
+        m.load_state_dict(text_model.init_state(m, 3))
+        with torch.inference_mode():
+            feats.append(m.represent(tok.to(where)).cpu())
+    assert torch.isfinite(feats[0]).all()
+    assert (feats[0] - feats[1]).abs().max() <= 1e-5 * feats[1].abs().max()

@@ -318,17 +318,44 @@ def test_engine_sites_equal_jax(setup, port, stem_s2d):
     """The whole tower with the reference's scales: int8 activations equal
     at every integer site, float sites within FLOAT_SITE_SHARE, and every
     stage output the same."""
-    state, _, raw, _, jeng = setup
-    eng, _ = port
+    _, _, raw, _, _ = setup
     if stem_s2d == "pre":
         x = _np(jpp.preprocess_for_eval_s2d(jnp.asarray(raw), IMAGE, IMAGE))
     else:
         x = _np(jpp.preprocess_for_eval(jnp.asarray(raw), IMAGE, IMAGE, dtype=jnp.bfloat16))
-    rops = jq._Int8Ops(jeng.folded, jeng.scales, epilogue="shift", stem_s2d=stem_s2d)
-    pops = tq._Int8Ops(eng.folded, eng.scales, "cpu", epilogue="shift", stem_s2d=stem_s2d)
+    _sites_equal(setup, port, stem_s2d, "f32", jnp.asarray(x, jnp.bfloat16),
+                 torch.from_numpy(x).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("front,pool_mode", [("uint8", "f32"), ("s2d", "int8"),
+                                             ("uint8", "int8")])
+def test_engine_sites_equal_jax_uint8_front_and_int8_pool(setup, port, front, pool_mode):
+    """As above, behind the all-int8 uint8 front (``forward_from_uint8``'s
+    input: the reference's and the port's ``preprocess_for_eval_int8``) and
+    with ``pool_mode="int8"`` (the pool branch averaged in int8)."""
+    _, _, raw, _, jeng = setup
+    s_in = jeng.scales["input"]
+    if front == "uint8":
+        xj = (jq.preprocess_for_eval_int8(jnp.asarray(raw), s_in, IMAGE, IMAGE), s_in)
+        xp = (tq.preprocess_for_eval_int8(torch.from_numpy(raw), s_in, IMAGE, IMAGE), s_in)
+        stem_s2d = False
+    else:
+        x = _np(jpp.preprocess_for_eval_s2d(jnp.asarray(raw), IMAGE, IMAGE))
+        xj, xp = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+        stem_s2d = "pre"
+    _sites_equal(setup, port, stem_s2d, pool_mode, xj, xp)
+
+
+def _sites_equal(setup, port, stem_s2d, pool_mode, xj, xp):
+    _, _, _, _, jeng = setup
+    eng, _ = port
+    rops = jq._Int8Ops(jeng.folded, jeng.scales, epilogue="shift", stem_s2d=stem_s2d,
+                       pool_mode=pool_mode)
+    pops = tq._Int8Ops(eng.folded, eng.scales, "cpu", epilogue="shift", stem_s2d=stem_s2d,
+                       pool_mode=pool_mode)
     rlog, plog = _record(rops), _record(pops)
-    want = jq._tower(rops, jnp.asarray(x, jnp.bfloat16))
-    got = tq._tower(pops, torch.from_numpy(x).to(torch.bfloat16))
+    want = jq._tower(rops, xj)
+    got = tq._tower(pops, xp)
     assert [s[:2] for s in plog] == [s[:2] for s in rlog] and len(plog) == 80
     kinds = pops.epilogue_kinds
     assert kinds == rops.epilogue_kinds and "shift" in kinds.values()
@@ -379,9 +406,96 @@ def test_quantization_delta_against_bf16(setup):
 
 
 def test_engine_rejects_what_is_not_ported(setup):
+    """Every epilogue, pool mode and front of the reference is ported; the
+    engine refuses the values it has no meaning for and a float batch on
+    the uint8 front."""
     state, _, _, calib, _ = setup
-    with pytest.raises(NotImplementedError):
-        tq.QuantizedInceptionV3(state, calib, pool_mode="int8", device="cpu")
+    with pytest.raises(ValueError):
+        tq.QuantizedInceptionV3(state, calib, pool_mode="int4", device="cpu")
+    with pytest.raises(ValueError):
+        tq.QuantizedInceptionV3(state, calib, epilogue="lut", device="cpu")
+    eng = tq.QuantizedInceptionV3(state, calib, pool_mode="int8", device="cpu")
+    with pytest.raises(ValueError):
+        eng.forward_from_uint8(np.zeros((1, 160, 200, 3), np.float32))
+    with pytest.raises(ValueError):
+        tq.preprocess_for_eval_int8(torch.zeros(160, 200, 3, dtype=torch.uint8), 0.01)
+
+
+# ---------------------------------------------------------------------------
+# The uint8 front and pool_mode="int8"
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("out_size,in_size", [(299, 303), (139, 175), (139, 140), (53, 61),
+                                              (17, 40), (299, 150), (64, 64)])
+def test_quantized_interp_matrix_equals_jax(out_size, in_size):
+    np.testing.assert_array_equal(tq._quantized_interp_matrix(out_size, in_size),
+                                  jq._quantized_interp_matrix(out_size, in_size))
+
+
+# The final int8 of preprocess_for_eval_int8 may land one level apart where
+# XLA fuses the reference's z*a + b into an FMA (the port rounds the multiply
+# and the add apart); at most FLOAT_SITE_SHARE of the elements.  Measured: 0
+# of 231,852 (4x160x200 -> 139), 0 of 536,406 (2x347x347 -> 299), 0 of
+# 25,281 (3x97x61 -> 53): bit-equal.
+@pytest.mark.parametrize("shape,size,scale", [((4, 160, 200, 3), IMAGE, 0.0081),
+                                              ((2, 347, 347, 3), 299, 0.00787),
+                                              ((3, 97, 61, 3), 53, 0.0123)])
+def test_preprocess_for_eval_int8_matches_jax(shape, size, scale):
+    raw = np.random.RandomState(sum(shape)).randint(0, 256, shape, dtype=np.uint8)
+    # The row-resized int8 intermediate, by the reference's own steps.
+    n, h, w, c = shape
+    oh, ow, ch, cw = jpp.central_crop_sizes(h, w, 0.875)
+    crop = raw[:, oh:oh + ch, ow:ow + cw]
+    x = (jnp.asarray(crop).astype(jnp.int16) - 128).astype(jnp.int8)
+    y = jnp.einsum("oh,nhwc->nowc", jnp.asarray(jq._quantized_interp_matrix(size, ch)), x,
+                   preferred_element_type=jnp.int32)
+    y = jnp.clip(jnp.round(y.astype(jnp.float32) * (1.0 / 127.0)), -127, 127).astype(jnp.int8)
+    rows = tq._resize_rows_int8(torch.from_numpy(crop), size)
+    assert rows.shape[-1] % 8 == 0 and (rows[..., cw:] == 0).all()
+    np.testing.assert_array_equal(rows[..., :cw].permute(0, 1, 3, 2).numpy(), np.asarray(y))
+    want = np.asarray(jq.preprocess_for_eval_int8(jnp.asarray(raw), scale, size, size))
+    got = tq.preprocess_for_eval_int8(torch.from_numpy(raw), scale, size, size)
+    assert got.dtype == torch.int8 and got.shape == want.shape == (n, size, size, c)
+    d = np.abs(got.numpy().astype(np.int32) - want)
+    assert d.max() <= 1 and (d > 0).mean() <= FLOAT_SITE_SHARE
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 9, 24), (1, 5, 7, 16)])
+def test_pool_act_int8_equals_reference(shape):
+    """pool_mode="int8": the pre-activation requantized to int8 at its own
+    scale, the 3x3 SAME int32 window sum, the rescale with the per-pixel tap
+    count folded in; into a channel slice where given."""
+    rng = np.random.RandomState(shape[-1])
+    y = rng.randint(-30000, 30000, shape).astype(np.int32)
+    m = rng.uniform(1e-4, 2e-3, shape[-1]).astype(np.float32)
+    b = (rng.randn(shape[-1]) * 0.5).astype(np.float32)
+    scales = {"out": 0.05, "out:poolpre": 0.11}
+    want = jq._Int8Ops({}, scales, pool_mode="int8").pool_act(("pre", jnp.asarray(y), m, b),
+                                                              "out")
+    ops = tq._Int8Ops({}, scales, "cpu", pool_mode="int8")
+    got = ops.pool_act(("pre", torch.from_numpy(y), m, b), "out")
+    _compare(got, want)
+    buf = torch.zeros(*shape[:-1], shape[-1] + 8, dtype=torch.int8)
+    got = ops.pool_act(("pre", torch.from_numpy(y), m, b), "out", dst=buf[..., 8:])
+    _compare(got, want)
+    assert (buf[..., :8] == 0).all() and (buf[..., 8:] == got[0]).all()
+    # The last block (out_key None) dequantizes, as with pool_mode="f32".
+    _compare(ops.pool_act(("pre", torch.from_numpy(y), m, b), None),
+             jq._Int8Ops({}, scales, pool_mode="int8").pool_act(("pre", jnp.asarray(y), m, b),
+                                                                None))
+
+
+def test_served_uint8_program_matches_jax(setup):
+    """image_server(from_uint8=True) on the int8 engine against the
+    reference's _forward(from_uint8=True) + _checked, scales injected."""
+    state, variables, raw, calib, jeng = setup
+    jeng_u8 = jq.QuantizedInceptionV3.__new__(jq.QuantizedInceptionV3)
+    jeng_u8.__dict__.update(jeng.__dict__, stem_s2d=False)
+    want_p, want_f = jserving._checked(*jserving._forward(
+        jeng_u8, jnp.asarray(raw), True, jnp.bfloat16, image_size=IMAGE))
     eng = tq.QuantizedInceptionV3(state, calib, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.forward_from_uint8(np.zeros((1, 160, 200, 3), np.uint8))
+    eng.scales = dict(jeng.scales)
+    got_p, got_f = image_server(eng, device="cpu", from_uint8=True, image_size=IMAGE)(raw)
+    assert got_p.shape == (4, 15)
+    np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), atol=PROB_ATOL, rtol=0)
+    np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), atol=1e-5, rtol=1e-5)

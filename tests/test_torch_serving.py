@@ -180,16 +180,21 @@ def test_build_forward_int8_engine(setup, cfg, front):
 
 
 def test_build_forward_rejects_what_is_not_ported(setup, cfg):
+    """Every model, engine and front the reference takes is ported (the
+    joint and text programs: tests/test_torch_joint.py); what the reference
+    refuses, the port refuses."""
     state, _, raw = setup
-    with pytest.raises(NotImplementedError):
-        build_forward(cfg, state, engine="int8", front="uint8", device="cpu",
-                      calib_images=np.zeros((1, IMAGE, IMAGE, 3), np.float32))
-    with pytest.raises(NotImplementedError):
-        build_forward(cfg.replace(model="joint"), state, device="cpu")
     with pytest.raises(ValueError):
         build_forward(cfg, state, device="cpu")           # int8 without calib_images
     with pytest.raises(ValueError):
         build_forward(cfg, state, front="jpeg", device="cpu")
+    with pytest.raises(ValueError):
+        build_forward(cfg, state, engine="fp8", device="cpu")
+    with pytest.raises(ValueError):
+        build_forward(cfg.replace(model="video"), state, device="cpu")
+    calib = np.zeros((1, IMAGE, IMAGE, 3), np.float32)
+    runner = build_forward(cfg, state, front="uint8", device="cpu", calib_images=calib)
+    assert runner.engine.stem_s2d is False and runner(raw).shape == (4, 15)
 
 
 def test_server_rejects_non_uint8_batches(setup):

@@ -8,12 +8,16 @@ points take ``device`` (default ``"cuda"``) and raise when no card is
 present.
 
 Layer map:
-  entry points -> ops.serving   (image_server, build_forward)
-  engines      -> ops.quant (QuantizedInceptionV3, int8, the default),
-                  ops.inference (FusedInceptionV3, bf16), models.inception_v3
+  entry points -> ops.serving   (image_server, joint_server, build_forward)
+  engines      -> ops.quant (QuantizedInceptionV3, int8, the default; its
+                  uint8 front), ops.inference (FusedInceptionV3, bf16),
+                  models.inception_v3 (the f32 tower)
+  text, fusion -> models.text_model (TextEmotionModel), models.joint_model
+                  (DeepSentimentModel.fuse)
   kernels      -> ops.int8_conv + csrc/int8_conv.cu, ops.int8_pool +
                   csrc/int8_pool.cu, ops.fused_inception + csrc/inception_blocks.cu
-  data         -> data.preprocessing (eval, s2d), convert (weights from JAX)
+  data         -> data.preprocessing (eval, s2d), data.vocab (tokenizer,
+                  vocabulary), convert (weights from JAX)
 """
 
 __version__ = "0.1.0"
@@ -25,9 +29,15 @@ from tumblr_emotions_torch.config import (  # noqa: F401
     Config,
     DataConfig,
     ImageConfig,
+    TextConfig,
     get_preset,
 )
-from tumblr_emotions_torch.models.inception_v3 import InceptionV3  # noqa: F401
+from tumblr_emotions_torch.models import (  # noqa: F401
+    DeepSentimentModel,
+    InceptionV3,
+    TextEmotionModel,
+    build_model,
+)
 from tumblr_emotions_torch.ops.fused_inception import (  # noqa: F401
     fold_batchnorm,
     fused_inception_a,
@@ -35,4 +45,8 @@ from tumblr_emotions_torch.ops.fused_inception import (  # noqa: F401
 )
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3  # noqa: F401
 from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3  # noqa: F401
-from tumblr_emotions_torch.ops.serving import build_forward, image_server  # noqa: F401
+from tumblr_emotions_torch.ops.serving import (  # noqa: F401
+    build_forward,
+    image_server,
+    joint_server,
+)

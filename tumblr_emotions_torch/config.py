@@ -1,8 +1,9 @@
-"""Config dataclasses for the PyTorch port: the image model and its eval data.
+"""Config dataclasses for the PyTorch port: the image, text and joint models
+and their eval data.
 
 A copy of the parts of ``tumblr_emotions_tpu/config.py`` that the served
-image program needs (the port imports nothing of the JAX package).  The
-text, mesh and train configs come with the slices that use them.
+programs read (the port imports nothing of the JAX package).  The mesh and
+train configs come with the training slice.
 """
 
 from __future__ import annotations
@@ -34,6 +35,21 @@ NUM_CLASSES = len(EMOTIONS)
 class _Replaceable:
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TextConfig(_Replaceable):
+    """Text branch: vocab lookup -> embedding matrix -> aggregate -> head."""
+
+    vocab_size: int = 50_000
+    embed_dim: int = 200          # GloVe-style dims
+    max_len: int = 50             # Tumblr captions are short
+    aggregator: str = "mean"      # "mean" | "sum" | "rnn"
+    rnn_hidden: int = 256
+    pad_id: int = 0
+    oov_id: int = 1
+    finetune_embeddings: bool = True
+    hidden_dim: int = 0           # optional hidden dense layer; 0 = logits direct
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +89,16 @@ class DataConfig(_Replaceable):
 class Config(_Replaceable):
     name: str = "default"
     model: str = "joint"          # "text" | "image" | "joint"
+    text: TextConfig = TextConfig()
     image: ImageConfig = ImageConfig()
     data: DataConfig = DataConfig()
 
 
 PRESETS = {
+    # Text-only: embedding + dense softmax.
+    "text_only": Config(name="text_only", model="text"),
+    # Joint image+text concat fusion (the paper's multimodal model).
+    "joint_finetune": Config(name="joint_finetune", model="joint"),
     # Fused inference path: preprocess + forward of the image model, bf16.
     "fused_inference": Config(name="fused_inference", model="image"),
 }

@@ -11,9 +11,16 @@ state-dict key and no per-layer table is needed:
       <-> "Mixed_5b/Branch_0/Conv2d_0a_1x1.weights"   [Cout,Cin,kh,kw] OIHW
     params/.../BatchNorm/beta             <-> "....BatchNorm.beta"             (parameter)
     batch_stats/.../BatchNorm/moving_mean <-> "....BatchNorm.moving_mean"      (buffer)
+    params/JointLogits/kernel             <-> "JointLogits.kernel"  [in,out] <-> [out,in]
+    params/Text/WordEmbedding/embeddings  <-> "Text.WordEmbedding/embeddings"  (one leaf)
 
-Conv ``weights`` are transposed HWIO <-> OIHW; everything else is copied
-unchanged, in its own dtype, so a round trip is exact.
+The text and joint trees hold flax Dense layers (``kernel``, ``bias``; the
+LSTM's gates at ``Text/RNN/OptimizedLSTMCell_0/{ii,if,ig,io}/kernel`` and
+``{hi,hf,hg,ho}/{kernel,bias}``) and the embedding matrix, a leaf whose
+name holds a ``/``; the joint tree nests the image tower under
+``InceptionV3``.  Conv ``weights`` are transposed HWIO <-> OIHW and Dense
+``kernel`` [in,out] <-> [out,in] (``F.linear``'s layout); everything else is
+copied unchanged, in its own dtype, so a round trip is exact.
 """
 
 from __future__ import annotations
@@ -44,7 +51,9 @@ def to_state(variables: Dict) -> Dict[str, torch.Tensor]:
             arr = np.asarray(leaf)
             if path[-1] == "weights":
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            state[".".join(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+            elif path[-1] == "kernel":
+                arr = arr.T                      # [in,out] -> [out,in]
+            state[".".join(path)] = torch.from_numpy(np.array(arr, order="C"))  # a copy
     return state
 
 
@@ -56,6 +65,8 @@ def to_variables(state: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
         arr = t.detach().cpu().numpy()
         if path[-1] == "weights":
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif path[-1] == "kernel":
+            arr = arr.T                      # [out,in] -> [in,out]
         node = out["batch_stats" if path[-1] in _STATS else "params"]
         for p in path[:-1]:
             node = node.setdefault(p, {})

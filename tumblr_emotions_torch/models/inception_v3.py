@@ -139,6 +139,7 @@ class InceptionV3(nn.Module):
             sconv(f"{scope}/Branch_2/Conv2d_0d_3x1", d(384), d(384), (3, 1))
             sconv(f"{scope}/Branch_3/Conv2d_0b_1x1", c, d(192), (1, 1))
             c = d(320) + 2 * d(384) + 2 * d(384) + d(192)
+        self.num_features = c           # PreLogits width (2048 at depth 1)
 
         if num_classes > 0:
             conv("Logits/Conv2d_1c_1x1", c, num_classes, (1, 1), padding="SAME",

@@ -9,7 +9,8 @@ the JAX package's tree onto ``state_dict()`` keys by string alone.
 The f32 path is the parity reference: it runs with TF32 off (see
 ``_device.full_f32``), as the JAX package runs ``precision="highest"``.
 Train mode (batch statistics, moving-average updates) comes with the
-train slice; the modules here raise if asked for it.
+train slice; the modules here raise if asked for it.  ``Dense`` is flax's
+dense layer for the text and joint heads.
 """
 
 from __future__ import annotations
@@ -106,6 +107,21 @@ class ConvBN(nn.Module):
         if self.BatchNorm is not None:
             y = self.BatchNorm(y)
         return torch.relu(y) if self.relu else y
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel^T + bias``, with ``kernel`` held
+    [out, in] (``convert.py`` transposes flax's [in, out])."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(features, in_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.kernel, self.bias)
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int],

@@ -1,0 +1,186 @@
+"""Text branch: embedding lookup -> aggregate -> dense softmax head.
+
+Port of ``tumblr_emotions_tpu/models/text_model.py`` in eval mode.  Post
+text arrives as fixed-length id sequences ``[B, T]`` with an explicit
+length per row (pad id 0); the ids are looked up in a ``[V, D]`` embedding
+matrix, the rows past each length are zeroed, and the sequence is
+aggregated by a masked mean, a sum or an LSTM before the Dense head.
+
+Parameter names are the JAX package's (``WordEmbedding/embeddings``,
+``RNN.OptimizedLSTMCell_0.{ii,if,ig,io,hi,hf,hg,ho}``, ``TextHidden``,
+``TextLogits``), so ``convert.py`` maps the flax tree by string alone.  The
+f32 path runs with TF32 off, as the reference runs in full f32.
+
+Two behaviours of the reference are kept because the served answers depend
+on them:
+
+- the lookup is ``jnp.take`` in mode ``"fill"``: an id in ``[-V, 0)`` wraps
+  to ``id + V``, an id outside ``[-V, V)`` gives a row of NaN (which the
+  mask's multiply by 0 keeps NaN); the port never raises on such an id and
+  never indexes out of bounds on the card;
+- the LSTM returns flax ``nn.RNN``'s carry at step ``length - 1`` of a run
+  over all T steps, indexed as JAX indexes: a length of 0 reads step -1,
+  i.e. the carry after the last step (of zero inputs, the rows being
+  masked), and a length beyond T reads the last step.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tumblr_emotions_torch._device import full_f32, resolve_device
+from tumblr_emotions_torch.models.layers import Dense
+
+GATES = ("i", "f", "g", "o")   # flax OptimizedLSTMCell's gate order (torch's too)
+AGGREGATORS = ("mean", "sum", "rnn")
+EMBEDDINGS = "WordEmbedding/embeddings"
+
+
+def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` in mode ``"fill"``: rows of
+    ``table`` for ids in ``[-V, V)`` (negative ids wrap), NaN rows for any
+    other id."""
+    V = table.shape[0]
+    ids = ids.long()
+    rows = table[torch.where(ids < 0, ids + V, ids).clamp(0, V - 1)]
+    valid = ((ids >= -V) & (ids < V)).unsqueeze(-1)
+    return torch.where(valid, rows, torch.full((), float("nan"), dtype=table.dtype,
+                                               device=table.device))
+
+
+class LSTMAggregator(nn.Module):
+    """flax ``nn.RNN(nn.OptimizedLSTMCell(hidden))`` over embedded tokens,
+    returning the final ``h`` of each row (see the module docstring for
+    which step that is).  Gates i, f, g, o: ``c' = f*c + i*g``, ``h' =
+    o*tanh(c')``, sigmoid gates, tanh activations; the input Denses have no
+    bias, the hidden ones do."""
+
+    def __init__(self, embed_dim: int, hidden: int, device=None):
+        super().__init__()
+        self.hidden = hidden
+        cell = nn.Module()
+        for g in GATES:
+            cell.add_module(f"i{g}", Dense(embed_dim, hidden, use_bias=False, device=device))
+            cell.add_module(f"h{g}", Dense(hidden, hidden, device=device))
+        self.OptimizedLSTMCell_0 = cell
+
+    def forward(self, emb: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        B, T, _ = emb.shape
+        dense = self.OptimizedLSTMCell_0._modules
+        w_i = torch.cat([dense[f"i{g}"].kernel for g in GATES])     # [4H, D]
+        w_h = torch.cat([dense[f"h{g}"].kernel for g in GATES])     # [4H, H]
+        b_h = torch.cat([dense[f"h{g}"].bias for g in GATES])
+        x = F.linear(emb, w_i)                                       # all steps at once
+        h = c = emb.new_zeros(B, self.hidden)
+        hs = []
+        for t in range(T):
+            # flax: dense_h (with its bias) + dense_i, per gate.
+            i, f, g, o = (F.linear(h, w_h, b_h) + x[:, t]).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            hs.append(h)
+        last = lengths.long() - 1
+        last = torch.where(last < 0, last + T, last).clamp(0, T - 1)
+        return torch.stack(hs, dim=1)[torch.arange(B, device=emb.device), last]
+
+
+class TextEmotionModel(nn.Module):
+    """Vocab-lookup text classifier over the emotion labels, eval mode.
+
+    ``num_classes=0`` builds the text feature only, without ``TextHidden``
+    and ``TextLogits``: the joint model's ``Text`` branch, whose tree has no
+    heads.  ``feature_dim`` is the width of :meth:`represent`'s output.
+    """
+
+    def __init__(self, vocab_size: int, embed_dim: int, num_classes: int = 15,
+                 aggregator: str = "mean", rnn_hidden: int = 256, hidden_dim: int = 0,
+                 pad_id: int = 0, device="cuda"):
+        super().__init__()
+        if aggregator not in AGGREGATORS:
+            raise ValueError(f"unknown aggregator {aggregator!r}; expected one of {AGGREGATORS}")
+        dev = resolve_device(device)
+        self.aggregator = aggregator
+        self.pad_id = pad_id
+        self.num_classes = num_classes
+        self.register_parameter(EMBEDDINGS, nn.Parameter(
+            torch.zeros(vocab_size, embed_dim, device=dev)))
+        self.RNN = LSTMAggregator(embed_dim, rnn_hidden, device=dev) if aggregator == "rnn" \
+            else None
+        self.feature_dim = rnn_hidden if aggregator == "rnn" else embed_dim
+        feat = self.feature_dim
+        self.TextHidden = None
+        self.TextLogits = None
+        if num_classes > 0:
+            if hidden_dim > 0:
+                self.TextHidden = Dense(feat, hidden_dim, device=dev)
+                feat = hidden_dim
+            self.TextLogits = Dense(feat, num_classes, device=dev)
+        self.eval()
+
+    def represent(self, token_ids, lengths=None) -> torch.Tensor:
+        """[B, T] int ids -> [B, F] f32 text feature (the joint model's input)."""
+        table = getattr(self, EMBEDDINGS)
+        token_ids = torch.as_tensor(token_ids, device=table.device)
+        if lengths is None:
+            lengths = (token_ids != self.pad_id).sum(-1)
+        lengths = torch.as_tensor(lengths, device=table.device)
+        with full_f32():
+            emb = take_fill(table, token_ids)
+            T = emb.shape[1]
+            mask = torch.arange(T, device=emb.device)[None, :] < lengths[:, None]
+            emb = emb * mask[..., None].to(emb.dtype)
+            if self.aggregator == "mean":
+                return emb.sum(dim=1) / lengths.clamp_min(1).to(emb.dtype)[:, None]
+            if self.aggregator == "sum":
+                return emb.sum(dim=1)
+            return self.RNN(emb, lengths)
+
+    def forward(self, token_ids, lengths=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """-> (logits, end_points: TextFeature, TextHidden, Logits,
+        Predictions)."""
+        if self.training:
+            raise NotImplementedError("train mode is not ported yet")
+        if self.TextLogits is None:
+            raise ValueError("built with num_classes=0: call represent() for the feature")
+        feat = self.represent(token_ids, lengths)
+        end_points = {"TextFeature": feat}
+        with full_f32():
+            if self.TextHidden is not None:
+                feat = torch.relu(self.TextHidden(feat))
+                end_points["TextHidden"] = feat
+            logits = self.TextLogits(feat)
+        end_points["Logits"] = logits
+        end_points["Predictions"] = torch.softmax(logits.float(), dim=-1)
+        return logits, end_points
+
+
+def dense_init(shapes: Dict[str, Tuple[int, ...]], rng: np.random.RandomState
+               ) -> Dict[str, torch.Tensor]:
+    """Seeded random values, made with numpy, for the embedding and Dense
+    leaves ``shapes`` names: the embedding N(0, 0.1) (flax's init), Dense
+    kernels N(0, 1/fan_in) (flax's lecun_normal scale), biases N(0, 0.1)
+    (flax starts them at zero; random ones exercise the LSTM's and the
+    heads' bias terms)."""
+    state = {}
+    for key, shape in shapes.items():
+        leaf = key.rsplit(".", 1)[-1]
+        if leaf == "kernel":
+            a = rng.normal(0.0, np.sqrt(1.0 / shape[1]), shape)
+        elif leaf in (EMBEDDINGS, "bias"):
+            a = rng.normal(0.0, 0.1, shape)
+        else:
+            raise ValueError(f"no initialiser for {key!r}")
+        state[key] = torch.from_numpy(a.astype(np.float32))
+    return state
+
+
+def init_state(model: TextEmotionModel, seed: int) -> Dict[str, torch.Tensor]:
+    """Seeded random weights with the text model's shapes and names."""
+    return dense_init({k: tuple(t.shape) for k, t in model.state_dict().items()},
+                      np.random.RandomState(seed))

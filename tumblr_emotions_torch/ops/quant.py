@@ -26,15 +26,18 @@ a packed 1x1 included, its epilogue chosen per branch) and the max pools
 scale)`` pairs.  Each branch's last op writes straight into its channel
 slice of the block's output buffer, so a concat of int8 branches (which
 share one scale, as the reference asserts) allocates nothing.  The pool
-branch's ``pool_act`` (``pool_mode="f32"``) and the last block's dequantized
+branch's ``pool_act`` (either ``pool_mode``) and the last block's dequantized
 bf16 outputs are PyTorch ops, as the reference leaves them to XLA.
+
+The uint8 front (``preprocess_for_eval_int8``, ``forward_from_uint8``) is
+central crop, centring to int8 and the TF1 resize as two s8 x s8 -> s32
+GEMMs (``torch._int_mm`` on the card, as the reference leaves them to XLA's
+einsum; an exact float64 product on the CPU), with the requantisation and
+the engine's input quantisation as PyTorch ops.
 
 Calibration computes in f32 on bf16-rounded operands with TF32 off, which is
 what the reference's ``preferred_element_type=f32`` does up to summation
 order: the scales are close to the reference's, not bit-equal.
-
-Not ported yet: ``pool_mode="int8"`` and the uint8 front
-(``preprocess_for_eval_int8``, ``forward_from_uint8``).
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
-from tumblr_emotions_torch.data.preprocessing import space_to_depth_2x2
+from tumblr_emotions_torch.data.preprocessing import (
+    _interp_matrix_cached, central_crop_sizes, space_to_depth_2x2)
 from tumblr_emotions_torch.models.layers import max_pool, to_nchw, to_nhwc
 from tumblr_emotions_torch.ops.fused_inception import fold_batchnorm
 from tumblr_emotions_torch.ops.int8_conv import (
@@ -118,16 +122,21 @@ def _in_image_taps(H: int, W: int, device: torch.device) -> torch.Tensor:
     return n[None, :, :, None]
 
 
-def _avgpool_3x3_same(x: torch.Tensor) -> torch.Tensor:
-    """3x3 stride-1 SAME average pool of NHWC f32, count_include_pad=False:
-    the nine taps summed in window order over a zero border, divided by the
-    in-image count."""
+def _window_sum_3x3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 SAME window sum of NHWC: the nine taps summed in window
+    order over a zero border."""
     B, H, W, C = x.shape
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     s = xp[:, 0:H, 0:W] + xp[:, 0:H, 1:W + 1]
     for dy, dx in [(0, 2), (1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2)]:
         s = s + xp[:, dy:dy + H, dx:dx + W]
-    return s / _in_image_taps(H, W, x.device)
+    return s
+
+
+def _avgpool_3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 SAME average pool of NHWC f32, count_include_pad=False:
+    the window sum divided by the in-image count."""
+    return _window_sum_3x3(x) / _in_image_taps(x.shape[1], x.shape[2], x.device)
 
 
 def _float_tensor(a, device) -> torch.Tensor:
@@ -261,9 +270,6 @@ class _Int8Ops:
     def __init__(self, folded: Folded, scales: Dict[str, float], device,
                  epilogue: str = "f32", stem_s2d=False, pool_mode: str = "f32",
                  use_kernels: bool = True):
-        if pool_mode != "f32":
-            raise NotImplementedError(
-                f"pool_mode={pool_mode!r} is not ported yet; only 'f32' is")
         self.folded = folded
         self.scales = scales
         self.device = device
@@ -424,6 +430,21 @@ class _Int8Ops:
 
     def pool_act(self, pre, out_key, dst=None):
         _, y, m, b = pre
+        s_q = self.scales.get(f"{out_key}:poolpre") if out_key is not None else None
+        if out_key is not None and self.pool_mode == "int8" and s_q is not None:
+            # Requantize the pre-activation to signed int8 at its own
+            # calibrated scale, sum each 3x3 window in int32, then rescale
+            # to the block's scale with the count_include_pad=False divisor
+            # folded in, in the reference's order of f32 operations.
+            s_out = self.scales[out_key]
+            mq = self._dev(("m", id(m), "poolpre", s_q), lambda: m / s_q)
+            bq = self._dev(("b", id(b), "poolpre", s_q), lambda: b / s_q)
+            yq = torch.clamp(torch.round(y.float() * mq + bq), _INT8_MIN, _INT8_MAX)
+            ssum = _window_sum_3x3(yq.to(torch.int32))
+            r = self._dev(("pool_rescale", s_q, s_out), lambda: np.float32(s_q / s_out))
+            yf = ssum.float() * (r / _in_image_taps(y.shape[1], y.shape[2], y.device)) + 0.5
+            yq = torch.clamp(yf, 0.0, _INT8_MAX).to(torch.int8)
+            return (yq if dst is None else dst.copy_(yq)), s_out
         # Pool the pre-activation: 1x1 conv + bias commutes with the
         # count_include_pad=False average; +0.5 is window-invariant.
         mm, bb = self._pre_affine(m, b, out_key)
@@ -610,6 +631,104 @@ def _tower(ops, x, stop_at: Optional[str] = None):
     return ops.finish(t)
 
 
+def _quantized_interp_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """TF1 bilinear interpolation matrix quantized to int8 with exact row
+    sums of 127, so the resize is an s8 x s8 -> s32 matmul whose output
+    divides by exactly 127 per stage (no per-row scale vector)."""
+    m = _interp_matrix_cached(out_size, in_size, "tf1")
+    q = np.round(m * 127.0)
+    # Each row has <= 2 taps summing to 1.0; force the quantized sum to 127
+    # by adjusting the largest tap (error <= half a step).
+    for o in range(q.shape[0]):
+        idx = np.nonzero(q[o])[0]
+        if idx.size == 0:  # degenerate (frac rounded to zero on both taps)
+            q[o, np.argmax(m[o])] = 127.0
+            idx = np.nonzero(q[o])[0]
+        q[o, idx[np.argmax(q[o, idx])]] += 127.0 - q[o].sum()
+    if not (q.sum(axis=1) == 127.0).all():
+        raise ArithmeticError(f"quantized {out_size}x{in_size} resize rows do not sum to 127")
+    return q.astype(np.int8)
+
+
+@functools.lru_cache(maxsize=16)
+def _resize_operand(out_size: int, in_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`_quantized_interp_matrix` as the [N, K] int8 operand of a
+    resize GEMM on ``device``, uploaded once: [out, in] zero-padded to
+    multiples of 8 both ways (``torch._int_mm`` wants K and N so; the zero
+    rows and taps add nothing to the sums)."""
+    q = _quantized_interp_matrix(out_size, in_size)
+    return torch.from_numpy(np.pad(q, ((0, -out_size % 8), (0, -in_size % 8)))).to(device)
+
+
+def _int8_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] int8 (row-major) @ b [K, N] int8 -> [M, N] int32, exact:
+    ``torch._int_mm`` on the card (it raises for a shape it refuses), a
+    float64 product cast to int32 on the CPU (|sum| < 2^53)."""
+    if a.device.type == "cpu":
+        return (a.double() @ b.double()).to(torch.int32)
+    return torch._int_mm(a, b)
+
+
+# The uint8 front's f32 constants are Python floats holding f32 values, so
+# every backend's cast of them to f32 is exact and gives the f32 value the
+# reference's weak-typed Python floats become.
+_INV127 = float(np.float32(1.0 / 127.0))
+
+
+def _resize_rows_int8(crop_u8: torch.Tensor, height: int) -> torch.Tensor:
+    """Centre a cropped uint8 batch [n,h,w,c] into int8 and resize its rows
+    to ``height``, requantized to int8 (value / 127, rounded half to even,
+    clipped to [-127, 127]): the [n, height, c, Kw] int8 operand of the
+    column GEMM, w innermost and zero-padded to Kw, a multiple of 8.  Each
+    elementwise step writes the layout the next GEMM reads, so no transposed
+    copy of the image is made."""
+    n, h, w, c = crop_u8.shape
+    dev = crop_u8.device
+    x = torch.empty(n, w, c, h + (-h % 8), dtype=torch.int8, device=dev)
+    x[..., h:].zero_()
+    # u8 - 128 in int8 is u8 with its top bit flipped.
+    torch.bitwise_xor(crop_u8.permute(0, 2, 3, 1), 128, out=x[..., :h].view(torch.uint8))
+    y = _int8_gemm(x.view(n * w * c, -1), _resize_operand(height, h, dev).t())
+    t = torch.round(y.view(n, w, c, -1)[..., :height] * _INV127).clamp_(_INT8_MIN, _INT8_MAX)
+    yq = torch.empty(n, height, c, w + (-w % 8), dtype=torch.int8, device=dev)
+    yq[..., w:].zero_()
+    yq[..., :w].copy_(t.permute(0, 3, 2, 1))
+    return yq
+
+
+def preprocess_for_eval_int8(images_u8: torch.Tensor, input_scale: float,
+                             height: int = 299, width: int = 299,
+                             central_fraction: float = 0.875) -> torch.Tensor:
+    """int8-domain slim eval preprocessing for the quantized engine.
+
+    uint8 [N,H,W,C] -> central crop -> TF1 bilinear resize as two s8 GEMMs
+    -> requantize into the engine's calibrated input scale -> int8
+    [N, height, width, C].  The [0,255] -> [-1,1] normalization and the
+    input quantization fold into one affine over the final int32 resize
+    output, ``round(z * a + b)`` with ``a = 2/(127*255*input_scale)`` and
+    ``b = (2*128/255 - 1)/input_scale`` (a multiply, then an add, each
+    rounded to f32).  TF1 resize only, as in the reference.
+    """
+    if images_u8.dtype != torch.uint8 or images_u8.ndim != 4:
+        raise ValueError(f"expected a uint8 [N,H,W,C] batch, got {images_u8.dtype} "
+                         f"{tuple(images_u8.shape)}")
+    n, h, w, c = images_u8.shape
+    if central_fraction and central_fraction < 1.0:
+        oh, ow, ch, cw = central_crop_sizes(h, w, central_fraction)
+        images_u8 = images_u8[:, oh:oh + ch, ow:ow + cw]
+    cw = images_u8.shape[2]
+    dev = images_u8.device
+    yq = _resize_rows_int8(images_u8, height)
+    z = _int8_gemm(yq.view(n * height * c, -1), _resize_operand(width, cw, dev).t())
+    z = z.view(n, height, c, -1)[..., :width]
+    a = float(np.float32(2.0 / (127.0 * 255.0 * input_scale)))
+    b = float(np.float32((2.0 * 128.0 / 255.0 - 1.0) / input_scale))
+    t = (z * a).add_(b).round_().clamp_(_INT8_MIN, _INT8_MAX)
+    q = torch.empty(n, height, width, c, dtype=torch.int8, device=dev)
+    q.permute(0, 1, 3, 2).copy_(t)
+    return q
+
+
 class QuantizedInceptionV3:
     """int8-serving Inception-v3 over BN-folded, per-channel-quantized weights.
 
@@ -621,6 +740,9 @@ class QuantizedInceptionV3:
     stem_s2d: False (stride-2 stem on the normal layout), True (relayout on
         the device, then the 2x2 s2d conv) or "pre" (the caller feeds the
         s2d layout, ``preprocess_for_eval_s2d``; the served front).
+    pool_mode: "f32" (the pool branch averages its f32 pre-activation) or
+        "int8" (requantized to int8 at its own calibrated scale, summed in
+        int32, rescaled to the block's scale).
     use_kernels: False runs the kernels' plain versions (the oracle on the
         card).  The dequantized outputs of the last block are bf16.
     """
@@ -629,9 +751,9 @@ class QuantizedInceptionV3:
                  epilogue: str = "shift", calibration_quantile=None, stem_s2d=False,
                  pool_mode: str = "f32", use_kernels: bool = True, device="cuda"):
         self.device = resolve_device(device)
-        if pool_mode != "f32":
-            raise NotImplementedError(
-                f"pool_mode={pool_mode!r} is not ported yet; only 'f32' is")
+        if epilogue not in ("shift", "f32") or pool_mode not in ("f32", "int8"):
+            raise ValueError(f"epilogue={epilogue!r}, pool_mode={pool_mode!r}; expected "
+                             "shift|f32 and f32|int8")
         self.folded = fold_hwio(state)
         self.epilogue = epilogue
         self.stem_s2d = stem_s2d
@@ -658,9 +780,19 @@ class QuantizedInceptionV3:
                                  pool_mode=self.pool_mode, use_kernels=self.use_kernels)
         return self._ops
 
-    def forward_from_uint8(self, raw_u8, *args, **kwargs):
-        raise NotImplementedError(
-            "the uint8 front (preprocess_for_eval_int8) is not ported yet")
+    @torch.inference_mode()
+    def forward_from_uint8(self, raw_u8, height: int = 299, width: int = 299,
+                           central_fraction: float = 0.875
+                           ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+        """Decoded uint8 [B,H,W,3] -> int8 eval preprocess -> tower: central
+        crop, int8-GEMM TF1 resize, normalization and input quantization in
+        one affine, so no float image is made.  The preprocess knobs must
+        match the model's eval config (TF1 resize only)."""
+        s_in = self.scales["input"]
+        q = preprocess_for_eval_int8(torch.as_tensor(raw_u8, device=self.device), s_in,
+                                     height=height, width=width,
+                                     central_fraction=central_fraction)
+        return self((q, s_in))
 
     @torch.inference_mode()
     def __call__(self, x) -> Tuple[Optional[torch.Tensor], torch.Tensor]:

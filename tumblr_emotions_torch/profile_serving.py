@@ -1,6 +1,6 @@
 """Where the served program's time goes on the card: a torch.profiler trace.
 
-    python -m tumblr_emotions_torch.profile_serving [--engine bf16|int8]
+    python -m tumblr_emotions_torch.profile_serving [--engine bf16|int8|joint]
         [--batch 64] [--batches 3]
 
 Builds seeded full-width weights (as chip_smoke.py does), warms up, then
@@ -8,11 +8,14 @@ profiles ``--batches`` served uint8 [B,347,347,3] batches.  ``--engine
 bf16`` (default) profiles ``image_server(FusedInceptionV3(state,
 use_kernels=...))`` for the kernel engine and the cuDNN engine; ``--engine
 int8`` the default served program, ``QuantizedInceptionV3`` behind the
-space-to-depth front, calibrated on one seeded batch.  Prints one JSON
-line per engine: host wall
-ms per batch, device busy ms per batch (sum of kernel times on the one
-stream), the idle share (1 - busy/wall), and device time by kernel group.
-Needs a CUDA card; raises without one.
+space-to-depth front, calibrated on one seeded batch, and the same tower
+behind the all-int8 uint8 front (``int8_uint8``); ``--engine joint``
+that program and, in the same call, the joint_finetune program on the same
+tower (``build_forward(engine="int8")`` with seeded [B,50] token batches),
+so the difference is what the text branch and the fusion head add.  Prints
+one JSON line per program: host wall ms per batch, device busy ms per batch
+(sum of kernel times on the one stream), the idle share (1 - busy/wall),
+and device time by kernel group.  Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -22,14 +25,18 @@ import json
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 
+from tumblr_emotions_torch import get_preset
 from tumblr_emotions_torch._device import card_line
-from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
 from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+from tumblr_emotions_torch.data.vocab import synthetic_ids
+from tumblr_emotions_torch.models import build_model, joint_model
+from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
 from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
-from tumblr_emotions_torch.ops.serving import image_server
+from tumblr_emotions_torch.ops.serving import build_forward, image_server
 
 # Kernel-name substrings -> group, first match wins.
 GROUPS = [
@@ -38,7 +45,8 @@ GROUPS = [
     ("conv_bf16", "block conv kernel (ours)"),  # conv_bf16_wgmma<BM,BN,POOL>
     ("fprop", "cuDNN conv"),          # sm90_xmma_fprop_implicit_gemm_*
     ("conv", "cuDNN conv"),           # precomputed_convolve_sgemm, ...
-    ("gemm", "matmul (resize, logits)"),
+    ("gemm", "matmul (resize, logits, text heads)"),
+    ("index", "torch gather (text lookup)"),   # before "elementwise": index_elementwise_kernel
     ("pool", "torch pooling"),
     ("cat", "torch concat/copy"),
     ("copy", "torch concat/copy"),
@@ -56,16 +64,17 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile_engine(server, batches) -> dict:
+def profile_engine(serve, n: int) -> dict:
+    """Profile ``serve(i)`` (serves batch i) over batches 0..n-1."""
     from torch.profiler import ProfilerActivity, profile
 
-    for raw in batches:          # warm-up: cuDNN algorithm choice, allocator
-        server(raw)
+    for i in range(n):           # warm-up: cuDNN algorithm choice, allocator
+        serve(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for raw in batches:
-            server(raw)
+        for i in range(n):
+            serve(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_group, by_kernel = defaultdict(float), defaultdict(float)
@@ -77,7 +86,6 @@ def profile_engine(server, batches) -> dict:
         by_group[_group(e.name)] += us / 1e3
         by_kernel[e.name[:80]] += us / 1e3
         n_kernels += 1
-    n = len(batches)
     busy = sum(by_group.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_ms_per_batch": wall_ms / n,
@@ -91,7 +99,7 @@ def profile_engine(server, batches) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("bf16", "int8"), default="bf16")
+    ap.add_argument("--engine", choices=("bf16", "int8", "joint"), default="bf16")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -103,15 +111,30 @@ def main() -> None:
                              device="cuda", dtype=torch.uint8)
                for _ in range(args.batches)]
     card = card_line()
-    if args.engine == "int8":
-        calib = preprocess_for_eval(batches[0])
-        engines = {"int8": QuantizedInceptionV3(state, calib, stem_s2d="pre")}
-    else:
+    if args.engine == "bf16":
         engines = {"kernels": FusedInceptionV3(state, use_kernels=True),
                    "cudnn": FusedInceptionV3(state, use_kernels=False)}
-    for name, engine in engines.items():
+    else:
+        calib = preprocess_for_eval(batches[0])
+        engines = {"int8": QuantizedInceptionV3(state, calib, stem_s2d="pre")}
+    servers = {name: (lambda i, srv=image_server(engine): srv(batches[i]))
+               for name, engine in engines.items()}
+    if args.engine == "int8":
+        srv = image_server(QuantizedInceptionV3(state, calib), from_uint8=True)
+        servers["int8_uint8"] = lambda i: srv(batches[i])
+    if args.engine == "joint":
+        cfg = get_preset("joint_finetune")
+        joint = build_forward(cfg, joint_model.init_state(build_model(cfg, device="meta"),
+                                                          args.seed),
+                              engine="int8", calib_images=calib)
+        rng = np.random.RandomState(args.seed + 1)
+        tokens = [torch.from_numpy(synthetic_ids(rng, args.batch, cfg.text.max_len,
+                                                 cfg.text.vocab_size)).cuda()
+                  for _ in batches]
+        servers["joint"] = lambda i: joint(batches[i], tokens[i])
+    for name, serve in servers.items():
         print(json.dumps({"engine": name, "batch": args.batch, "card": card,
-                          **profile_engine(image_server(engine), batches)}), flush=True)
+                          **profile_engine(serve, len(batches))}), flush=True)
 
 
 if __name__ == "__main__":
