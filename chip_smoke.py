@@ -64,13 +64,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
 11. text_rnn -- the rnn text model at full width (V 50,000, D 200, H 256,
                T 50, batch 64) on the card against the same module on the
                CPU.
-12. kernels -- one JSON line listing every ported kernel.
+12. e2e_http -- the slice-6 main path: EmotionHTTPServer (port 0) over
+               BatchedPredictor (batch 64, host_size 347) over
+               build_forward(joint_finetune, engine="int8", front="s2d") at
+               full width, with a 50,000-word Vocabulary from
+               build_vocabulary over a seeded word list.  Every committed
+               fixture JPEG (tests/data/jpeg) decodes and resizes on this
+               machine's g++ build to the hashes the manifest recorded from
+               the JAX package's decode and PIL; 192 concurrent POSTs from 64
+               client threads (fixture bodies, seeded captions in ?text= and
+               X-Text) each answer the in-process runner's top and
+               probabilities (1e-5) on the same decoded image and caption;
+               66 conv_int8 + 4 maxpool3x3s2_int8 launches per device batch;
+               /healthz reports cuda, /stats at least 3 batches and no error;
+               a corrupt body sent with 15 good ones gets a 400 and they
+               get their answers; the batch-1 Predictor on two fixtures at native
+               size agrees with the f32 parity runner.  Prints posts/s, p50
+               and p99 latency, and the host decode+resize img/s (8 threads).
+13. kernels -- one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import sys
 import time
@@ -117,6 +135,19 @@ FLOAT_SITE_SHARE = 1e-3
 # with TF32 off, 50 LSTM steps: max|d| / max|feature|:
 TEXT_TOL = 1e-5
 TEXT_T = 50                   # joint_finetune's max_len
+
+# e2e_http: posts in the concurrent wave, client threads, the server's
+# latency bound, the served answers against the in-process runner (the
+# responses are rounded to 5 decimals), and the batch-1 Predictor against
+# the f32 parity runner on the same image (both f32 with TF32 off, one
+# program, so as close as TEXT_TOL).
+HTTP_POSTS = 3 * BATCH
+HTTP_CLIENTS = 64
+HTTP_MAX_DELAY_MS = 50.0
+HOST_SIZE = 347
+HTTP_PROB_TOL = 1e-5
+PREDICT_TOL = 1e-5
+FIXTURES = "tests/data/jpeg"
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 # The block conv's pooled form (the 3x3 average pool fused into Branch_3's
@@ -431,18 +462,20 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
     return rows, launches, runner, calib
 
 
-def check_int8_launches(phase: str, launches: dict, byte_path: int = 0) -> None:
-    """66 conv_int8 and 4 maxpool3x3s2_int8 launches per forward, no other
-    kernel, and ``byte_path`` of the convs on the byte-load kernel."""
+def check_int8_launches(phase: str, launches: dict, byte_path: int = 0,
+                        forwards: int = N_BATCHES) -> None:
+    """66 conv_int8 and 4 maxpool3x3s2_int8 launches per forward (of
+    ``forwards``), no other kernel, and ``byte_path`` of the convs per
+    forward on the byte-load kernel."""
     from tumblr_emotions_torch.ops import int8_conv as ic
 
-    want = {"conv_int8": 66 * N_BATCHES, "maxpool3x3s2_int8": 4 * N_BATCHES}
+    want = {"conv_int8": 66 * forwards, "maxpool3x3s2_int8": 4 * forwards}
     if {k: launches[k] for k in want} != want or any(
             v for k, v in launches.items() if k not in want):
         fail(f"{phase}: launch counts {launches}, expected {want} and no others")
-    if ic.conv_int8.byte_launches != byte_path * N_BATCHES:
+    if ic.conv_int8.byte_launches != byte_path * forwards:
         fail(f"{phase}: {ic.conv_int8.byte_launches} launches on conv_int8's byte-load "
-             f"kernel, expected {byte_path * N_BATCHES}")
+             f"kernel, expected {byte_path * forwards}")
     launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
 
 
@@ -640,6 +673,246 @@ def joint_phases(dev, state, batches, smi, serve_rate, runner, calib):
 
 
 
+def http_phase(dev, smi, calib):
+    """Phase 12, the main path: posts over HTTP to the joint int8 program.
+    Returns its launches."""
+    import hashlib
+    import importlib.util
+    import json as _json
+    import os
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import EMOTIONS, get_preset
+    from tumblr_emotions_torch.data import jpeg
+    from tumblr_emotions_torch.data.pipeline import _host_resize_uint8
+    from tumblr_emotions_torch.data.vocab import build_vocabulary
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops.serving import build_forward
+    from tumblr_emotions_torch.server import BatchedPredictor, EmotionHTTPServer
+    from tumblr_emotions_torch.train.predict import Predictor
+
+    # ---- the fixtures decode and resize here as the reference does ----
+    root = Path(__file__).resolve().parent / FIXTURES
+    manifest = _json.loads((root / "manifest.json").read_text())
+    names = sorted(manifest["files"])
+    bodies = [(root / n).read_bytes() for n in names]
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    decoded = {}
+    for name, body in zip(names, bodies):
+        img = jpeg.decode(body)
+        want = manifest["files"][name]
+        if sha(img) != want["decode_sha256"]:
+            fail(f"e2e_http: {name} decodes to another image than the reference's")
+        decoded[name] = _host_resize_uint8(img, HOST_SIZE)
+        if sha(decoded[name]) != want["resize_347_sha256"]:
+            fail(f"e2e_http: {name}'s {HOST_SIZE} px resize is not PIL's")
+
+    # ---- the served program: joint_finetune at full width, int8 tower ----
+    rng = np.random.RandomState(SEED + 2)
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DEPTH))
+    t0 = time.perf_counter()
+    state = joint_model.init_state(build_model(cfg, device="meta"), SEED)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = sorted({"".join(rng.choice(letters, rng.randint(3, 9)))
+                    for _ in range(3 * cfg.text.vocab_size)})
+    vocab = build_vocabulary([" ".join(words)] * 2 + list(EMOTIONS),
+                             max_size=cfg.text.vocab_size)
+    if vocab.size != cfg.text.vocab_size:
+        fail(f"e2e_http: vocabulary of {vocab.size}, expected {cfg.text.vocab_size}")
+    runner = build_forward(cfg, state, engine="int8", front="s2d", calib_images=calib,
+                           device=dev)
+    setup_s = time.perf_counter() - t0
+    n_posts = HTTP_POSTS
+    pick = [i % len(names) for i in range(n_posts)]
+    captions = [" ".join(rng.choice(words + list(EMOTIONS) + ["#love", "http://t.co/x"],
+                                    rng.randint(0, 60)))
+                for _ in range(n_posts)]
+    warm = np.zeros((BATCH, HOST_SIZE, HOST_SIZE, 3), np.uint8)
+    runner(warm, *vocab.encode_batch(captions[:BATCH], cfg.text.max_len))
+    torch.cuda.synchronize()
+
+    # Where a batch's time goes: the batcher thread's decode+resize call and
+    # its runner call (synchronised), on the host clock.
+    spans = {"decode_resize": [], "runner": []}
+
+    def timed(fn, key, sync=False):
+        def call(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            spans[key].append(time.perf_counter() - t)
+            return out
+        call.device = getattr(fn, "device", None)
+        return call
+
+    decode_resize = jpeg.decode_resize_batch
+    jpeg.decode_resize_batch = timed(decode_resize, "decode_resize")
+    pred = BatchedPredictor(timed(runner, "runner", sync=True), batch_size=BATCH,
+                            host_size=HOST_SIZE, vocab=vocab, max_len=cfg.text.max_len,
+                            max_delay_ms=HTTP_MAX_DELAY_MS, decode_threads=8)
+    server = EmotionHTTPServer(pred, host="127.0.0.1", port=0)
+    server.serve_background()
+    base = "http://%s:%d" % server.server_address[:2]
+    results, client_s = {}, {}
+
+    def post(i, body, text):
+        t = time.perf_counter()
+        req = urllib.request.Request(
+            f"{base}/predict?text={urllib.parse.quote(text)}", data=body, method="POST",
+            headers={"X-Text": text, "Content-Type": "image/jpeg"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                results[i] = (r.status, _json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            results[i] = (e.code, _json.loads(e.read()))
+        except Exception as e:  # noqa: BLE001 — reported below
+            results[i] = (None, {"error": f"{type(e).__name__}: {e}"})
+        client_s[i] = time.perf_counter() - t
+
+    def wave(jobs):
+        """Send ``jobs`` [(index, body, text)] from HTTP_CLIENTS threads."""
+        todo = list(jobs)
+        lock = threading.Lock()
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    job = todo.pop(0)
+                post(*job)
+
+        threads = [threading.Thread(target=client) for _ in range(HTTP_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+
+    def get(path):
+        with urllib.request.urlopen(base + path, timeout=60) as r:
+            return _json.loads(r.read())
+
+    try:
+        # The first urllib request of a process pays a one-time set-up which,
+        # taken by 64 threads at once, stalls some of them for ~2 s (the
+        # client's cost, not the server's): /healthz pays it first.
+        health = get("/healthz")
+        reset_all_launches()
+        t = time.perf_counter()
+        wave([(i, bodies[pick[i]], captions[i]) for i in range(n_posts)])
+        wall = time.perf_counter() - t
+        stats = get("/stats")
+        # A corrupt body among 15 good posts: its own 400, their answers.
+        extra = [(n_posts, b"\xff\xd8\xff\xdb corrupt", "sad")] + [
+            (n_posts + 1 + k, bodies[pick[k]], captions[k]) for k in range(15)]
+        wave(extra)
+        torch.cuda.synchronize()
+        launches = all_launches()
+        stats2 = get("/stats")
+    finally:
+        server.close()
+        jpeg.decode_resize_batch = decode_resize
+    forwards = stats2["batches"]
+    check_int8_launches("e2e_http", launches, forwards=forwards)
+    if health.get("platform") != "cuda" or health.get("devices", 0) < 1:
+        fail(f"e2e_http: /healthz {health}")
+    if stats["batches"] < 3 or stats["errors"] or stats["responses"] != n_posts:
+        fail(f"e2e_http: /stats after {n_posts} posts: {stats}")
+    if results[n_posts][0] != 400 or stats2["errors"] != 1:
+        fail(f"e2e_http: corrupt body answered {results[n_posts]}, /stats {stats2}")
+
+    # ---- every answer against the in-process runner on the same inputs ----
+    jobs = [(i, pick[i], captions[i]) for i in range(n_posts)] + \
+        [(n_posts + 1 + k, pick[k], captions[k]) for k in range(15)]
+    worst, agree = 0.0, 0
+    for s in range(0, len(jobs), BATCH):
+        chunk = jobs[s:s + BATCH]
+        imgs = np.zeros((BATCH, HOST_SIZE, HOST_SIZE, 3), np.uint8)
+        for r, (_, f, _) in enumerate(chunk):
+            imgs[r] = decoded[names[f]]
+        tok, lens = vocab.encode_batch([c for _, _, c in chunk], cfg.text.max_len)
+        tok = np.concatenate([tok, np.zeros((BATCH - len(chunk), tok.shape[1]), np.int32)])
+        lens = np.concatenate([lens, np.ones(BATCH - len(chunk), np.int32)])
+        want = runner(imgs, tok, lens).cpu().numpy()
+        for r, (i, _, _) in enumerate(chunk):
+            status, got = results.get(i, (None, {}))
+            if status != 200:
+                fail(f"e2e_http: post {i} answered {status} {got}")
+            if got["top"] != EMOTIONS[int(want[r].argmax())]:
+                fail(f"e2e_http: post {i} top {got['top']}, in-process "
+                     f"{EMOTIONS[int(want[r].argmax())]}")
+            agree += 1
+            worst = max(worst, max(abs(got["probs"][e] - float(want[r][k]))
+                                   for k, e in enumerate(EMOTIONS)))
+    if worst > HTTP_PROB_TOL:
+        fail(f"e2e_http: answers {worst} from the in-process runner > {HTTP_PROB_TOL}")
+
+    # ---- the batch-1 Predictor at native size against the parity runner ----
+    predictor = Predictor(cfg, state, vocab=vocab, device=dev)
+    parity = build_forward(cfg, state, engine="parity", device=dev)
+    pdiff = 0.0
+    for name, text in (("baseline_420_403x301.jpg", captions[0]),
+                       ("progressive_420_161x97.jpg", captions[1])):
+        body = (root / name).read_bytes()
+        got = predictor.predict(body, text)
+        tok, lens = vocab.encode_batch([text], cfg.text.max_len)
+        want = parity(jpeg.decode(body)[None], tok, lens)[0].cpu().numpy()
+        if next(iter(got)) != EMOTIONS[int(want.argmax())]:
+            fail(f"e2e_http: Predictor's top on {name} differs from the parity runner's")
+        pdiff = max(pdiff, max(abs(got[e] - float(want[k])) for k, e in enumerate(EMOTIONS)))
+    if pdiff > PREDICT_TOL:
+        fail(f"e2e_http: Predictor {pdiff} from the parity runner > {PREDICT_TOL}")
+    del predictor, parity
+
+    # ---- the host's decode + resize rate, 8 threads ----
+    host_bodies = [bodies[f] for f in pick]
+    out = np.empty((len(host_bodies), HOST_SIZE, HOST_SIZE, 3), np.uint8)
+    jpeg.decode_resize_batch(host_bodies, HOST_SIZE, out, num_threads=8)
+    rates = []
+    for _ in range(3):
+        t = time.perf_counter()
+        errors = jpeg.decode_resize_batch(host_bodies, HOST_SIZE, out, num_threads=8)
+        rates.append(len(host_bodies) / (time.perf_counter() - t))
+    if any(errors):
+        fail(f"e2e_http: decode_resize_batch failed: {errors}")
+    emit({"phase": "e2e_http", "config": "joint_finetune", "depth": DEPTH,
+          "vocab": vocab.size, "embed": cfg.text.embed_dim, "max_len": cfg.text.max_len,
+          "batch": BATCH, "host_size": HOST_SIZE, "posts": n_posts, "clients": HTTP_CLIENTS,
+          "max_delay_ms": HTTP_MAX_DELAY_MS, "fixtures": len(names),
+          "fixture_hashes_equal_manifest": True, "setup_s": setup_s,
+          "posts_per_s": n_posts / wall, "wall_s": wall, "stats": stats,
+          "client_latency_ms": {p: 1e3 * q for p, q in zip(
+              ("p50", "p90", "p99", "max"),
+              np.quantile([client_s[i] for i in range(n_posts)], [0.5, 0.9, 0.99, 1.0]))},
+          "client_posts_over_1s": sum(client_s[i] > 1.0 for i in range(n_posts)),
+          "somaxconn": (Path("/proc/sys/net/core/somaxconn").read_text().strip()
+                        if Path("/proc/sys/net/core/somaxconn").exists() else None),
+          "batcher_s": {k: sum(v) for k, v in spans.items()},
+          "batcher_ms_per_batch": {k: 1e3 * sum(v) / max(len(v), 1) for k, v in spans.items()},
+          "stats_after_corrupt": stats2, "healthz": health, "device_batches": forwards,
+          "launches": launches, "answers_checked": agree,
+          "prob_max_abs_diff_vs_in_process": worst, "prob_tol": HTTP_PROB_TOL,
+          "corrupt_body_status": results[n_posts][0],
+          "predictor_max_abs_diff_vs_parity": pdiff, "predictor_tol": PREDICT_TOL,
+          "host_decode_resize_img_s_8_threads": rates,
+          "host_has_pil": importlib.util.find_spec("PIL") is not None,
+          "host_has_jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
+          "card": smi})
+    return launches
+
+
 def _wrappers():
     from tumblr_emotions_torch.ops import fused_inception as fi
     from tumblr_emotions_torch.ops import int8_conv as ic
@@ -677,6 +950,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from tumblr_emotions_torch._device import card_line, resolve_device, tf32_convs
+    from tumblr_emotions_torch.data import jpeg
     from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
     from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
     from tumblr_emotions_torch.models.layers import to_nchw, to_nhwc
@@ -695,17 +969,21 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
-    # ---- 2. build ----
+    # ---- 2. build: the kernels (nvcc) and, beside them, the host JPEG
+    # decoder (g++) ----
     t0 = time.perf_counter()
-    libs = _build.build()
-    for name in libs:
-        _build.library(name)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(jpeg.build)
+        libs = _build.build()
+        for name in libs:
+            _build.library(name)
+        host_lib = host.result()
     ptxas = {}
     for name, lib_path in libs.items():
         log = lib_path.with_suffix(".log")
         ptxas[name] = ptxas_report(log.read_text()) if log.exists() else []
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "libraries": [p.name for p in libs.values()], "ptxas": ptxas})
+          "libraries": [p.name for p in libs.values()] + [host_lib.name], "ptxas": ptxas})
 
     # ---- seeded full-width weights (depth 1.0, 15 classes, aux head) ----
     model = InceptionV3(num_classes=15, depth_multiplier=DEPTH,
@@ -931,8 +1209,12 @@ def main() -> int:
     # ---- 8-11. the joint program (the main path), uint8 front, int8 pool, text ----
     paths = joint_phases(dev, state, batches, smi, serve_rate, runner, calib)
     paths["e2e_int8"] = int8_launches
+    del runner
 
-    # ---- 12. the kernels line ----
+    # ---- 12. e2e_http: posts over HTTP, the main path ----
+    paths["e2e_http"] = http_phase(dev, smi, calib)
+
+    # ---- 13. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
     info = {  # name -> (source, replaces, launches in its path's run)
         "fused_inception_a": (src, f"{REPLACES}:230", launches),
@@ -940,9 +1222,9 @@ def main() -> int:
         "conv_same_bias_relu": (src, f"{REPLACES}:127", launches),
         POOLED: (src, f"{REPLACES}:147", launches),
         "conv_int8": ("tumblr_emotions_torch/csrc/int8_conv.cu",
-                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", paths["e2e_joint"]),
+                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", paths["e2e_http"]),
         "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
-                              "experiments/pallas_pool.py:53", paths["e2e_joint"]),
+                              "experiments/pallas_pool.py:53", paths["e2e_http"]),
     }
     kernels = []
     for name, (source, replaces, counts) in info.items():
@@ -962,8 +1244,8 @@ def main() -> int:
             "library_ms": sum(libs) if all(v is not None for v in libs) else None,
             "shapes": len(rs)}
         if name in ("conv_int8", "maxpool3x3s2_int8"):
-            # launches: the joint program's run (this slice's main path); the
-            # other int8 paths' runs beside it.
+            # launches: the HTTP run (this slice's main path); the other
+            # int8 paths' runs beside it.
             entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
@@ -1002,6 +1284,16 @@ def main() -> int:
                                            for p, c in paths.items()}
             entry["rows_checked"] = len(checked)
             entry["tiles"] = sorted({r["tile"] for r in checked})
+            # The 1x1 stride-1 forms, where torch._int_mm computes the same
+            # product (without the epilogue): the kernel and the library
+            # call over those shapes alone.
+            mm = [r for r in rs if r["library_ms"] is not None]
+            entry["shapes_1x1"] = len(mm)
+            entry["ms_1x1"] = sum(r["ms"] for r in mm)
+            entry["graph_ms_1x1"] = sum(r["graph_ms"] for r in mm)
+            entry["bound_ms_1x1"] = sum(r["bound_ms"] for r in mm)
+            entry["library_ms_1x1"] = sum(r["library_ms"] for r in mm)
+            entry["library_graph_ms_1x1"] = sum(r["library_graph_ms"] for r in mm)
         kernels.append(entry)
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -4,6 +4,8 @@ CUDA kernels have no CPU mode, so these tests skip without an NVIDIA card.
 On one:  python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -605,3 +607,107 @@ def test_rnn_text_model_matches_the_cpu(dev):
             feats.append(m.represent(tok.to(where)).cpu())
     assert torch.isfinite(feats[0]).all()
     assert (feats[0] - feats[1]).abs().max() <= 1e-5 * feats[1].abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The HTTP path and the batch-1 Predictor on the card.
+# ---------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "data" / "jpeg"
+
+
+def test_http_path_on_the_card(dev, int8_engines):
+    """EmotionHTTPServer over build_forward's joint int8 program on the
+    card: every answer is the in-process runner's on the same decoded,
+    resized image and caption (to the responses' 5 decimals), each device
+    batch launches 66 conv_int8 and 4 maxpool3x3s2_int8, /healthz says cuda,
+    and a corrupt body gets a 400 while its batch is answered."""
+    import json
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from tumblr_emotions_torch import EMOTIONS, get_preset
+    from tumblr_emotions_torch.data import jpeg
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.data.vocab import build_vocabulary
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops.serving import build_forward
+    from tumblr_emotions_torch.server import BatchedPredictor, EmotionHTTPServer
+
+    _, _, raw = int8_engines
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=0.5),
+                      text=cfg.text.replace(vocab_size=300, embed_dim=32))
+    state = joint_model.init_state(build_model(cfg, device="meta"), 0)
+    runner = build_forward(cfg, state, calib_images=preprocess_for_eval(raw), device=dev)
+    captions = ["happy dog day", "sad rain", "so calm", "love love love", "", "excited cat"]
+    vocab = build_vocabulary(captions * 2, max_size=300)
+    names = sorted(p.name for p in FIXTURES.glob("*.jpg"))[:6]
+    bodies = [(FIXTURES / n).read_bytes() for n in names]
+    pred = BatchedPredictor(runner, batch_size=4, host_size=347, vocab=vocab, max_len=50,
+                            max_delay_ms=100.0)
+    srv = EmotionHTTPServer(pred, host="127.0.0.1", port=0)
+    srv.serve_background()
+    base = "http://%s:%d" % srv.server_address[:2]
+    results = {}
+
+    def post(i, body, text):
+        req = urllib.request.Request(f"{base}/predict", data=body, method="POST",
+                                     headers={"X-Text": text})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results[i] = (r.status, json.loads(r.read()))
+        except urllib.error.HTTPError as e:
+            results[i] = (e.code, json.loads(e.read()))
+
+    try:
+        runner(np.zeros((4, 347, 347, 3), np.uint8), np.zeros((4, 50), np.int32))
+        c0, p0 = ic.conv_int8.launches, ip.maxpool3x3s2_int8.launches
+        posts = list(zip(bodies, captions)) + [(b"\xff\xd8 corrupt", "happy")]
+        threads = [threading.Thread(target=post, args=(i, b, t)) for i, (b, t) in enumerate(posts)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=180)
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(base + "/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.close()
+    convs, pools = ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0
+    assert health["platform"] == "cuda" and health["devices"] >= 1
+    assert stats["batches"] >= 2 and convs == 66 * stats["batches"] \
+        and pools == 4 * stats["batches"]
+    assert results[len(bodies)][0] == 400
+    imgs = np.stack([jpeg.resize_bilinear(jpeg.decode(b), 347, 347) for b in bodies])
+    tok, lens = vocab.encode_batch(captions, 50)
+    want = runner(imgs, tok, lens).cpu().numpy()
+    for i in range(len(bodies)):
+        status, got = results[i]
+        assert status == 200 and got["top"] == EMOTIONS[int(want[i].argmax())]
+        assert max(abs(got["probs"][e] - want[i][k]) for k, e in enumerate(EMOTIONS)) <= 1e-5
+
+
+def test_predictor_on_the_card_matches_the_cpu(dev):
+    """The batch-1 Predictor on the card against itself on the CPU: the f32
+    joint model (TF32 off) within 1e-5, the bf16 perf image model within
+    the bf16 floor of test_torch_serving."""
+    from tumblr_emotions_torch import EMOTIONS, get_preset
+    from tumblr_emotions_torch.data.vocab import build_vocabulary
+    from tumblr_emotions_torch.models import build_model, inception_v3, joint_model
+    from tumblr_emotions_torch.train.predict import Predictor
+
+    body = (FIXTURES / "baseline_420_403x301.jpg").read_bytes()
+    for preset, tol in (("joint_finetune", 1e-5), ("fused_inference", 2e-3)):
+        cfg = get_preset(preset)
+        cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=0.5),
+                          text=cfg.text.replace(vocab_size=300, embed_dim=32))
+        init = joint_model if cfg.model == "joint" else inception_v3
+        state = init.init_state(build_model(cfg, device="meta"), 2)
+        vocab = build_vocabulary(["happy dog", "sad cat"] * 2)
+        text = "happy dog" if cfg.model == "joint" else None
+        got = Predictor(cfg, state, vocab, device=dev).predict(body, text)
+        want = Predictor(cfg, state, vocab, device="cpu").predict(body, text)
+        assert max(abs(got[e] - want[e]) for e in EMOTIONS) <= tol, preset

@@ -6,6 +6,8 @@ with its Pallas blocks in interpret mode behind ``_checked``; the default
 int8 program (``build_forward(engine="int8")``, s2d and float fronts)
 against the JAX package's int8 engine behind ``_forward``."""
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,8 @@ import torch
 from tumblr_emotions_tpu.ops import serving as jserving
 from tumblr_emotions_tpu.ops.inference import FusedInceptionV3 as JaxFused
 from tumblr_emotions_torch import convert, get_preset
+from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+from tumblr_emotions_torch.models import build_model
 from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
 from tumblr_emotions_torch.ops.serving import build_forward, image_server
@@ -142,12 +146,71 @@ def cfg():
 
 def test_build_forward_parity_and_bf16_engines(setup, cfg):
     state, _, raw = setup
-    parity = build_forward(cfg, state, engine="parity", device="cpu")(raw)
+    # fused_inference is a perf preset (its parity engine is the bf16 slim
+    # model: test_build_forward_parity_engine_in_perf_mode_matches_jax); the
+    # f32 slim tower is the parity engine of the preset in parity mode.
+    f32 = cfg.replace(train=cfg.train.replace(precision_mode="parity"))
+    parity = build_forward(f32, state, engine="parity", device="cpu")(raw)
     folded_f32, _ = _port_served(state, raw, torch.float32, use_kernels=False)
     # The slim tower and the BN-folded engine compute one function in f32.
     np.testing.assert_allclose(parity.numpy(), folded_f32, atol=1e-5, rtol=0)
     bf16 = build_forward(cfg, state, engine="bf16", device="cpu")(raw)
     np.testing.assert_allclose(bf16.numpy(), parity.numpy(), atol=BF16_PROB_ATOL, rtol=0)
+
+
+# The parity engine of a perf preset (fused_inference) is the bf16 slim
+# model, as the JAX trainer builds it for precision_mode="perf".  Before the
+# repair the port served its f32 model there: 3.46e-3 from the JAX program
+# in probability at these inputs (ROADMAP Queue 3).  Now 8.5e-4, which is
+# the floor for two bf16 programs here: the port's own bf16 model with its
+# convs summed in float64 instead of f32 moves by 1.03e-3 (the summation
+# order flips bf16 roundings that ~30 convs then carry).  Measured on the
+# CPU, depth 0.25, 139 px, by tests/report_perf_mode.py.
+PERF_PROB_ATOL = 2e-3
+# f32 builds of one model agree to 3.6e-7 (and with JAX's); a perf build
+# that silently stayed f32 would sit that close to the f32 one.
+PERF_VS_F32_MIN = 1e-4
+
+
+@pytest.mark.parametrize("model", ["image", "joint"])
+def test_build_forward_parity_engine_in_perf_mode_matches_jax(setup, cfg, model):
+    """The image model of fused_inference, and the joint model in the same
+    precision mode (the reference's perf joint preset, data_parallel, is
+    the training slice's)."""
+    from tumblr_emotions_tpu import config as jconfig
+    from tumblr_emotions_tpu.train.trainer import build_model as jax_build_model
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import joint_model
+
+    state, variables, raw = setup
+    jcfg = jconfig.get_preset("fused_inference")
+    jcfg = jcfg.replace(image=jcfg.image.replace(image_size=IMAGE, depth_multiplier=0.25))
+    assert cfg.train.precision_mode == jcfg.train.precision_mode == "perf"
+    tok = None
+    if model == "joint":
+        small = dict(vocab_size=200, embed_dim=16)
+        jcfg = jcfg.replace(model="joint", text=jcfg.text.replace(**small))
+        cfg = cfg.replace(model="joint", text=cfg.text.replace(**small))
+        state = joint_model.init_state(build_model(cfg, device="meta"), 7)
+        variables = convert.to_variables(state)
+        tok = synthetic_ids(np.random.RandomState(9), 4, 12, 200)
+    jm, forward = jax_build_model(jcfg)
+    want = np.asarray(jserving.build_forward(
+        jcfg, types.SimpleNamespace(forward=forward, model=jm), variables, None,
+        engine="parity")(jnp.asarray(raw), None if tok is None else jnp.asarray(tok), None))
+    got = build_forward(cfg, state, engine="parity", device="cpu")(raw, tok).numpy()
+    assert got.shape == (4, 15) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=PERF_PROB_ATOL, rtol=0)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    f32 = build_forward(cfg.replace(train=cfg.train.replace(precision_mode="parity")), state,
+                        engine="parity", device="cpu")(raw, tok).numpy()
+    assert np.abs(got - f32).max() > PERF_VS_F32_MIN
+    port = build_model(cfg, device="cpu")
+    port.load_state_dict(state)
+    x = preprocess_for_eval(torch.from_numpy(raw), IMAGE, IMAGE)
+    logits, ep = port(x) if tok is None else port.InceptionV3(x)
+    assert logits.dtype == ep["Mixed_6e"].dtype == torch.bfloat16
+    assert ep["PreLogits"].dtype == ep["Predictions"].dtype == torch.float32
 
 
 # The int8 served program against the reference's, each engine calibrated

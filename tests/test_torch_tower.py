@@ -110,7 +110,7 @@ def test_tower_rejects_train_mode_and_wrong_rank(towers):
 # Guards
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tumblr_emotions_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tumblr_emotions_tpu", "PIL")
 
 
 def _imports(path):
@@ -136,6 +136,8 @@ def test_port_imports_with_jax_blocked():
             "import tumblr_emotions_torch.convert, tumblr_emotions_torch.ops._build\n"
             "import tumblr_emotions_torch.ops.quant, tumblr_emotions_torch.ops.int8_conv\n"
             "import tumblr_emotions_torch.ops.int8_pool, tumblr_emotions_torch.profile_serving\n"
+            "import tumblr_emotions_torch.server, tumblr_emotions_torch.train.predict\n"
+            "import tumblr_emotions_torch.data.jpeg, tumblr_emotions_torch.data.pipeline\n"
             "print('ok')\n" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)

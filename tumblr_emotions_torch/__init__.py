@@ -8,6 +8,9 @@ points take ``device`` (default ``"cuda"``) and raise when no card is
 present.
 
 Layer map:
+  front end    -> server (EmotionHTTPServer, BatchedPredictor: posts over
+                  HTTP in fixed-size device batches), train.predict
+                  (Predictor, batch 1)
   entry points -> ops.serving   (image_server, joint_server, build_forward)
   engines      -> ops.quant (QuantizedInceptionV3, int8, the default; its
                   uint8 front), ops.inference (FusedInceptionV3, bf16),
@@ -16,8 +19,11 @@ Layer map:
                   (DeepSentimentModel.fuse)
   kernels      -> ops.int8_conv + csrc/int8_conv.cu, ops.int8_pool +
                   csrc/int8_pool.cu, ops.fused_inception + csrc/inception_blocks.cu
-  data         -> data.preprocessing (eval, s2d), data.vocab (tokenizer,
-                  vocabulary), convert (weights from JAX)
+  data         -> data.jpeg + csrc/jpeg_decode.cc (host JPEG decode and
+                  the PIL-bilinear resize, bit for bit, built by g++),
+                  data.pipeline (_host_resize_uint8), data.preprocessing
+                  (eval, s2d), data.vocab (tokenizer, vocabulary, embedding
+                  loaders), convert (weights from JAX)
 """
 
 __version__ = "0.1.0"
@@ -30,6 +36,7 @@ from tumblr_emotions_torch.config import (  # noqa: F401
     DataConfig,
     ImageConfig,
     TextConfig,
+    TrainConfig,
     get_preset,
 )
 from tumblr_emotions_torch.models import (  # noqa: F401

@@ -2,8 +2,11 @@
 and their eval data.
 
 A copy of the parts of ``tumblr_emotions_tpu/config.py`` that the served
-programs read (the port imports nothing of the JAX package).  The mesh and
-train configs come with the training slice.
+programs read (the port imports nothing of the JAX package): the model and
+data configs, and ``TrainConfig``, whose ``precision_mode`` picks the f32
+(``"parity"``) or bf16 (``"perf"``) model.  The trainer that reads the rest
+of ``TrainConfig``, the mesh config and the ``image_frozen`` and
+``data_parallel`` presets come with the training slice.
 """
 
 from __future__ import annotations
@@ -86,21 +89,60 @@ class DataConfig(_Replaceable):
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig(_Replaceable):
+    batch_size: int = 32
+    eval_batch_size: int = 64
+    learning_rate: float = 1e-3
+    lr_decay_steps: int = 0       # 0 = constant lr
+    lr_decay_factor: float = 0.94
+    optimizer: str = "rmsprop"    # slim fine-tune default; "adam"|"sgd"|"rmsprop"
+    rmsprop_decay: float = 0.9
+    rmsprop_epsilon: float = 1.0
+    momentum: float = 0.9
+    weight_decay: float = 4e-5    # slim inception arg_scope default
+    grad_clip_norm: float = 0.0   # 0 = off
+    num_steps: int = 1000
+    log_every: int = 50
+    checkpoint_every: int = 500
+    checkpoint_dir: str = "/tmp/tumblr_emotions_ckpt"
+    keep_checkpoints: int = 3
+    log_dir: str = ""                # TensorBoard event files
+    profile_start_step: int = 0      # 0 = no profiler trace
+    profile_num_steps: int = 3
+    seed: int = 0
+    # "parity" = f32 everywhere (1e-4 logit budget); "perf" = bf16 compute.
+    precision_mode: str = "parity"
+    trainable_scopes: str = ""    # e.g. "Logits,AuxLogits" = new-head-only phase
+    warmstart_checkpoint: str = ""   # slim .ckpt or checkpoint dir to restore from
+    warmstart_exclude: Tuple[str, ...] = ("Logits", "AuxLogits")
+
+
+@dataclasses.dataclass(frozen=True)
 class Config(_Replaceable):
     name: str = "default"
     model: str = "joint"          # "text" | "image" | "joint"
     text: TextConfig = TextConfig()
     image: ImageConfig = ImageConfig()
     data: DataConfig = DataConfig()
+    train: TrainConfig = TrainConfig()
 
 
 PRESETS = {
     # Text-only: embedding + dense softmax.
-    "text_only": Config(name="text_only", model="text"),
+    "text_only": Config(
+        name="text_only", model="text",
+        train=TrainConfig(batch_size=64, optimizer="adam", learning_rate=1e-3,
+                          weight_decay=0.0, num_steps=2000)),
     # Joint image+text concat fusion (the paper's multimodal model).
-    "joint_finetune": Config(name="joint_finetune", model="joint"),
-    # Fused inference path: preprocess + forward of the image model, bf16.
-    "fused_inference": Config(name="fused_inference", model="image"),
+    "joint_finetune": Config(
+        name="joint_finetune", model="joint",
+        train=TrainConfig(batch_size=32, optimizer="rmsprop", learning_rate=1e-4,
+                          num_steps=20000)),
+    # Fused inference path: preprocess + forward of the image model, bf16
+    # perf mode.
+    "fused_inference": Config(
+        name="fused_inference", model="image",
+        train=TrainConfig(batch_size=256, precision_mode="perf")),
 }
 
 

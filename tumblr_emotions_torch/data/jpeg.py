@@ -1,0 +1,214 @@
+"""JPEG decode and the fixed-size host resize, on the host, without libjpeg
+or PIL.
+
+The port's counterpart of ``tumblr_emotions_tpu/data/jpeg.py`` (the
+reference's C++ decoder over libjpeg) and of the PIL bilinear resize in
+``tumblr_emotions_tpu/data/pipeline.py::_host_resize_uint8``.  Both run in
+``csrc/jpeg_decode.cc``, a self-contained C++ decoder that reproduces
+libjpeg-turbo's islow IDCT, fancy upsampling and colour conversion bit for
+bit, and Pillow's bilinear resample.  It has a plain C interface bound with
+ctypes.
+
+The library is built at first use by the host C++ compiler (``c++`` or
+``g++`` on ``PATH``; no nvcc) into ``build/host_jpeg/`` beside the package,
+named by a hash of the source and the flags, and written by an atomic
+rename, so concurrent processes may build at once.  There is no fallback: a
+failed build raises.
+
+Decoding knobs are the reference's: ``dct_method`` (``"islow"`` only; the
+reference also takes ``"ifast"`` and ``"float"``), ``fancy`` (libjpeg's fancy
+upsampling, or plain replication) and ``scale_num`` (8 only: full size).
+A corrupt, truncated or unsupported image (arithmetic coding, 12-bit
+samples, CMYK/YCCK) raises ``ValueError`` with the decoder's reason.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "jpeg_decode.cc"
+BUILD_DIR = _PKG.parent / "build" / "host_jpeg"
+FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+_ERRLEN = 256
+
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+_IP = ctypes.POINTER(ctypes.c_int)
+_SIGNATURES = {
+    "jd_decode_size": [_P, _S, _IP, _IP, _IP, ctypes.c_char_p, _I],
+    "jd_decode": [_P, _S, _I, _P, _S, _IP, _IP, ctypes.c_char_p, _I],
+    "jd_decode_batch": [_P, _P, _I, _I, _P, _P, _IP, _IP, _I, _IP, ctypes.c_char_p, _I],
+    "jd_resize_bilinear": [_P, _I, _I, _P, _I, _I, ctypes.c_char_p, _I],
+    "jd_decode_resize_batch": [_P, _P, _I, _I, _P, _I, _IP, ctypes.c_char_p, _I],
+}
+
+
+def _compiler() -> str:
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++ on PATH) to build the "
+                           "JPEG decoder")
+    return cxx
+
+
+def _target() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"libjpeg_decode_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/jpeg_decode.cc`` unless its library exists; return
+    the library's path.  Raises ``RuntimeError`` if the compiler fails."""
+    lib = _target()
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        r = subprocess.run([_compiler(), *FLAGS, "-o", str(tmp), str(SOURCE)],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"building {SOURCE.name} failed ({r.returncode}):\n"
+                               f"{r.stdout}{r.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, _I
+    return lib
+
+
+def _check_knobs(dct_method: str, scale_num: int) -> None:
+    if dct_method != "islow":
+        raise ValueError(f"dct_method={dct_method!r} is not supported: the port "
+                         "decodes with libjpeg's islow IDCT only")
+    if scale_num != 8:
+        raise ValueError(f"scale_num={scale_num} is not supported: the port decodes "
+                         "at full size (scale_num=8) only")
+
+
+def _bytes(data) -> bytes:
+    if not isinstance(data, (bytes, bytearray, memoryview)):
+        raise ValueError(f"expected JPEG bytes, got {type(data).__name__}")
+    return bytes(data)
+
+
+def decode_size(data: bytes) -> Tuple[int, int, int]:
+    """(height, width, components) from the JPEG header."""
+    data = _bytes(data)
+    h, w, c = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if library().jd_decode_size(data, len(data), ctypes.byref(h), ctypes.byref(w),
+                                ctypes.byref(c), err, _ERRLEN):
+        raise ValueError(err.value.decode())
+    return h.value, w.value, c.value
+
+
+def decode(data: bytes, dct_method: str = "islow", fancy: bool = True,
+           scale_num: int = 8) -> np.ndarray:
+    """Decode one JPEG to an RGB uint8 array [H, W, 3]."""
+    _check_knobs(dct_method, scale_num)
+    data = _bytes(data)
+    h0, w0, _ = decode_size(data)
+    out = np.empty((h0, w0, 3), np.uint8)
+    h, w = ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if library().jd_decode(data, len(data), int(fancy), out.ctypes.data, out.nbytes,
+                           ctypes.byref(h), ctypes.byref(w), err, _ERRLEN):
+        raise ValueError(f"JPEG decode failed: {err.value.decode()}")
+    return out
+
+
+def _pointers(datas: Sequence[bytes]):
+    n = len(datas)
+    bufs = [_bytes(d) for d in datas]
+    ptrs = (ctypes.c_char_p * n)(*bufs)
+    sizes = (ctypes.c_size_t * n)(*[len(b) for b in bufs])
+    return bufs, ptrs, sizes
+
+
+def _errors(rc, errs, n: int) -> List[Optional[str]]:
+    return [errs[i * _ERRLEN:(i + 1) * _ERRLEN].split(b"\0", 1)[0].decode()
+            if rc[i] else None for i in range(n)]
+
+
+def decode_batch(datas: Sequence[bytes], dct_method: str = "islow",
+                 fancy: bool = True, scale_num: int = 8,
+                 num_threads: int = 8) -> List[np.ndarray]:
+    """Decode a batch of JPEGs on ``num_threads`` threads -> list of
+    [H, W, 3] uint8.  Any failure raises one ``ValueError`` that counts the
+    failures and names the first bad index, as the reference does."""
+    _check_knobs(dct_method, scale_num)
+    n = len(datas)
+    if n == 0:
+        return []
+    dims = []
+    for d in datas:
+        try:
+            dims.append(decode_size(d)[:2])
+        except ValueError:
+            dims.append((1, 1))  # the batch decode reports the failure
+    outs = [np.empty((h, w, 3), np.uint8) for h, w in dims]
+    bufs, ptrs, sizes = _pointers(datas)
+    out_p = (ctypes.c_void_p * n)(*[o.ctypes.data for o in outs])
+    caps = (ctypes.c_size_t * n)(*[o.nbytes for o in outs])
+    hs, ws, rc = (ctypes.c_int * n)(), (ctypes.c_int * n)(), (ctypes.c_int * n)()
+    errs = ctypes.create_string_buffer(_ERRLEN * n)
+    failures = library().jd_decode_batch(ptrs, sizes, n, int(fancy), out_p, caps, hs, ws,
+                                         int(num_threads), rc, errs, _ERRLEN)
+    if failures:
+        bad = [i for i in range(n) if rc[i]]
+        raise ValueError(f"JPEG decode failed for {len(bad)} images (first index "
+                         f"{bad[0]}: {_errors(rc, errs.raw, n)[bad[0]]})")
+    return outs
+
+
+def decode_resize_batch(datas: Sequence[bytes], size: int, out: np.ndarray,
+                        num_threads: int = 8) -> List[Optional[str]]:
+    """Decode each JPEG and resize it to ``size`` x ``size`` (PIL bilinear,
+    as :func:`resize_bilinear`) into ``out[i]``, in one call on
+    ``num_threads`` threads.  ``out`` is a C-contiguous uint8 array [>= n,
+    size, size, 3].  Returns, per image, None or the reason it failed (its
+    row of ``out`` is then unspecified)."""
+    n = len(datas)
+    if out.dtype != np.uint8 or out.ndim != 4 or out.shape[1:] != (size, size, 3) \
+            or out.shape[0] < n or not out.flags.c_contiguous:
+        raise ValueError(f"out must be a C-contiguous uint8 [>={n},{size},{size},3] "
+                         f"array, got {out.dtype} {out.shape}")
+    if n == 0:
+        return []
+    bufs, ptrs, sizes = _pointers(datas)
+    out_p = (ctypes.c_void_p * n)(*[out[i].ctypes.data for i in range(n)])
+    rc = (ctypes.c_int * n)()
+    errs = ctypes.create_string_buffer(_ERRLEN * n)
+    library().jd_decode_resize_batch(ptrs, sizes, n, int(size), out_p, int(num_threads),
+                                     rc, errs, _ERRLEN)
+    return _errors(rc, errs.raw, n)
+
+
+def resize_bilinear(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """PIL ``Image.resize((width, height), Image.BILINEAR)`` of an RGB uint8
+    image [H, W, 3], bit for bit."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an RGB uint8 [H,W,3] image, got {img.dtype} {img.shape}")
+    out = np.empty((height, width, 3), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if library().jd_resize_bilinear(img.ctypes.data, img.shape[0], img.shape[1],
+                                    out.ctypes.data, height, width, err, _ERRLEN):
+        raise ValueError(err.value.decode())
+    return out

@@ -4,9 +4,9 @@ A copy of the pure-Python part of ``tumblr_emotions_tpu/data/vocab.py`` (the
 port imports nothing of the JAX package): lowercase word tokenization, a
 frequency-cutoff vocabulary with reserved PAD=0 and OOV=1 ids, and
 pad/truncate to ``max_len`` with an explicit length, so the text branch sees
-static shapes.  The pretrained-embedding loaders come with a slice that has
-an embedding file to load; until then :func:`synthetic_ids` makes seeded
-id batches for runs on random weights.
+static shapes; and the pretrained-embedding loaders (GloVe or word2vec
+text, or a ``.npy`` matrix).  :func:`synthetic_ids` makes seeded id batches
+for runs on random weights.
 """
 
 from __future__ import annotations
@@ -92,6 +92,47 @@ def build_vocabulary(texts: Iterable[str], max_size: int = 50_000,
             break
         toks.append(tok)
     return Vocabulary({t: i for i, t in enumerate(toks)}, toks)
+
+
+def load_glove_embeddings(path: str, vocab: Vocabulary, embed_dim: int,
+                          seed: int = 0, scale: float = 0.1) -> np.ndarray:
+    """Load GloVe-format text vectors ("word v1 v2 ...") into a [V, D] matrix.
+
+    Words present in the file get their pretrained vector; PAD gets zeros;
+    every other row (OOV included) keeps a seeded random-normal init, the
+    reference's embedding-matrix warm start.
+    """
+    rng = np.random.RandomState(seed)
+    matrix = rng.normal(0.0, scale, size=(vocab.size, embed_dim)).astype(np.float32)
+    matrix[PAD_ID] = 0.0
+    with open(path, "rb") as f:
+        for raw in f:
+            parts = raw.rstrip(b"\n").split(b" ")
+            # word2vec text format has a "count dim" header line; skip it.
+            if len(parts) == 2 and parts[0].isdigit():
+                continue
+            word = parts[0].decode("utf-8", errors="ignore")
+            idx = vocab.token_to_id.get(word)
+            if idx is None or idx == PAD_ID:
+                continue
+            vec = np.asarray(parts[1:], dtype=np.float32)
+            if vec.shape[0] != embed_dim:
+                raise ValueError(
+                    f"embedding dim mismatch: file has {vec.shape[0]}, want {embed_dim}")
+            matrix[idx] = vec
+    return matrix
+
+
+def load_embeddings(path: str, vocab: Vocabulary, embed_dim: int,
+                    seed: int = 0) -> np.ndarray:
+    """Dispatch on file type: a .npy matrix (must be [V, D]) or GloVe text."""
+    if path.endswith(".npy"):
+        matrix = np.load(path).astype(np.float32)
+        if matrix.shape != (vocab.size, embed_dim):
+            raise ValueError(
+                f"embedding matrix {matrix.shape} != ({vocab.size}, {embed_dim})")
+        return matrix
+    return load_glove_embeddings(path, vocab, embed_dim, seed=seed)
 
 
 def synthetic_ids(rng: np.random.RandomState, batch: int, max_len: int, vocab_size: int

@@ -7,7 +7,11 @@ verbatim, quirks included (``Mixed_5c/Branch_1/Conv_1_0c_5x5``, the
 ``Conv2d_1a_1x1`` name on Mixed_6a's 3x3 stride-2 conv, Mixed_7b's doubled
 ``Conv2d_0b_*`` scopes), so ``state_dict()`` keys are the JAX package's
 variable paths (see ``convert.py``).  Activations are NHWC at the module's
-edges, as in the JAX package.
+edges, as in the JAX package.  ``dtype=torch.bfloat16`` builds the
+JAX package's bf16 (``precision_mode="perf"``) model: the input is cast to
+bf16 and every layer follows ``models/layers.py``'s bf16 rules, so the
+average pools (the Inception-A/B/C pool branches, the aux head's pool and
+the global pool, hence ``PreLogits``) are f32.
 """
 
 from __future__ import annotations
@@ -52,9 +56,10 @@ class InceptionV3(nn.Module):
     def __init__(self, num_classes: int = 15, depth_multiplier: float = 1.0,
                  min_depth: int = 16, create_aux_logits: bool = True,
                  bn_epsilon: float = 0.001, bn_scale: bool = False,
-                 image_size: int = 299, device="cuda"):
+                 image_size: int = 299, dtype=torch.float32, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        self.dtype = dtype
         self.num_classes = num_classes
         self.depth_multiplier = depth_multiplier
         self.min_depth = min_depth
@@ -65,7 +70,8 @@ class InceptionV3(nn.Module):
         def conv(name, cin, cout, kernel, strides=(1, 1), padding="VALID", **kw):
             self.add_module(name, ConvBN(cin, cout, kernel, strides, padding,
                                          bn_epsilon=bn_epsilon,
-                                         bn_scale=bn_scale, device=dev, **kw))
+                                         bn_scale=bn_scale, dtype=dtype, device=dev,
+                                         **kw))
             return cout
 
         def sconv(name, cin, cout, kernel):
@@ -153,13 +159,14 @@ class InceptionV3(nn.Module):
         return self._modules[name]
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Preprocessed NHWC f32 images -> (logits, end_points)."""
+        """Preprocessed NHWC f32 images -> (logits, end_points), computed in
+        the model's dtype (the probabilities in f32)."""
         if x.ndim != 4:
             raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
         if self.training:
             raise NotImplementedError("train mode is not ported yet")
         with full_f32():
-            return self._forward(x.float())
+            return self._forward(x.to(self.dtype))
 
     def _forward(self, x):
         c = self._c
@@ -251,9 +258,10 @@ class InceptionV3(nn.Module):
         ep["PreLogits"] = net
         if self.num_classes == 0:
             return net, ep
-        logits = c("Logits/Conv2d_1c_1x1")(net).squeeze(2).squeeze(1)
+        pre = c("Logits/Conv2d_1c_1x1").unrounded(net).squeeze(2).squeeze(1)
+        logits = pre.to(self.dtype)
         ep["Logits"] = logits
-        ep["Predictions"] = torch.softmax(logits.float(), dim=-1)
+        ep["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, ep
 
 

@@ -9,8 +9,9 @@ as in the JAX package's tree.
 
 :meth:`DeepSentimentModel.fuse` is the serving split: the image tower runs
 in a fused engine (``ops/quant.py``, ``ops/inference.py``) and this half
-carries the text lookup and the joint softmax; :meth:`forward` runs the f32
-slim tower (the ``parity`` engine).
+carries the text lookup and the joint softmax; :meth:`forward` runs the
+slim tower (the ``parity`` engine), in f32 or, with ``dtype=torch.bfloat16``,
+as the JAX package's bf16 (perf) model, whose ``PreLogits`` is f32.
 """
 
 from __future__ import annotations
@@ -34,20 +35,21 @@ class DeepSentimentModel(nn.Module):
                  fusion_hidden: int = 0, create_aux_logits: bool = True,
                  depth_multiplier: float = 1.0, min_depth: int = 16,
                  bn_epsilon: float = 0.001, bn_scale: bool = False,
-                 image_size: int = 299, device="cuda"):
+                 image_size: int = 299, dtype=torch.float32, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.InceptionV3 = inception_v3.InceptionV3(
             num_classes=num_classes, depth_multiplier=depth_multiplier,
             min_depth=min_depth, create_aux_logits=create_aux_logits,
-            bn_epsilon=bn_epsilon, bn_scale=bn_scale, image_size=image_size, device=dev)
+            bn_epsilon=bn_epsilon, bn_scale=bn_scale, image_size=image_size, dtype=dtype,
+            device=dev)
         self.Text = text_model.TextEmotionModel(
             vocab_size, embed_dim, num_classes=0, aggregator=aggregator,
-            rnn_hidden=rnn_hidden, pad_id=pad_id, device=dev)
+            rnn_hidden=rnn_hidden, pad_id=pad_id, dtype=dtype, device=dev)
         fused = self.InceptionV3.num_features + self.Text.feature_dim
-        self.JointHidden = Dense(fused, fusion_hidden, device=dev) if fusion_hidden > 0 \
-            else None
-        self.JointLogits = Dense(fusion_hidden or fused, num_classes, device=dev)
+        self.JointHidden = Dense(fused, fusion_hidden, dtype=dtype, device=dev) \
+            if fusion_hidden > 0 else None
+        self.JointLogits = Dense(fusion_hidden or fused, num_classes, dtype=dtype, device=dev)
         self.eval()
 
     def fuse(self, image_feature: torch.Tensor, token_ids, lengths=None
@@ -62,9 +64,10 @@ class DeepSentimentModel(nn.Module):
             if self.JointHidden is not None:
                 fused = torch.relu(self.JointHidden(fused))
                 end_points["JointHidden"] = fused
-            logits = self.JointLogits(fused)
+            pre = self.JointLogits.unrounded(fused)
+        logits = pre.to(self.JointLogits.dtype)
         end_points["Logits"] = logits
-        end_points["Predictions"] = torch.softmax(logits.float(), dim=-1)
+        end_points["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, end_points
 
     def forward(self, images: torch.Tensor, token_ids, lengths=None

@@ -8,6 +8,23 @@ the JAX package's tree onto ``state_dict()`` keys by string alone.
 
 The f32 path is the parity reference: it runs with TF32 off (see
 ``_device.full_f32``), as the JAX package runs ``precision="highest"``.
+``dtype=torch.bfloat16`` is the JAX package's ``precision_mode="perf"``
+model (``tumblr_emotions_tpu/models/layers.py:72-73,114-123``) as its
+jitted program computes it:
+
+- each conv takes bf16 operands and accumulates in f32
+  (:func:`conv_f32_accumulate`, the conv the bf16 engine's cuDNN convs
+  run); batch norm computes ``x.f32 * inv + (beta - mean * inv)`` on that
+  f32 accumulator and rounds once to bf16 (XLA drops the conv output's
+  bf16 round trip ahead of the norm);
+- a conv without norm, and a Dense, rounds its product and adds its bf16
+  bias; a head's softmax reads that sum before its last rounding
+  (``unrounded``);
+- ReLU, max pools and concatenations stay in bf16; an average pool sums
+  its window in bf16, tap by tap in row-major order, and scales by the f32
+  reciprocal of the count, returning f32 (flax's ``avg_pool`` on a bf16
+  input).
+
 Train mode (batch statistics, moving-average updates) comes with the
 train slice; the modules here raise if asked for it.  ``Dense`` is flax's
 dense layer for the text and joint heads.
@@ -20,6 +37,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tumblr_emotions_torch._device import tf32_convs
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -45,6 +64,20 @@ def same_padding(kernel: Tuple[int, int], strides: Tuple[int, int]) -> Tuple[int
             f"SAME padding is implemented for stride 1 and odd kernels only, "
             f"got kernel={kernel} strides={strides}")
     return kh // 2, kw // 2
+
+
+def conv_f32_accumulate(x: torch.Tensor, w: torch.Tensor, strides=(1, 1),
+                        padding=(0, 0)) -> torch.Tensor:
+    """NHWC conv of bf16-valued operands (``x`` NHWC, ``w`` OIHW, any float
+    dtype holding bf16 values) accumulated in f32 and returned unrounded in
+    f32: the caller adds its bias and rounds once, as the JAX package's bf16
+    convs do (``F.conv2d`` on bf16 would round the accumulator itself).  On
+    the card cuDNN may run it in TF32, which is exact here: TF32 holds every
+    bf16 value, and the tensor cores form the products exactly and
+    accumulate in f32."""
+    with tf32_convs():
+        return to_nhwc(F.conv2d(to_nchw(x).float(), w.float(), stride=tuple(strides),
+                                padding=tuple(padding)))
 
 
 class SlimBatchNorm(nn.Module):
@@ -84,13 +117,14 @@ class ConvBN(nn.Module):
                  padding: str = "SAME", use_bn: bool = True,
                  use_bias: bool = False, relu: bool = True,
                  bn_epsilon: float = 0.001, bn_scale: bool = False,
-                 device=None):
+                 dtype=torch.float32, device=None):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
         self.strides = tuple(strides)
         self.pad = same_padding(kernel, strides) if padding == "SAME" else (0, 0)
         self.relu = relu
+        self.dtype = dtype
         self.weights = nn.Parameter(
             torch.zeros(features, in_features, *kernel, device=device))
         self.biases = (nn.Parameter(torch.zeros(features, device=device))
@@ -100,28 +134,53 @@ class ConvBN(nn.Module):
             if use_bn else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = to_nhwc(F.conv2d(to_nchw(x), self.weights, stride=self.strides,
-                             padding=self.pad))
+        y = self.unrounded(x).to(self.dtype)
+        return torch.relu(y) if self.relu else y
+
+    def unrounded(self, x: torch.Tensor) -> torch.Tensor:
+        """The layer before its ReLU and its last rounding to ``dtype``
+        (f32): a head's softmax reads its logits so in the jitted
+        reference."""
+        d = self.dtype
+        if d == torch.float32:
+            y = to_nhwc(F.conv2d(to_nchw(x.float()), self.weights, stride=self.strides,
+                                 padding=self.pad))
+        else:
+            y = conv_f32_accumulate(x.to(d), self.weights.to(d), self.strides, self.pad)
+            if self.BatchNorm is None:
+                y = y.to(d).float()
         if self.biases is not None:
-            y = y + self.biases
+            y = y + self.biases.to(d).float()
         if self.BatchNorm is not None:
             y = self.BatchNorm(y)
-        return torch.relu(y) if self.relu else y
+        return y
 
 
 class Dense(nn.Module):
     """flax ``nn.Dense``: ``x @ kernel^T + bias``, with ``kernel`` held
-    [out, in] (``convert.py`` transposes flax's [in, out])."""
+    [out, in] (``convert.py`` transposes flax's [in, out]).  In bf16 the
+    input, kernel and bias are cast to bf16, the product is accumulated in
+    f32 and rounded, and the bias is added in bf16."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 device=None):
+                 dtype=torch.float32, device=None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.zeros(features, in_features, device=device))
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.kernel, self.bias)
+        return self.unrounded(x).to(self.dtype)
+
+    def unrounded(self, x: torch.Tensor) -> torch.Tensor:
+        """The output before its last rounding to ``dtype`` (f32), as a
+        head's softmax reads it in the jitted reference."""
+        d = self.dtype
+        if d == torch.float32:
+            return F.linear(x, self.kernel, self.bias)
+        y = F.linear(x.to(d).float(), self.kernel.to(d).float()).to(d).float()
+        return y if self.bias is None else y + self.bias.to(d).float()
 
 
 def max_pool(x: torch.Tensor, window: Tuple[int, int],
@@ -133,7 +192,27 @@ def max_pool(x: torch.Tensor, window: Tuple[int, int],
 def avg_pool(x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int],
              padding: str = "SAME") -> torch.Tensor:
     """Average pool on NHWC dividing by the in-image taps only, as TF's
-    AvgPool does (``count_include_pad=False``)."""
+    AvgPool does (``count_include_pad=False``).  A bf16 input is summed in
+    bf16, one tap at a time in row-major window order (XLA's reduce_window
+    on a bf16 operand), and the sum multiplied by the f32 reciprocal of the
+    count (the jitted program folds flax's divide by the constant count so):
+    the result is f32, as flax's ``avg_pool`` returns it."""
     pad = same_padding(window, strides) if padding == "SAME" else (0, 0)
+    if x.dtype == torch.bfloat16:
+        return _avg_pool_bf16(x, window, strides, pad)
     return to_nhwc(F.avg_pool2d(to_nchw(x), window, strides, padding=pad,
                                 count_include_pad=False))
+
+
+def _avg_pool_bf16(x, window, strides, pad):
+    (kh, kw), (sh, sw), (ph, pw) = window, strides, pad
+    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+    ho = (xp.shape[1] - kh) // sh + 1
+    wo = (xp.shape[2] - kw) // sw + 1
+    acc = torch.zeros(x.shape[0], ho, wo, x.shape[3], dtype=x.dtype, device=x.device)
+    for i in range(kh):
+        for j in range(kw):
+            acc = acc + xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw]
+    ones = torch.ones(1, 1, x.shape[1], x.shape[2], device=x.device)
+    counts = F.avg_pool2d(ones, window, strides, padding=pad, divisor_override=1)
+    return acc.float() * (1.0 / to_nhwc(counts))

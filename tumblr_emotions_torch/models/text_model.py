@@ -11,6 +11,15 @@ Parameter names are the JAX package's (``WordEmbedding/embeddings``,
 ``TextLogits``), so ``convert.py`` maps the flax tree by string alone.  The
 f32 path runs with TF32 off, as the reference runs in full f32.
 
+``dtype=torch.bfloat16`` is the JAX package's bf16 (perf) model: the
+table is cast to bf16 before the lookup, the masked sum is accumulated in
+f32 and rounded (``jnp.sum``'s upcast), the mean divides in bf16, the
+Denses follow ``models/layers.Dense``; the LSTM's Denses and gate inputs
+are bf16 while its carry stays f32 (flax's carry is made in the f32 param
+dtype, and bf16 times f32 promotes to f32), so its feature is f32; where
+a bf16 value meets the carry, the jitted reference keeps it unrounded
+(``_sigmoid_low``), and so does the port.
+
 Two behaviours of the reference are kept because the served answers depend
 on them:
 
@@ -53,6 +62,14 @@ def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
                                                device=table.device))
 
 
+def _sigmoid_low(z: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of a bf16 array as the jitted reference computes it:
+    ``1 / (1 + exp(-z))`` with the exp and the sum rounded to bf16 and the
+    quotient left in f32 (the gates that meet the f32 carry are never
+    rounded; the input gate is rounded by its caller)."""
+    return 1.0 / (torch.exp(-z).to(z.dtype) + 1).float()
+
+
 class LSTMAggregator(nn.Module):
     """flax ``nn.RNN(nn.OptimizedLSTMCell(hidden))`` over embedded tokens,
     returning the final ``h`` of each row (see the module docstring for
@@ -60,9 +77,10 @@ class LSTMAggregator(nn.Module):
     o*tanh(c')``, sigmoid gates, tanh activations; the input Denses have no
     bias, the hidden ones do."""
 
-    def __init__(self, embed_dim: int, hidden: int, device=None):
+    def __init__(self, embed_dim: int, hidden: int, dtype=torch.float32, device=None):
         super().__init__()
         self.hidden = hidden
+        self.dtype = dtype
         cell = nn.Module()
         for g in GATES:
             cell.add_module(f"i{g}", Dense(embed_dim, hidden, use_bias=False, device=device))
@@ -75,14 +93,26 @@ class LSTMAggregator(nn.Module):
         w_i = torch.cat([dense[f"i{g}"].kernel for g in GATES])     # [4H, D]
         w_h = torch.cat([dense[f"h{g}"].kernel for g in GATES])     # [4H, H]
         b_h = torch.cat([dense[f"h{g}"].bias for g in GATES])
-        x = F.linear(emb, w_i)                                       # all steps at once
-        h = c = emb.new_zeros(B, self.hidden)
+        d = self.dtype
+        if d == torch.float32:
+            x = F.linear(emb, w_i)                                   # all steps at once
+        else:
+            x = F.linear(emb.to(d).float(), w_i.to(d).float()).to(d)
+            w_h, b_h = w_h.to(d).float(), b_h.to(d)
+        h = c = torch.zeros(B, self.hidden, device=emb.device)
         hs = []
         for t in range(T):
             # flax: dense_h (with its bias) + dense_i, per gate.
-            i, f, g, o = (F.linear(h, w_h, b_h) + x[:, t]).chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
+            if d == torch.float32:
+                i, f, g, o = (F.linear(h, w_h, b_h) + x[:, t]).chunk(4, dim=-1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+                h = torch.sigmoid(o) * torch.tanh(c)
+            else:
+                pre = (F.linear(h.to(d).float(), w_h).to(d) + b_h) + x[:, t]
+                i, f, g, o = pre.chunk(4, dim=-1)
+                i, g = _sigmoid_low(i).to(d).float(), torch.tanh(g).float()
+                c = _sigmoid_low(f) * c + i * g
+                h = _sigmoid_low(o) * torch.tanh(c)
             hs.append(h)
         last = lengths.long() - 1
         last = torch.where(last < 0, last + T, last).clamp(0, T - 1)
@@ -99,46 +129,49 @@ class TextEmotionModel(nn.Module):
 
     def __init__(self, vocab_size: int, embed_dim: int, num_classes: int = 15,
                  aggregator: str = "mean", rnn_hidden: int = 256, hidden_dim: int = 0,
-                 pad_id: int = 0, device="cuda"):
+                 pad_id: int = 0, dtype=torch.float32, device="cuda"):
         super().__init__()
         if aggregator not in AGGREGATORS:
             raise ValueError(f"unknown aggregator {aggregator!r}; expected one of {AGGREGATORS}")
         dev = resolve_device(device)
         self.aggregator = aggregator
         self.pad_id = pad_id
+        self.dtype = dtype
         self.num_classes = num_classes
         self.register_parameter(EMBEDDINGS, nn.Parameter(
             torch.zeros(vocab_size, embed_dim, device=dev)))
-        self.RNN = LSTMAggregator(embed_dim, rnn_hidden, device=dev) if aggregator == "rnn" \
-            else None
+        self.RNN = (LSTMAggregator(embed_dim, rnn_hidden, dtype=dtype, device=dev)
+                    if aggregator == "rnn" else None)
         self.feature_dim = rnn_hidden if aggregator == "rnn" else embed_dim
         feat = self.feature_dim
         self.TextHidden = None
         self.TextLogits = None
         if num_classes > 0:
             if hidden_dim > 0:
-                self.TextHidden = Dense(feat, hidden_dim, device=dev)
+                self.TextHidden = Dense(feat, hidden_dim, dtype=dtype, device=dev)
                 feat = hidden_dim
-            self.TextLogits = Dense(feat, num_classes, device=dev)
+            self.TextLogits = Dense(feat, num_classes, dtype=dtype, device=dev)
         self.eval()
 
     def represent(self, token_ids, lengths=None) -> torch.Tensor:
-        """[B, T] int ids -> [B, F] f32 text feature (the joint model's input)."""
+        """[B, T] int ids -> [B, F] text feature (the joint model's input), f32
+        (bf16 from the bf16 model's mean and sum)."""
         table = getattr(self, EMBEDDINGS)
         token_ids = torch.as_tensor(token_ids, device=table.device)
         if lengths is None:
             lengths = (token_ids != self.pad_id).sum(-1)
         lengths = torch.as_tensor(lengths, device=table.device)
         with full_f32():
-            emb = take_fill(table, token_ids)
+            emb = take_fill(table.to(self.dtype), token_ids)
             T = emb.shape[1]
             mask = torch.arange(T, device=emb.device)[None, :] < lengths[:, None]
             emb = emb * mask[..., None].to(emb.dtype)
+            if self.aggregator == "rnn":
+                return self.RNN(emb, lengths)
+            total = emb.float().sum(dim=1).to(emb.dtype)
             if self.aggregator == "mean":
-                return emb.sum(dim=1) / lengths.clamp_min(1).to(emb.dtype)[:, None]
-            if self.aggregator == "sum":
-                return emb.sum(dim=1)
-            return self.RNN(emb, lengths)
+                return total / lengths.clamp_min(1).to(emb.dtype)[:, None]
+            return total
 
     def forward(self, token_ids, lengths=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -154,9 +187,10 @@ class TextEmotionModel(nn.Module):
             if self.TextHidden is not None:
                 feat = torch.relu(self.TextHidden(feat))
                 end_points["TextHidden"] = feat
-            logits = self.TextLogits(feat)
+            pre = self.TextLogits.unrounded(feat)
+        logits = pre.to(self.dtype)
         end_points["Logits"] = logits
-        end_points["Predictions"] = torch.softmax(logits.float(), dim=-1)
+        end_points["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, end_points
 
 

@@ -16,12 +16,10 @@ caller here.
 
 Rounding: as the JAX package (``preferred_element_type=float32``), every
 conv accumulates in f32, adds the f32 bias and rounds to the working dtype
-once.  The cuDNN convs run in f32 on the bf16-valued activations and
-weights (``F.conv2d`` on bf16 would return a bf16 accumulator, rounded
-before the bias and again after); on the card they allow TF32, which is
-exact here: TF32 holds every bf16 value, and the tensor cores form the
-products exactly and accumulate in f32 (``tests/test_torch_cuda.py``
-holds these convs to one rounding on the card).  The block kernels round
+once.  The cuDNN convs are ``models.layers.conv_f32_accumulate``: f32 on
+the bf16-valued activations and weights, TF32 allowed on the card, which
+is exact for bf16 values (``tests/test_torch_cuda.py`` holds these convs
+to one rounding on the card).  The block kernels round
 once, as the TPU kernels do.
 
 The TPU knob ``images_per_block`` (images stacked per Pallas grid step to
@@ -36,8 +34,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from tumblr_emotions_torch._device import full_f32, resolve_device, tf32_convs
-from tumblr_emotions_torch.models.layers import to_nchw, to_nhwc
+from tumblr_emotions_torch._device import full_f32, resolve_device
+from tumblr_emotions_torch.models.layers import conv_f32_accumulate, to_nchw, to_nhwc
 from tumblr_emotions_torch.ops.fused_inception import (
     INCEPTION_B_BRANCHES, _taps, block_plan, fold_batchnorm, fused_inception_a,
     fused_inception_b, inception_a_branches)
@@ -85,8 +83,7 @@ class FusedInceptionV3:
     def _conv(self, x, scope, strides=(1, 1), padding="VALID", relu=True):
         w, b = self.w[scope]
         pad = (w.shape[2] // 2, w.shape[3] // 2) if padding == "SAME" else (0, 0)
-        with tf32_convs():
-            y = to_nhwc(F.conv2d(to_nchw(x).float(), w, stride=strides, padding=pad)) + b
+        y = conv_f32_accumulate(x, w, strides, pad) + b
         return (torch.relu(y) if relu else y).to(self.dtype)
 
     def _packed_conv1x1(self, x, scopes: Sequence[str]):
@@ -103,8 +100,7 @@ class FusedInceptionV3:
             self._packs[key] = (torch.cat([self.w[s][0] for s in scopes]),
                                 torch.cat([self.w[s][1] for s in scopes]))
         w, b = self._packs[key]
-        with tf32_convs():
-            y = to_nhwc(F.conv2d(to_nchw(x).float(), w)) + b
+        y = conv_f32_accumulate(x, w) + b
         return torch.split(y, [self.w[s][0].shape[0] for s in scopes], dim=-1)
 
     def _relu(self, y):

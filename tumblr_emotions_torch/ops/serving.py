@@ -12,8 +12,10 @@ Port of the one-device form of ``tumblr_emotions_tpu/ops/serving.py``:
 - ``build_forward`` builds the served program of an image, text or joint
   model: the ``"int8"`` engine (the default, as in the reference:
   ``QuantizedInceptionV3`` with the shift epilogue behind the front
-  ``front`` picks), the ``"bf16"`` BN-folded engine or the ``"parity"`` f32
-  model; the text model always runs its f32 model.
+  ``front`` picks), the ``"bf16"`` BN-folded engine or the ``"parity"``
+  engine, the slim model in the config's precision mode (f32, or bf16 for
+  ``cfg.train.precision_mode == "perf"``); a text model always runs that
+  model.
 
 The default served program is ``image_server(QuantizedInceptionV3(state,
 calib, stem_s2d="pre"))``, the program the JAX package's ``bench.py``
@@ -143,8 +145,10 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
 
     ``engine``: ``"int8"`` (quantized, shift epilogues; the default, as in
     the JAX package), ``"bf16"`` (BN-folded, cuDNN blocks, as the JAX
-    package's ``build_forward`` builds it) or ``"parity"`` (the f32 model,
-    TF32 off); a text model always runs its f32 model.  ``calib_images``
+    package's ``build_forward`` builds it) or ``"parity"`` (the slim model
+    ``models.build_model`` builds: f32 with TF32 off, or the bf16 model when
+    ``cfg.train.precision_mode == "perf"``); a text model always runs that
+    model.  Every runner carries its device as ``runner.device``.  ``calib_images``
     (preprocessed f32 [N,H,W,3]) calibrates the int8 engine's activation
     scales.  ``front`` picks the int8 engine's preprocess: ``"s2d"``
     (default: the resize emits the 2x2 space-to-depth layout and the stem
@@ -174,6 +178,7 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
                 args += [tokens, lengths]
             return model(*args)[1]["Predictions"]
 
+        runner.device = dev
         return runner
 
     tower = state if cfg.model == "image" else tower_state(state)
@@ -207,4 +212,5 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
             return img_server(image)[0]
 
     runner.engine = eng  # the engine behind the runner (its scales, epilogue kinds)
+    runner.device = dev
     return runner
