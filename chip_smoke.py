@@ -81,7 +81,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                get their answers; the batch-1 Predictor on two fixtures at native
                size agrees with the f32 parity runner.  Prints posts/s, p50
                and p99 latency, and the host decode+resize img/s (8 threads).
-13. kernels -- one JSON line listing every ported kernel.
+13. train_joint -- the training main path: Trainer(joint_finetune,
+               preprocess="train") at full width (Inception-v3 depth 1.0, 299
+               px, aux head, dropout keep 0.8; vocab 50,000 x 200, mean,
+               max_len 50; batch 32; RMSProp lr 1e-4, decay 0.9, eps 1.0,
+               momentum 0.9, L2 4e-5) from seeded weights and seeded uint8
+               [32,347,347,3] batches made on the card: fit for 8 steps, then
+               evaluate over 3 batches, the last half padding (weight 0).
+               Every loss finite; every trainable leaf and every BN statistic
+               moved, the unused tower Logits bias not, its weights where an
+               L2-only replay of the optimizer puts them; evaluate's count,
+               accuracy and confusion equal to the CPU's on the same batches
+               and state; one step at batch 4 (dropout off, the same
+               distortion draws) against the same step on the CPU (loss
+               within TRAIN_LOSS_RTOL, the updates within TRAIN_NOISE_FACTOR of
+               the CPU's own f32 noise floor); the trained state served by
+               the int8 program (66 conv_int8 + 4 maxpool3x3s2_int8 launches
+               per forward), top-1 against the f32 parity runner.  Prints
+               steps/s, examples/s, peak memory, ms per step split into
+               preprocess / forward+backward / update (CUDA events) and the
+               step's f32 bound.
+14. train_image_frozen -- image_frozen (Logits, AuxLogits trainable) at full
+               width, 4 steps: every parameter outside the two scopes
+               bit-unchanged, every BN statistic moved.
+15. train_text -- text_only (Adam, batch 64) at full width, 4 steps, the
+               first held against the CPU.
+16. kernels -- one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -148,6 +173,31 @@ HOST_SIZE = 347
 HTTP_PROB_TOL = 1e-5
 PREDICT_TOL = 1e-5
 FIXTURES = "tests/data/jpeg"
+
+# Training (train_joint, train_image_frozen, train_text).  The card's step
+# against the same step on the CPU: the loss is a forward pass, f32 with TF32
+# off on both, so it agrees to summation order (TF32 would move it ~1e-3);
+# the updates of the whole tower are not that steady in f32 (train-mode
+# batch norm over 4 images amplifies rounding: a 1e-7 move of the weights
+# moves one step's update by ~1%), so the card's distance to the CPU,
+# ||card - cpu|| / ||cpu - init|| over the leaves, is held within
+# TRAIN_NOISE_FACTOR of the CPU's own floor: the mean distance of its update
+# to its updates from weights moved by TRAIN_NOISE_EPS of themselves and
+# each image's brightness by TRAIN_NOISE_EPS (one run per seed of
+# TRAIN_NOISE_SEEDS), about the rounding by which cuDNN's f32 convs and the
+# CPU's differ (1.0e-6 to 1.7e-6 of the output's scale, tumblr_emotions_torch/
+# op_grads.py); the card's rounding differs image by image, which batch
+# centring does not cancel as it cancels much of a move of the weights.  The text model is steady: per leaf within TEXT_UPDATE_TOL of
+# its update.
+TRAIN_STEPS = 8
+TRAIN_EVAL_BATCHES = 3
+TRAIN_SIDE_STEPS = 4
+TRAIN_CPU_BATCH = 4
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_NOISE_FACTOR = 3.0
+TRAIN_NOISE_EPS = 1e-6
+TRAIN_NOISE_SEEDS = (1, 2, 3)
+TEXT_UPDATE_TOL = 1e-3
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 # The block conv's pooled form (the 3x3 average pool fused into Branch_3's
@@ -913,6 +963,350 @@ def http_phase(dev, smi, calib):
     return launches
 
 
+def tower_macs(cfg) -> float:
+    """Multiply-adds of one image through the config's Inception-v3 (every
+    conv, the aux head and the Logits head), counted from the output shapes
+    of a forward on the meta device."""
+    import torch
+
+    from tumblr_emotions_torch.models import build_model
+    from tumblr_emotions_torch.models.layers import ConvBN
+
+    model = build_model(cfg.replace(model="image"), device="meta")
+    macs = []
+
+    def hook(mod, args, out):
+        macs.append(out[0].numel() * mod.weights[0].numel())
+
+    for mod in model.modules():
+        if isinstance(mod, ConvBN):
+            mod.register_forward_hook(hook)
+    size = cfg.image.image_size
+    model(torch.empty(1, size, size, 3, device="meta"))
+    return float(sum(macs))
+
+
+def train_phases(dev, smi):
+    """Phases 13-15: training on the card (the main path of training,
+    train_joint), the frozen-backbone baseline and the text model.
+    Returns {path: launches} for the int8 program served from the trained
+    joint state."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data import preprocessing as pp
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, inception_v3, joint_model, text_model
+    from tumblr_emotions_torch.ops.serving import build_forward
+    from tumblr_emotions_torch.train.optim import Optimizer
+    from tumblr_emotions_torch.train.trainer import Trainer, path_in_scopes
+
+    rng = np.random.RandomState(SEED + 3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def make_batch(n, vocab, weight=None):
+        """A seeded uint8 [n,347,347,3] batch made on the card (low-frequency
+        colour patterns plus noise), [n,50] ids with lengths 0-50, labels."""
+        lo = torch.rand((n, 3, 8, 8), generator=gen, device=dev) * 255
+        im = F.interpolate(lo, size=(SRC_HW, SRC_HW), mode="bilinear", align_corners=False)
+        im = im + torch.randn(im.shape, generator=gen, device=dev) * 20
+        tokens = torch.from_numpy(synthetic_ids(rng, n, TEXT_T, vocab)).to(dev)
+        b = {"image": im.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous(),
+             "tokens": tokens, "lengths": (tokens != 0).sum(-1).int(),
+             "label": torch.randint(0, 15, (n,), generator=gen, device=dev)}
+        if weight is not None:
+            b["weight"] = torch.tensor(weight, dtype=torch.int32, device=dev)
+        return b
+
+    def snapshot(ts):
+        return {k: v.detach().clone() for k, v in ts.state.items()}
+
+    def record_losses(tr, starts=None):
+        """Keep each step's loss (and, in ``starts``, the host clock when
+        each step began) as fit runs ``tr.train_step``."""
+        losses = []
+        step = tr.train_step
+
+        def recorded(*a, **k):
+            if starts is not None:
+                starts.append(time.perf_counter())
+            state, m = step(*a, **k)
+            losses.append(m["loss"])
+            return state, m
+
+        tr.train_step = recorded
+        return losses
+
+    def distance(a, a0, b, b0, keys):
+        """||(a - a0) - (b - b0)|| / ||b - b0|| over ``keys`` (dicts of CPU
+        tensors): how far update a is from update b."""
+        def d(x, x0, k):
+            return x[k].double() - x0[k].double()
+
+        num = sum(float(((d(a, a0, k) - d(b, b0, k)) ** 2).sum()) for k in keys)
+        den = sum(float((d(b, b0, k) ** 2).sum()) for k in keys)
+        return (num / max(den, 1e-300)) ** 0.5
+
+    def one_step(cfg, state, batch, draws, where):
+        """One train step from ``state`` on ``where``: (loss, state on the CPU)."""
+        tr = Trainer(cfg, preprocess="train" if cfg.model != "text" else None, device=where)
+        ts = tr.init_state(state)
+        ts, m = tr.train_step(ts, {k: v.to(where) for k, v in batch.items()},
+                              draws=None if draws is None else draws.to(where))
+        return float(m["loss"]), {k: v.detach().cpu() for k, v in ts.state.items()}
+
+    # ---- 13. train_joint: joint_finetune at full width ----
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DEPTH),
+                      train=cfg.train.replace(log_every=1))
+    t = cfg.train
+    vocab = cfg.text.vocab_size
+    state0 = joint_model.init_state(build_model(cfg, device="meta"), SEED)
+    batches = [make_batch(t.batch_size, vocab) for _ in range(TRAIN_STEPS)]
+    tr = Trainer(cfg, preprocess="train", device=dev)
+    ts = tr.init_state(state0)
+    starts = []
+    losses = record_losses(tr, starts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    ts = tr.fit(ts, batches, num_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    # fit reads each step's loss (log_every 1), so a step's wall time runs
+    # from its start to the next one's
+    step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:] + [t0 + fit_s])]
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches()
+    if any(launches.values()):
+        fail(f"train_joint: kernels of the served path launched in training: {launches}")
+    losses = [float(x) for x in losses]
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"train_joint: losses {losses}")
+    if ts.step != TRAIN_STEPS or ts.opt_state["count"] != TRAIN_STEPS:
+        fail(f"train_joint: step {ts.step}, optimizer count {ts.opt_state['count']}")
+    trained = {k: v.detach().cpu() for k, v in ts.state.items()}
+    # The joint model's unused tower Logits head gets no gradient from the
+    # loss: its bias none, its weights the L2 term's wd * w alone.
+    head = "InceptionV3.Logits/Conv2d_1c_1x1."
+    unmoved = [k for k in tr.param_keys
+               if torch.equal(trained[k], state0[k]) and not k.startswith(head)]
+    if unmoved:
+        fail(f"train_joint: trainable leaves did not move: {unmoved[:5]}")
+    if not torch.equal(trained[head + "biases"], state0[head + "biases"]):
+        fail("train_joint: the unused tower Logits bias moved (it has no gradient)")
+    stats = [k for k in state0 if k.endswith(("moving_mean", "moving_variance"))]
+    still = [k for k in stats if torch.equal(trained[k], state0[k])]
+    if still:
+        fail(f"train_joint: BN statistics did not move: {still[:5]}")
+    # RMSProp replayed on the card from the L2 gradient alone must land
+    # where training put the weights, bit for bit.  (At lr 1e-4 it moves
+    # them by ~lr * wd = 4e-9 of themselves per step, below f32's
+    # resolution, so both leave them where they started.)
+    w = state0[head + "weights"].to(dev)
+    sim = Optimizer(t)
+    sim_state = sim.init({"w": w})
+    for _ in range(TRAIN_STEPS):
+        sim.update({"w": w}, {"w": t.weight_decay * w}, sim_state)
+    if not torch.equal(w.cpu(), trained[head + "weights"]):
+        fail("train_joint: the tower Logits weights differ from an L2-only replay")
+    l2_moved = (trained[head + "weights"] - state0[head + "weights"]).abs().max().item()
+
+    # evaluate on 3 batches, the last padded, against the CPU's on the same
+    # batches and the same trained state
+    n = t.batch_size
+    ev_batches = [make_batch(n, vocab) for _ in range(TRAIN_EVAL_BATCHES - 1)]
+    ev_batches.append(make_batch(n, vocab, weight=[1] * (n // 2) + [0] * (n - n // 2)))
+    t0 = time.perf_counter()
+    ev = tr.evaluate(ts, ev_batches)
+    eval_s = time.perf_counter() - t0
+    tr_cpu = Trainer(cfg, preprocess="train", device="cpu")
+    t0 = time.perf_counter()
+    ev_cpu = tr_cpu.evaluate(tr_cpu.init_state(trained),
+                             [{k: v.cpu() for k, v in b.items()} for b in ev_batches])
+    eval_cpu_s = time.perf_counter() - t0
+    if ev["count"] != n * (TRAIN_EVAL_BATCHES - 1) + n // 2:
+        fail(f"train_joint: evaluate counted {ev['count']}")
+    if (ev["count"], ev["accuracy"]) != (ev_cpu["count"], ev_cpu["accuracy"]) or not \
+            np.array_equal(ev["confusion"], ev_cpu["confusion"]):
+        fail(f"train_joint: evaluate on the card {ev['count']}/{ev['accuracy']} differs from "
+             f"the CPU's {ev_cpu['count']}/{ev_cpu['accuracy']} or in the confusion matrix")
+    eval_loss_rel = abs(ev["loss"] - ev_cpu["loss"]) / abs(ev_cpu["loss"])
+
+    # one step at batch 4 against the same step on the CPU (dropout off, the
+    # same distortion draws), beside the CPU's own f32 noise floor: the mean
+    # distance of the CPU's update to its updates from weights moved by
+    # TRAIN_NOISE_EPS of themselves (three seeds)
+    ccfg = cfg.replace(image=cfg.image.replace(dropout_keep_prob=1.0),
+                       train=t.replace(batch_size=TRAIN_CPU_BATCH))
+    b4 = {k: v[:TRAIN_CPU_BATCH] for k, v in batches[0].items()}
+    draws = pp.draw_train(torch.Generator().manual_seed(SEED), TRAIN_CPU_BATCH,
+                          (SRC_HW, SRC_HW))
+    t0 = time.perf_counter()
+    loss_card, card = one_step(ccfg, state0, b4, draws, dev)
+    loss_cpu, cpu = one_step(ccfg, state0, b4, draws, "cpu")
+    cpu_step_s = time.perf_counter() - t0
+    noise = []
+    for seed in TRAIN_NOISE_SEEDS:
+        g = torch.Generator().manual_seed(seed)
+        moved = {k: v * (1 + TRAIN_NOISE_EPS * torch.randn(v.shape, generator=g))
+                 for k, v in state0.items()}
+        nudged = dataclasses.replace(draws, delta=draws.delta + TRAIN_NOISE_EPS * torch.randn(
+            TRAIN_CPU_BATCH, generator=g))
+        noise.append((moved, one_step(ccfg, moved, b4, nudged, "cpu")[1]))
+    pkeys = [k for k in tr.param_keys if not torch.equal(cpu[k], state0[k])]
+    held = {"loss_rel_diff": abs(loss_card - loss_cpu) / abs(loss_cpu)}
+    for what, keys in (("params", pkeys), ("stats", stats)):
+        held[what + "_to_cpu"] = distance(card, state0, cpu, state0, keys)
+        held[what + "_noise_floors"] = [distance(n, n0, cpu, state0, keys) for n0, n in noise]
+        held[what + "_noise_floor"] = float(np.mean(held[what + "_noise_floors"]))
+    if held["loss_rel_diff"] > TRAIN_LOSS_RTOL:
+        fail(f"train_joint: step loss {loss_card} on the card vs {loss_cpu} on the CPU, "
+             f"{held['loss_rel_diff']} > {TRAIN_LOSS_RTOL}")
+    for what in ("params", "stats"):
+        if held[what + "_to_cpu"] > TRAIN_NOISE_FACTOR * held[what + "_noise_floor"] + 1e-6:
+            fail(f"train_joint: {what} after one step {held[what + '_to_cpu']} from the CPU's, "
+                 f"above {TRAIN_NOISE_FACTOR} x the f32 noise floor "
+                 f"{held[what + '_noise_floor']}")
+
+    # the stages of a step, timed with CUDA events over 3 more steps
+    ev_t = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    split = {"preprocess": 0.0, "forward_backward": 0.0, "update": 0.0}
+    for b in batches[:3]:
+        ev_t[0].record()
+        inputs = tr.train_inputs(b, gen)
+        ev_t[1].record()
+        _, _, grads = tr.loss_and_grads(ts, inputs, gen)
+        ev_t[2].record()
+        tr.apply_gradients(ts, grads)
+        ev_t[3].record()
+        ev_t[3].synchronize()
+        for i, name in enumerate(split):
+            split[name] += ev_t[i].elapsed_time(ev_t[i + 1]) / 3
+    del grads, inputs
+
+    # the trained state served by the int8 program: K1 and K4 on weights
+    # that are not the initial ones, top-1 against the f32 parity runner
+    calib = pp.preprocess_for_eval(ev_batches[0]["image"])
+    jrun = build_forward(cfg, trained, engine="int8", front="s2d", calib_images=calib,
+                         device=dev)
+    parity = build_forward(cfg, trained, engine="parity", device=dev)
+    reset_all_launches()
+    probs = [jrun(b["image"], b["tokens"]) for b in ev_batches]
+    torch.cuda.synchronize()
+    int8_launches = all_launches()
+    check_int8_launches("train_joint_int8", int8_launches, forwards=len(ev_batches))
+    agree = sum(int((p.argmax(-1) == parity(b["image"], b["tokens"]).argmax(-1)).sum())
+                for p, b in zip(probs, ev_batches))
+    del jrun, parity
+    steps_s = TRAIN_STEPS / fit_s
+    bound_ms = 3 * 2 * tower_macs(cfg) * t.batch_size / H100_F32_FLOPS * 1e3
+    emit({"phase": "train_joint", "config": "joint_finetune", "depth": DEPTH,
+          "image_size": cfg.image.image_size, "aux": cfg.image.create_aux_logits,
+          "dropout_keep": cfg.image.dropout_keep_prob, "vocab": vocab,
+          "embed": cfg.text.embed_dim, "aggregator": cfg.text.aggregator, "max_len": TEXT_T,
+          "batch": t.batch_size, "optimizer": t.optimizer, "lr": t.learning_rate,
+          "preprocess": "train", "src_hw": SRC_HW, "steps": TRAIN_STEPS, "losses": losses,
+          "fit_s": fit_s, "steps_per_s": steps_s, "examples_per_s": steps_s * t.batch_size,
+          "ms_per_step_fit": 1e3 / steps_s, "ms_per_step_each": step_ms,
+          "ms_per_step_steady": float(np.mean(step_ms[1:])),
+          "examples_per_s_steady": 1e3 * t.batch_size / float(np.mean(step_ms[1:])),
+          "ms_per_step_split": split,
+          "ms_per_step_split_sum": sum(split.values()),
+          "timing": "fit_s: host clock over the 8 steps of fit, the first included, "
+                    "synchronised; each: host clock per step of fit (it reads every loss); "
+                    "steady: steps 2-8; split: CUDA events around the three stages of 3 "
+                    "more steps",
+          "peak_memory_gb": peak / 2 ** 30, "bound_ms_f32": bound_ms,
+          "bound_note": "3 x 2 x the tower's multiply-adds x batch over the f32 peak "
+                        "(forward, and two products per conv backward)",
+          "eval": {"count": ev["count"], "accuracy": ev["accuracy"], "loss": ev["loss"],
+                   "seconds": eval_s, "cpu_seconds": eval_cpu_s, "equal_to_cpu": True,
+                   "loss_rel_diff_vs_cpu": eval_loss_rel},
+          "held_against_cpu": dict(held, batch=TRAIN_CPU_BATCH, loss_rtol=TRAIN_LOSS_RTOL,
+                                   noise_factor=TRAIN_NOISE_FACTOR, noise_eps=TRAIN_NOISE_EPS,
+                                   noise_seeds=list(TRAIN_NOISE_SEEDS),
+                                   cpu_seconds=cpu_step_s),
+          "tower_logits_weights_equal_l2_only_replay": True,
+          "tower_logits_weights_moved_max_abs": l2_moved,
+          "int8_from_trained": {"launches": int8_launches, "top1_agree_vs_parity":
+                                agree / (n * len(ev_batches))},
+          "card": smi})
+    print(smi, flush=True)
+    del tr, ts, batches, trained, card, cpu, noise
+
+    # ---- 14. train_image_frozen: the frozen-backbone baseline ----
+    fcfg = get_preset("image_frozen")
+    fcfg = fcfg.replace(image=fcfg.image.replace(depth_multiplier=DEPTH))
+    fstate0 = inception_v3.init_state(build_model(fcfg, device="meta"), SEED)
+    ftr = Trainer(fcfg, preprocess="train", device=dev)
+    fts = ftr.init_state(fstate0)
+    flosses = record_losses(ftr)
+    fbatches = [make_batch(fcfg.train.batch_size, vocab) for _ in range(TRAIN_SIDE_STEPS)]
+    t0 = time.perf_counter()
+    fts = ftr.fit(fts, fbatches, num_steps=TRAIN_SIDE_STEPS)
+    torch.cuda.synchronize()
+    ffit_s = time.perf_counter() - t0
+    scopes = ("Logits", "AuxLogits")
+    changed = {k for k, v in fts.state.items() if not torch.equal(v.detach().cpu(), fstate0[k])}
+    fstats = {k for k in fstate0 if k.endswith(("moving_mean", "moving_variance"))}
+    trainable = {k for k in ftr.param_keys if path_in_scopes(k, scopes)}
+    if changed - fstats != trainable:
+        fail(f"train_image_frozen: moved {sorted(changed - fstats - trainable)[:5]}, "
+             f"unmoved trainable {sorted(trainable - changed)[:5]}")
+    if not fstats <= changed:
+        fail(f"train_image_frozen: BN statistics unmoved: {sorted(fstats - changed)[:5]}")
+    flosses = [float(x) for x in flosses]
+    if not all(np.isfinite(flosses)):
+        fail(f"train_image_frozen: losses {flosses}")
+    emit({"phase": "train_image_frozen", "depth": DEPTH, "batch": fcfg.train.batch_size,
+          "steps": TRAIN_SIDE_STEPS, "losses": flosses, "trainable_leaves": len(trainable),
+          "frozen_leaves_bit_unchanged": len(ftr.param_keys) - len(trainable),
+          "bn_statistics_moved": len(fstats), "fit_s": ffit_s,
+          "examples_per_s": TRAIN_SIDE_STEPS * fcfg.train.batch_size / ffit_s, "card": smi})
+    del ftr, fts, fbatches
+
+    # ---- 15. train_text: text_only (Adam, batch 64) at full width ----
+    tcfg = get_preset("text_only")
+    tstate0 = text_model.init_state(build_model(tcfg, device="meta"), SEED)
+    tbatches = [{k: v for k, v in make_batch(tcfg.train.batch_size, tcfg.text.vocab_size)
+                 .items() if k != "image"} for _ in range(TRAIN_SIDE_STEPS)]
+    loss_card, card = one_step(tcfg, tstate0, tbatches[0], None, dev)
+    loss_cpu, cpu = one_step(tcfg, tstate0, tbatches[0], None, "cpu")
+    worst = 0.0
+    for k in cpu:
+        scale = (cpu[k] - tstate0[k]).abs().max().item()
+        err = (card[k] - cpu[k]).abs().max().item()
+        if err > TEXT_UPDATE_TOL * scale + 1e-7:
+            fail(f"train_text: {k} updated {err} from the CPU's, above {TEXT_UPDATE_TOL} of "
+                 f"its update {scale}")
+        worst = max(worst, err / max(scale, 1e-30))
+    if abs(loss_card - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu):
+        fail(f"train_text: step loss {loss_card} on the card vs {loss_cpu} on the CPU")
+    ttr = Trainer(tcfg, device=dev)
+    tts = ttr.init_state(tstate0)
+    tlosses = record_losses(ttr)
+    t0 = time.perf_counter()
+    tts = ttr.fit(tts, tbatches, num_steps=TRAIN_SIDE_STEPS)
+    torch.cuda.synchronize()
+    tfit_s = time.perf_counter() - t0
+    tlosses = [float(x) for x in tlosses]
+    if not all(np.isfinite(tlosses)) or abs(tlosses[0] - loss_card) > 1e-6 * abs(loss_card):
+        fail(f"train_text: losses {tlosses} (the held step's {loss_card})")
+    emit({"phase": "train_text", "vocab": tcfg.text.vocab_size, "embed": tcfg.text.embed_dim,
+          "aggregator": tcfg.text.aggregator, "batch": tcfg.train.batch_size,
+          "optimizer": tcfg.train.optimizer, "steps": TRAIN_SIDE_STEPS, "losses": tlosses,
+          "held_step_loss_card_cpu": [loss_card, loss_cpu],
+          "held_step_worst_leaf_vs_update": worst, "update_tol": TEXT_UPDATE_TOL,
+          "fit_s": tfit_s, "card": smi})
+    return {"train_joint_int8": int8_launches}
+
+
 def _wrappers():
     from tumblr_emotions_torch.ops import fused_inception as fi
     from tumblr_emotions_torch.ops import int8_conv as ic
@@ -1214,7 +1608,10 @@ def main() -> int:
     # ---- 12. e2e_http: posts over HTTP, the main path ----
     paths["e2e_http"] = http_phase(dev, smi, calib)
 
-    # ---- 13. the kernels line ----
+    # ---- 13-15. training on the card, the main path ----
+    paths.update(train_phases(dev, smi))
+
+    # ---- 16. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
     info = {  # name -> (source, replaces, launches in its path's run)
         "fused_inception_a": (src, f"{REPLACES}:230", launches),

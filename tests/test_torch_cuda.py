@@ -4,6 +4,7 @@ CUDA kernels have no CPU mode, so these tests skip without an NVIDIA card.
 On one:  python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -711,3 +712,182 @@ def test_predictor_on_the_card_matches_the_cpu(dev):
         got = Predictor(cfg, state, vocab, device=dev).predict(body, text)
         want = Predictor(cfg, state, vocab, device="cpu").predict(body, text)
         assert max(abs(got[e] - want[e]) for e in EMOTIONS) <= tol, preset
+
+
+# ---------------------------------------------------------------------------
+# Training on the card
+# ---------------------------------------------------------------------------
+
+# One train step on the card against the same step on the CPU (depth 0.25,
+# 139 px with the aux head, vocabulary 300; dropout off; the same distortion
+# draws).  The loss is a forward pass with TF32 off on both: within 1e-4
+# (TF32 moves it ~1e-3).  The text models update per leaf within 1e-3 of
+# the update's own max.  The image models are not steady in f32 (train-mode
+# batch norm over 4 images, and over the aux head's 4 values per channel,
+# amplifies rounding; see tests/test_torch_train.py), so there the card's
+# update's distance to the CPU's, ||(card - init) - (cpu - init)|| / ||cpu -
+# init||, is held within 3x the CPU's own floor: the mean distance of its
+# update to its updates from weights moved by 1e-6 of themselves and each
+# image's brightness by 1e-6 (three seeds), about the rounding by which
+# cuDNN's f32 convs and the CPU's differ (1.0e-6 to 1.7e-6 of the output's
+# scale, `python -m tumblr_emotions_torch.op_grads`).  The per-image move
+# matters: the card's rounding differs image by image, which batch
+# centring does not cancel as it cancels much of a move of the weights
+# (measured at image_frozen: 2.5e-4 for the weights alone, 1.0e-3 to
+# 1.8e-3 with the images).  The BN statistics are held within f32 rounding
+# of their values.
+TRAIN_CASES = {
+    "image": ("image_frozen", dict(model="image"), dict(trainable_scopes="")),
+    "joint": ("joint_finetune", {}, dict(grad_clip_norm=1.0)),
+    "text_mean": ("text_only", {}, {}),
+    "text_rnn": ("text_only", dict(aggregator="rnn"), dict(optimizer="sgd", momentum=0.9)),
+    "image_frozen": ("image_frozen", {}, {}),
+}
+
+
+def _train_cfg(name):
+    from tumblr_emotions_torch import get_preset
+
+    preset, extra, train = TRAIN_CASES[name]
+    cfg = get_preset(preset)
+    cfg = cfg.replace(
+        image=cfg.image.replace(image_size=139, depth_multiplier=0.25, dropout_keep_prob=1.0),
+        text=cfg.text.replace(vocab_size=300, embed_dim=32, max_len=12,
+                              aggregator=extra.get("aggregator", "mean")),
+        train=cfg.train.replace(batch_size=4, **train))
+    return cfg.replace(model=extra.get("model", cfg.model))
+
+
+def _train_init(cfg, seed=0):
+    from tumblr_emotions_torch.models import build_model, inception_v3, joint_model, text_model
+
+    init = {"image": inception_v3, "joint": joint_model, "text": text_model}[cfg.model]
+    return init.init_state(build_model(cfg, device="meta"), seed)
+
+
+def _train_batch(cfg, seed=1):
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+
+    rng = np.random.RandomState(seed)
+    b = {"tokens": synthetic_ids(rng, 4, 12, 300),
+         "label": rng.randint(0, 15, 4).astype(np.int32)}
+    b["lengths"] = (b["tokens"] != 0).sum(-1).astype(np.int32)
+    if cfg.model != "text":
+        b["image"] = rng.randint(0, 256, (4, 160, 170, 3)).astype(np.uint8)
+    return b
+
+
+def _one_step(cfg, state, batch, where, draws):
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, preprocess=None if cfg.model == "text" else "train", device=where)
+    ts = tr.init_state(state)
+    ts, m = tr.train_step(ts, batch, draws=None if draws is None else draws.to(where))
+    return float(m["loss"]), {k: v.detach().cpu() for k, v in ts.state.items()}, tr
+
+
+@pytest.mark.parametrize("name", list(TRAIN_CASES))
+def test_train_step_on_the_card_matches_the_cpu(dev, name):
+    from tumblr_emotions_torch.data import preprocessing as pp
+
+    cfg = _train_cfg(name)
+    state, batch = _train_init(cfg), _train_batch(cfg)
+    draws = None if cfg.model == "text" else pp.draw_train(
+        torch.Generator().manual_seed(0), 4, (160, 170))
+    loss_card, card, tr = _one_step(cfg, state, batch, dev, draws)
+    loss_cpu, cpu, _ = _one_step(cfg, state, batch, "cpu", draws)
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    keys = [k for k in tr.param_keys if not torch.equal(cpu[k], state[k])]
+    stats = [k for k in state if k.endswith(("moving_mean", "moving_variance"))]
+    assert keys
+    if cfg.model != "text":
+        def dist(a, a0, ks):
+            """How far update a is from the CPU's, over ``ks``."""
+            num = sum(float((((a[k] - a0[k]) - (cpu[k] - state[k])).double() ** 2).sum())
+                      for k in ks)
+            den = sum(float(((cpu[k] - state[k]).double() ** 2).sum()) for k in ks)
+            return (num / den) ** 0.5
+
+        floors = []
+        for seed in (1, 2, 3):
+            g = torch.Generator().manual_seed(seed)
+            moved = {k: v * (1 + 1e-6 * torch.randn(v.shape, generator=g))
+                     for k, v in state.items()}
+            nudged = dataclasses.replace(draws, delta=draws.delta + 1e-6 * torch.randn(
+                4, generator=g))
+            _, noise, _ = _one_step(cfg, moved, batch, "cpu", nudged)
+            floors.append(dist(noise, moved, keys))
+        assert dist(card, state, keys) <= 3 * np.mean(floors) + 1e-6
+        # The statistics are the forward's: equal to f32 rounding of their
+        # values (their one-step change, 3e-4 of them, is below f32's
+        # resolution to compare with).
+        for k in stats:
+            torch.testing.assert_close(card[k], cpu[k], rtol=1e-5, atol=1e-6)
+    else:
+        for k in keys + stats:
+            scale = (cpu[k] - state[k]).abs().max().item()
+            assert (card[k] - cpu[k]).abs().max().item() <= 1e-3 * scale + 1e-7, k
+
+
+@pytest.mark.parametrize("window,strides,padding", [
+    ((3, 3), (1, 1), "SAME"), ((5, 5), (3, 3), "VALID"), ((8, 8), (1, 1), "VALID")])
+def test_avg_pool_backward_on_the_card_matches_the_cpu(dev, window, strides, padding):
+    """The tower's average pools, forward and backward, on a channels-last
+    view: PyTorch's own CUDA backward of the padded pool divides by the
+    wrong count, so the SAME pool carries its own backward."""
+    from tumblr_emotions_torch.models.layers import avg_pool
+
+    x = torch.rand(4, 17, 17, 64)
+    g = torch.randn(avg_pool(x, window, strides, padding).shape)
+    out = {}
+    for where in ("cpu", dev):
+        xi = x.to(where).requires_grad_(True)
+        y = avg_pool(xi, window, strides, padding)
+        (gx,) = torch.autograd.grad(y, xi, g.to(where))
+        out[where] = (y.detach().cpu(), gx.cpu())
+    torch.testing.assert_close(out[dev][0], out["cpu"][0], rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(out[dev][1], out["cpu"][1], rtol=1e-6, atol=1e-6)
+
+
+def test_train_step_runs_the_backward_without_tf32_on_the_card(dev):
+    """A hook on the logits' gradient reads the TF32 flags while autograd
+    runs the backward on the card: both off, though cuDNN's is on outside."""
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    cfg = _train_cfg("joint")
+    tr = Trainer(cfg, preprocess="train", device=dev)
+    ts = tr.init_state(_train_init(cfg))
+    seen = []
+
+    def hook(module, args, out):
+        out[0].register_hook(lambda g: seen.append(
+            (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+
+    handle = tr.model.register_forward_hook(hook)
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        tr.train_step(ts, _train_batch(cfg), torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+        torch.backends.cudnn.allow_tf32 = saved
+    assert seen == [(False, False)]
+
+
+def test_image_frozen_leaves_frozen_parameters_bit_unchanged_on_the_card(dev):
+    from tumblr_emotions_torch.train.trainer import Trainer, path_in_scopes
+
+    cfg = _train_cfg("image_frozen")
+    state = _train_init(cfg)
+    tr = Trainer(cfg, preprocess="train", device=dev)
+    ts = tr.init_state(state)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for seed in (1, 2):
+        ts, _ = tr.train_step(ts, _train_batch(cfg, seed), gen)
+    for k in tr.param_keys:
+        same = torch.equal(ts.state[k].detach().cpu(), state[k])
+        assert same != path_in_scopes(k, ("Logits", "AuxLogits")), k
+    for k in state:
+        if k.endswith(("moving_mean", "moving_variance")):
+            assert not torch.equal(ts.state[k].cpu(), state[k]), k

@@ -142,9 +142,11 @@ def test_text_model_refuses_what_it_does_not_have():
     assert feature_only.TextLogits is None and feature_only.feature_dim == D
     with pytest.raises(ValueError):
         feature_only(torch.zeros(1, T, dtype=torch.int32))
-    port = tm.TextEmotionModel(V, D, device="cpu")
+    # f32 trains (tests/test_torch_train.py); the bf16 (perf) model's train
+    # mode is not ported yet.
+    port = tm.TextEmotionModel(V, D, dtype=torch.bfloat16, device="cpu")
     port.train()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="perf"):
         port(torch.zeros(1, T, dtype=torch.int32))
 
 

@@ -17,12 +17,15 @@ Layer map:
                   models.inception_v3 (the f32 tower)
   text, fusion -> models.text_model (TextEmotionModel), models.joint_model
                   (DeepSentimentModel.fuse)
+  training     -> train.trainer (Trainer: fit, evaluate; the models in train
+                  mode), train.optim (the optimizers as optax computes
+                  them), utils.metrics (streaming counts and confusion)
   kernels      -> ops.int8_conv + csrc/int8_conv.cu, ops.int8_pool +
                   csrc/int8_pool.cu, ops.fused_inception + csrc/inception_blocks.cu
   data         -> data.jpeg + csrc/jpeg_decode.cc (host JPEG decode and
                   the PIL-bilinear resize, bit for bit, built by g++),
                   data.pipeline (_host_resize_uint8), data.preprocessing
-                  (eval, s2d), data.vocab (tokenizer, vocabulary, embedding
+                  (eval, s2d, the train distortions), data.vocab (tokenizer, vocabulary, embedding
                   loaders), convert (weights from JAX)
 """
 

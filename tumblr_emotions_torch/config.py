@@ -1,12 +1,12 @@
 """Config dataclasses for the PyTorch port: the image, text and joint models
 and their eval data.
 
-A copy of the parts of ``tumblr_emotions_tpu/config.py`` that the served
-programs read (the port imports nothing of the JAX package): the model and
-data configs, and ``TrainConfig``, whose ``precision_mode`` picks the f32
-(``"parity"``) or bf16 (``"perf"``) model.  The trainer that reads the rest
-of ``TrainConfig``, the mesh config and the ``image_frozen`` and
-``data_parallel`` presets come with the training slice.
+A copy of the parts of ``tumblr_emotions_tpu/config.py`` that the port
+reads (it imports nothing of the JAX package): the model and data configs,
+``TrainConfig`` (the trainer's settings; ``precision_mode`` picks the f32
+``"parity"`` or the bf16 ``"perf"`` model) and four of the reference's five
+presets.  The mesh config and the ``data_parallel`` preset come with the
+data-parallel slice.
 """
 
 from __future__ import annotations
@@ -133,6 +133,12 @@ PRESETS = {
         name="text_only", model="text",
         train=TrainConfig(batch_size=64, optimizer="adam", learning_rate=1e-3,
                           weight_decay=0.0, num_steps=2000)),
+    # Image-only: frozen Inception backbone + linear emotion head.
+    "image_frozen": Config(
+        name="image_frozen", model="image",
+        train=TrainConfig(batch_size=32, optimizer="rmsprop",
+                          trainable_scopes="Logits,AuxLogits",
+                          warmstart_checkpoint="", num_steps=5000)),
     # Joint image+text concat fusion (the paper's multimodal model).
     "joint_finetune": Config(
         name="joint_finetune", model="joint",

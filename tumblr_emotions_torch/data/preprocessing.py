@@ -1,19 +1,29 @@
-"""Eval-time image preprocessing with TF/slim ``inception_preprocessing``
-semantics, in PyTorch (port of the eval part of
-``tumblr_emotions_tpu/data/preprocessing.py``):
+"""Image preprocessing with TF/slim ``inception_preprocessing`` semantics,
+in PyTorch (port of ``tumblr_emotions_tpu/data/preprocessing.py``):
 
-    uint8 -> [0, 1] -> central_crop(0.875) -> resize_bilinear(299, 299,
-    align_corners=False, half_pixel_centers=False) -> x*2 - 1
+    eval:  uint8 -> [0, 1] -> central_crop(0.875) -> resize_bilinear(299,
+           299, align_corners=False, half_pixel_centers=False) -> x*2 - 1
+    train: distorted bounding-box crop -> bilinear resize -> random
+           horizontal flip -> brightness and saturation in a random order
+           -> x*2 - 1 (slim's fast mode, the one the trainer runs)
 
-The resize is two separable 1-D interpolations, each a dense [out, in]
-matrix product.  In float32 they run in full f32 on the card (no TF32).
+The resizes are two separable 1-D interpolations, each a dense [out, in]
+matrix product (per image for the train crop).  In float32 they run in
+full f32 on the card (no TF32), as the reference's ``Precision.HIGHEST``.
 ``preprocess_for_eval_s2d`` emits the 2x2 space-to-depth layout of the int8
-engine's stem straight from the two resize products.  The train-time
-distortions come with a later slice.
+engine's stem straight from the two resize products.
+
+The train distortions are split into their random draws
+(:func:`draw_train`, from a ``torch.Generator``) and a pure
+:func:`apply_train` of those draws: random streams cannot match across
+frameworks, so the tests feed the JAX package's draws to ``apply_train``.
+Slim's full mode (the nearest / bicubic / area resizes and the hue and
+contrast chains) is reached by no entry point and is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -163,3 +173,207 @@ def preprocess_for_eval_s2d(images: torch.Tensor, height: int = 299, width: int 
         z = torch.einsum("jew,nidwc->nijdec", rw3, y)
     z = z.reshape(n, (height + ph) // 2, (width + pw) // 2, 4 * c)
     return z * 2.0 - 1.0
+
+
+# ---------------------------------------------------------------------------
+# Training-time distortions (slim preprocess_for_train, fast mode).
+# ---------------------------------------------------------------------------
+
+CROP_ATTEMPTS = 100
+
+
+def distorted_bounding_box_crop(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
+                                min_object_covered: float = 0.1,
+                                aspect_ratio_range: Tuple[float, float] = (0.75, 1.333),
+                                area_range: Tuple[float, float] = (0.05, 1.0),
+                                max_attempts: int = CROP_ATTEMPTS, device=None):
+    """Crop windows for ``n`` images of ``image_hw`` with
+    ``tf.image.sample_distorted_bounding_box`` semantics (slim passes the
+    whole image as the box), as the JAX package's sampler draws them:
+
+    - the aspect ratio uniform over the range, in f32;
+    - the crop height uniform over the integer band whose round-half-even
+      width keeps the area inside ``area_range``, then the +-1-row
+      corrections for rounding drift;
+    - with the whole image as the box, ``min_object_covered`` asks
+      ``crop_area / image_area >= 0.1``, so smaller crops are rejected;
+    - offsets ``Uniform(H - h)``, so a crop never starts on the last
+      admissible row unless it spans the image (TF's quirk);
+    - the first of ``max_attempts`` attempts that satisfies every
+      constraint wins, else the whole image.
+
+    All attempts of all images are drawn at once, on ``device``.  Returns
+    int64 ``(offset_y, offset_x, crop_h, crop_w)``, each ``[n]``."""
+    h, w = image_hw
+    area = float(h * w)
+    min_area, max_area = area_range[0] * area, area_range[1] * area
+    shape = (n, max_attempts)
+
+    def uniform():
+        return torch.rand(shape, generator=generator, device=device)
+
+    def randint(span):  # integers uniform in [0, span), span >= 1
+        return torch.minimum((uniform() * span).floor().long(), span - 1)
+
+    lo_ar, hi_ar = aspect_ratio_range
+    ar = lo_ar + (hi_ar - lo_ar) * uniform()
+
+    def rw(height):  # round-half-even width, like TF's lrintf
+        return torch.round(height.float() * ar).long()
+
+    ch = torch.round(torch.sqrt(min_area / ar)).long()
+    max_h = torch.round(torch.sqrt(max_area / ar)).long()
+    # Shrink max_h until its rounded width fits inside the image.
+    alt = torch.floor((w + 0.5 - 1e-7) / ar).long()
+    alt = torch.where(rw(alt) > w, alt - 1, alt)
+    max_h = torch.where(rw(max_h) > w, alt, max_h).clamp_max(h)
+    ch = torch.minimum(ch, max_h)
+    ch = ch + randint((max_h - ch + 1).clamp_min(1))
+    cw = rw(ch)
+    # +-1-row area corrections, then the validity test (TF's order).
+    low = (cw * ch).float() < min_area
+    ch = torch.where(low, ch + 1, ch)
+    cw = torch.where(low, rw(ch), cw)
+    high = (cw * ch).float() > max_area
+    ch = torch.where(high, ch - 1, ch)
+    cw = torch.where(high, rw(ch), cw)
+    crop_area = (cw * ch).float()
+    ok = ((crop_area >= min_area) & (crop_area <= max_area) & (cw <= w) & (ch <= h)
+          & (cw > 0) & (ch > 0) & (crop_area / area >= min_object_covered))
+    oy = torch.where(ch < h, randint((h - ch).clamp_min(1)), 0)
+    ox = torch.where(cw < w, randint((w - cw).clamp_min(1)), 0)
+    # The first attempt that is ok (argmax of a bool picks the first True),
+    # else the whole image.
+    first = ok.long().argmax(dim=1, keepdim=True)
+    found = ok.any(dim=1)
+
+    def pick(v, fallback):
+        return torch.where(found, v.gather(1, first)[:, 0], fallback)
+
+    return (pick(oy, 0), pick(ox, 0), pick(ch.clamp(1, h), h), pick(cw.clamp(1, w), w))
+
+
+@dataclasses.dataclass
+class TrainDraws:
+    """The random draws of one batch's train distortions, each ``[N]``: the
+    crop window (``oy``, ``ox``, ``ch``, ``cw``), the horizontal flip, the
+    brightness ``delta``, the saturation ``factor`` and the colour order
+    (``order``: brightness first)."""
+
+    oy: torch.Tensor
+    ox: torch.Tensor
+    ch: torch.Tensor
+    cw: torch.Tensor
+    flip: torch.Tensor
+    delta: torch.Tensor
+    factor: torch.Tensor
+    order: torch.Tensor
+
+    def to(self, device) -> "TrainDraws":
+        return TrainDraws(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
+
+def draw_train(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
+               device=None) -> TrainDraws:
+    """Draw one batch's distortions from ``generator`` (on ``device``): the
+    crop as :func:`distorted_bounding_box_crop`, a fair coin for the flip
+    and the order, the brightness delta uniform in [-32/255, 32/255) and
+    the saturation factor uniform in [0.5, 1.5)."""
+    oy, ox, ch, cw = distorted_bounding_box_crop(generator, n, image_hw, device=device)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
+
+    flip = torch.rand(n, generator=generator, device=device) < 0.5
+    delta = uniform(-32.0 / 255.0, 32.0 / 255.0)
+    factor = uniform(0.5, 1.5)
+    order = torch.rand(n, generator=generator, device=device) < 0.5
+    return TrainDraws(oy, ox, ch, cw, flip, delta, factor, order)
+
+
+def _crop_resize_matrix(out_size: int, off: torch.Tensor, size: torch.Tensor,
+                        in_size: int, method: str) -> torch.Tensor:
+    """Dense [N, out_size, in_size] bilinear matrices of a per-image crop
+    (``off``, ``size``: [N]) and resize, the weight at input column ``i``
+    being ``relu(1 - |i - src(o)|)`` on the f32 source grid: the
+    reference's ``_crop_resize_matrix`` for ``tf1`` (``src = o * scale``),
+    ``half_pixel`` and its alias ``bilinear``."""
+    if method not in ("tf1", "half_pixel", "bilinear"):
+        raise ValueError(f"unknown resize method {method!r}; the fast train path "
+                         "resizes with tf1, half_pixel or bilinear")
+    dev = off.device
+    scale = size.float() / out_size                                 # [N]
+    o = torch.arange(out_size, dtype=torch.float32, device=dev)
+    i = torch.arange(in_size, dtype=torch.float32, device=dev)
+    if method == "half_pixel":
+        src = (o[None, :] + 0.5) * scale[:, None] - 0.5
+    else:
+        src = o[None, :] * scale[:, None]
+    src = torch.minimum(src.clamp_min(0.0), size.float()[:, None] - 1.0)
+    src = src + off.float()[:, None]                                # [N, out]
+    return (1.0 - (i[None, None, :] - src[:, :, None]).abs()).clamp_min(0.0)
+
+
+def _crop_resize_batch(images: torch.Tensor, d: TrainDraws, height: int, width: int,
+                       method: str, in_scale: float = 1.0) -> torch.Tensor:
+    """Batched crop and resize as two matrix products, [N,H,W,C] ->
+    [N,height,width,C] f32: the flip reverses the rows of the width matrix
+    (a permutation, so equal to flipping afterwards), and ``in_scale``
+    (1/255 for uint8) is folded into the row matrix."""
+    n, h, w, c = images.shape
+    my = _crop_resize_matrix(height, d.oy, d.ch, h, method)
+    mx = _crop_resize_matrix(width, d.ox, d.cw, w, method)
+    mx = torch.where(d.flip[:, None, None], mx.flip(1), mx)
+    if in_scale != 1.0:
+        my = my * in_scale
+    with full_f32():
+        x = torch.einsum("noh,nhwc->nowc", my, images.float())
+        return torch.einsum("npw,nowc->nopc", mx, x)
+
+
+def _saturate(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    """``tf.image.adjust_saturation`` elementwise: scaling HSV saturation by
+    ``factor`` keeps the value (the max) and the hue, so each channel moves
+    toward the max by the chroma ratio ``min(factor, max/chroma)`` (the min
+    is the s <= 1 clip)."""
+    im = img.clamp(0.0, 1.0)
+    mx = im.amax(dim=-1, keepdim=True)
+    d = mx - im.amin(dim=-1, keepdim=True)
+    ratio = torch.minimum(factor, mx / torch.where(d > 0, d, torch.ones_like(d)))
+    return torch.where(d > 0, mx - ratio * (mx - im), im)
+
+
+def _distort_color_fast_batch(x: torch.Tensor, d: TrainDraws) -> torch.Tensor:
+    """slim's fast-mode colour distortion per image: brightness then
+    saturation where ``order``, else saturation then brightness."""
+    delta, factor = d.delta[:, None, None, None], d.factor[:, None, None, None]
+    a = _saturate(x + delta, factor)
+    b = _saturate(x, factor) + delta
+    return torch.where(d.order[:, None, None, None], a, b)
+
+
+def apply_train(images: torch.Tensor, draws: TrainDraws, height: int = 299,
+                width: int = 299, resize_method: str = "tf1") -> torch.Tensor:
+    """The train distortions of ``draws`` on an NHWC batch (uint8, or float
+    in [0, 1]) -> [N, height, width, C] f32 in [-1, 1]: the reference's
+    ``preprocess_for_train`` in fast mode, with its draws given."""
+    in_scale = 1.0 if images.is_floating_point() else 1.0 / 255.0
+    x = _crop_resize_batch(images, draws, height, width, resize_method, in_scale)
+    x = _distort_color_fast_batch(x, draws)
+    return x.clamp(0.0, 1.0) * 2.0 - 1.0
+
+
+def preprocess_for_train(generator: torch.Generator, images: torch.Tensor,
+                         height: int = 299, width: int = 299, resize_method: str = "tf1",
+                         fast_mode: bool = True) -> torch.Tensor:
+    """slim ``preprocess_for_train`` over a batch on its device, drawing
+    from ``generator`` (on that device): distorted crop, resize, random
+    flip, colour distortion, scale to [-1, 1], in f32."""
+    if not fast_mode:
+        raise NotImplementedError(
+            "slim's full-mode train distortions (four resize methods, hue and "
+            "contrast) are not ported yet; the trainer runs fast mode")
+    n, h, w, _ = images.shape
+    return apply_train(images, draw_train(generator, n, (h, w), device=images.device),
+                       height, width, resize_method)

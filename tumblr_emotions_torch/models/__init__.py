@@ -10,7 +10,8 @@ def build_model(cfg, device="cuda"):
     state into: the model half of the JAX trainer's ``build_model``
     (``tumblr_emotions_tpu/train/trainer.py:54``), in f32 or, when
     ``cfg.train.precision_mode == "perf"``, in bf16 (the reference's perf
-    model; see ``models/layers.py``)."""
+    model; see ``models/layers.py``), with the config's batch-norm decay and
+    dropout for train mode."""
     im, tx = cfg.image, cfg.text
     if cfg.train.precision_mode not in ("parity", "perf"):
         raise ValueError(f"unknown precision_mode {cfg.train.precision_mode!r}; "
@@ -18,7 +19,9 @@ def build_model(cfg, device="cuda"):
     dtype = torch.bfloat16 if cfg.train.precision_mode == "perf" else torch.float32
     tower = dict(depth_multiplier=im.depth_multiplier, min_depth=im.min_depth,
                  create_aux_logits=im.create_aux_logits, bn_epsilon=im.bn_epsilon,
-                 bn_scale=im.bn_scale, image_size=im.image_size, dtype=dtype)
+                 bn_scale=im.bn_scale, bn_momentum=im.bn_momentum,
+                 dropout_keep_prob=im.dropout_keep_prob, image_size=im.image_size,
+                 dtype=dtype)
     text = dict(num_classes=im.num_classes, aggregator=tx.aggregator,
                 rnn_hidden=tx.rnn_hidden, pad_id=tx.pad_id)
     if cfg.model == "image":

@@ -1,9 +1,10 @@
 """Inception-v3 with TF-Slim semantics and variable naming, in PyTorch.
 
-Port of ``tumblr_emotions_tpu/models/inception_v3.py`` in eval mode: the
-f32 slim-exact tower that the served ``"parity"`` engine runs and that the
-bf16 engine is held against on the card.  Module names are the slim scopes
-verbatim, quirks included (``Mixed_5c/Branch_1/Conv_1_0c_5x5``, the
+Port of ``tumblr_emotions_tpu/models/inception_v3.py``: the f32 slim-exact
+tower that the served ``"parity"`` engine runs, that the bf16 engine is
+held against on the card, and that the trainer trains (``model.train()``:
+batch-statistics batch norm and dropout before ``PreLogits``).  Module
+names are the slim scopes verbatim, quirks included (``Mixed_5c/Branch_1/Conv_1_0c_5x5``, the
 ``Conv2d_1a_1x1`` name on Mixed_6a's 3x3 stride-2 conv, Mixed_7b's doubled
 ``Conv2d_0b_*`` scopes), so ``state_dict()`` keys are the JAX package's
 variable paths (see ``convert.py``).  Activations are NHWC at the module's
@@ -11,7 +12,8 @@ edges, as in the JAX package.  ``dtype=torch.bfloat16`` builds the
 JAX package's bf16 (``precision_mode="perf"``) model: the input is cast to
 bf16 and every layer follows ``models/layers.py``'s bf16 rules, so the
 average pools (the Inception-A/B/C pool branches, the aux head's pool and
-the global pool, hence ``PreLogits``) are f32.
+the global pool, hence ``PreLogits``) are f32.  The bf16 model runs in
+eval mode only; its training comes with the perf-mode training slice.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 from torch import nn
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
-from tumblr_emotions_torch.models.layers import ConvBN, avg_pool, max_pool
+from tumblr_emotions_torch.models.layers import (
+    ConvBN, Dropout, avg_pool, check_trainable, max_pool)
 
 
 def inception_a_names(quirky_5c: bool) -> Tuple[str, str]:
@@ -44,18 +47,21 @@ def _aux_kernel(image_size: int) -> int:
 
 
 class InceptionV3(nn.Module):
-    """Inception-v3 classifier tower, eval mode.
+    """Inception-v3 classifier tower.
 
     ``forward`` returns ``(logits, end_points)`` like slim's
     ``inception_v3``: every Mixed block, ``AuxLogits`` (if built),
     ``PreLogits`` ([N,1,1,C]), ``Logits`` and ``Predictions``.
     ``image_size`` fixes the aux head's kernel, as the input shape does in
-    the JAX package.
+    the JAX package.  Built in eval mode; ``train()`` switches batch norm
+    to batch statistics (``bn_momentum`` for the moving averages) and turns
+    on the ``Logits/Dropout_1b`` dropout (``dropout_keep_prob``).
     """
 
     def __init__(self, num_classes: int = 15, depth_multiplier: float = 1.0,
                  min_depth: int = 16, create_aux_logits: bool = True,
                  bn_epsilon: float = 0.001, bn_scale: bool = False,
+                 bn_momentum: float = 0.9997, dropout_keep_prob: float = 0.8,
                  image_size: int = 299, dtype=torch.float32, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
@@ -69,8 +75,8 @@ class InceptionV3(nn.Module):
 
         def conv(name, cin, cout, kernel, strides=(1, 1), padding="VALID", **kw):
             self.add_module(name, ConvBN(cin, cout, kernel, strides, padding,
-                                         bn_epsilon=bn_epsilon,
-                                         bn_scale=bn_scale, dtype=dtype, device=dev,
+                                         bn_epsilon=bn_epsilon, bn_scale=bn_scale,
+                                         bn_momentum=bn_momentum, dtype=dtype, device=dev,
                                          **kw))
             return cout
 
@@ -146,6 +152,7 @@ class InceptionV3(nn.Module):
             sconv(f"{scope}/Branch_3/Conv2d_0b_1x1", c, d(192), (1, 1))
             c = d(320) + 2 * d(384) + 2 * d(384) + d(192)
         self.num_features = c           # PreLogits width (2048 at depth 1)
+        self.add_module("Logits/Dropout_1b", Dropout(dropout_keep_prob))
 
         if num_classes > 0:
             conv("Logits/Conv2d_1c_1x1", c, num_classes, (1, 1), padding="SAME",
@@ -158,17 +165,18 @@ class InceptionV3(nn.Module):
     def _c(self, name: str) -> ConvBN:
         return self._modules[name]
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def forward(self, x: torch.Tensor, generator=None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Preprocessed NHWC f32 images -> (logits, end_points), computed in
-        the model's dtype (the probabilities in f32)."""
+        the model's dtype (the probabilities in f32).  In train mode the
+        dropout draws from ``generator``."""
         if x.ndim != 4:
             raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
-        if self.training:
-            raise NotImplementedError("train mode is not ported yet")
+        check_trainable(self)
         with full_f32():
-            return self._forward(x.to(self.dtype))
+            return self._forward(x.to(self.dtype), generator)
 
-    def _forward(self, x):
+    def _forward(self, x, generator=None):
         c = self._c
         ep: Dict[str, torch.Tensor] = {}
 
@@ -255,6 +263,7 @@ class InceptionV3(nn.Module):
         # Global average pool with kernel min(8, spatial), as slim does.
         kh, kw = min(8, net.shape[1]), min(8, net.shape[2])
         net = avg_pool(net, (kh, kw), (1, 1), padding="VALID")
+        net = self._modules["Logits/Dropout_1b"](net, generator)
         ep["PreLogits"] = net
         if self.num_classes == 0:
             return net, ep

@@ -1,7 +1,7 @@
 """Joint "Deep Sentiment" model: Inception pool feature ∥ text feature.
 
-Port of ``tumblr_emotions_tpu/models/joint_model.py`` in eval mode: the
-Inception-v3 PreLogits feature (2048-d at depth 1) is concatenated with the
+Port of ``tumblr_emotions_tpu/models/joint_model.py``: the Inception-v3
+PreLogits feature (2048-d at depth 1) is concatenated with the
 text representation, an optional ReLU Dense (``JointHidden``) follows, and
 ``JointLogits`` gives the 15-way emotion logits, softmaxed in f32.  The
 image tower sits under ``InceptionV3`` and the text branch under ``Text``,
@@ -11,7 +11,11 @@ as in the JAX package's tree.
 in a fused engine (``ops/quant.py``, ``ops/inference.py``) and this half
 carries the text lookup and the joint softmax; :meth:`forward` runs the
 slim tower (the ``parity`` engine), in f32 or, with ``dtype=torch.bfloat16``,
-as the JAX package's bf16 (perf) model, whose ``PreLogits`` is f32.
+as the JAX package's bf16 (perf) model, whose ``PreLogits`` is f32.  In
+train mode (f32 only) the tower's batch norm uses batch statistics and its
+dropout acts before ``PreLogits``, so the fused image feature is the
+dropped-out one; the tower's own ``Logits`` head is still computed, and
+unused.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from torch import nn
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
 from tumblr_emotions_torch.models import inception_v3, text_model
-from tumblr_emotions_torch.models.layers import Dense
+from tumblr_emotions_torch.models.layers import Dense, check_trainable
 
 
 class DeepSentimentModel(nn.Module):
@@ -35,13 +39,16 @@ class DeepSentimentModel(nn.Module):
                  fusion_hidden: int = 0, create_aux_logits: bool = True,
                  depth_multiplier: float = 1.0, min_depth: int = 16,
                  bn_epsilon: float = 0.001, bn_scale: bool = False,
+                 bn_momentum: float = 0.9997, dropout_keep_prob: float = 0.8,
                  image_size: int = 299, dtype=torch.float32, device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        self.dtype = dtype
         self.InceptionV3 = inception_v3.InceptionV3(
             num_classes=num_classes, depth_multiplier=depth_multiplier,
             min_depth=min_depth, create_aux_logits=create_aux_logits,
-            bn_epsilon=bn_epsilon, bn_scale=bn_scale, image_size=image_size, dtype=dtype,
+            bn_epsilon=bn_epsilon, bn_scale=bn_scale, bn_momentum=bn_momentum,
+            dropout_keep_prob=dropout_keep_prob, image_size=image_size, dtype=dtype,
             device=dev)
         self.Text = text_model.TextEmotionModel(
             vocab_size, embed_dim, num_classes=0, aggregator=aggregator,
@@ -70,13 +77,13 @@ class DeepSentimentModel(nn.Module):
         end_points["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, end_points
 
-    def forward(self, images: torch.Tensor, token_ids, lengths=None
+    def forward(self, images: torch.Tensor, token_ids, lengths=None, generator=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Preprocessed NHWC f32 images and [B, T] ids -> (logits,
-        end_points), with the image tower's ``AuxLogits``."""
-        if self.training:
-            raise NotImplementedError("train mode is not ported yet")
-        _, img = self.InceptionV3(images)
+        end_points), with the image tower's ``AuxLogits``.  In train mode
+        the tower's dropout draws from ``generator``."""
+        check_trainable(self)
+        _, img = self.InceptionV3(images, generator=generator)
         logits, end_points = self.fuse(img["PreLogits"].squeeze(2).squeeze(1),
                                        token_ids, lengths)
         if "AuxLogits" in img:

@@ -1,4 +1,4 @@
-"""Slim-semantics building blocks in PyTorch (eval mode), NHWC at the edges.
+"""Slim-semantics building blocks in PyTorch, NHWC at the edges.
 
 Ports ``tumblr_emotions_tpu/models/layers.py``: every conv is slim.conv2d,
 i.e. conv without bias -> batch norm with ``scale=False``, ``epsilon=0.001``
@@ -25,9 +25,10 @@ jitted program computes it:
   reciprocal of the count, returning f32 (flax's ``avg_pool`` on a bf16
   input).
 
-Train mode (batch statistics, moving-average updates) comes with the
-train slice; the modules here raise if asked for it.  ``Dense`` is flax's
-dense layer for the text and joint heads.
+In train mode (``module.train()``) batch norm normalises with the batch's
+own statistics and moves its buffers towards them, as slim and the JAX
+package do (:class:`SlimBatchNorm`), and :class:`Dropout` is flax's.
+``Dense`` is flax's dense layer for the text and joint heads.
 """
 
 from __future__ import annotations
@@ -39,6 +40,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from tumblr_emotions_torch._device import tf32_convs
+
+
+def check_trainable(model: nn.Module) -> None:
+    """Refuse train mode of a bf16 (perf) model: it is not ported yet."""
+    if model.training and model.dtype != torch.float32:
+        raise NotImplementedError(
+            "train mode of the bf16 (precision_mode='perf') model comes with the "
+            "perf-mode training slice; train in precision_mode='parity'")
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -82,16 +91,22 @@ def conv_f32_accumulate(x: torch.Tensor, w: torch.Tensor, strides=(1, 1),
 
 class SlimBatchNorm(nn.Module):
     """Batch norm with slim's names: ``beta`` (and ``gamma`` iff scale)
-    parameters, ``moving_mean`` / ``moving_variance`` buffers.  Eval only.
+    parameters, ``moving_mean`` / ``moving_variance`` buffers.
 
-    Not ``nn.BatchNorm2d``: torch's default eps is 1e-5 and its running
-    statistics follow other conventions than slim's.
+    In train mode the mean and the biased variance over N, H, W (in f32)
+    normalise the batch, and the buffers move to ``m * old + (1 - m) *
+    batch`` with slim's decay ``m = momentum`` (0.9997).  Not
+    ``nn.BatchNorm2d`` / ``F.batch_norm``: torch's default eps is 1e-5, and
+    its running variance takes the unbiased estimate with the momentum
+    counted the other way.  Gradients flow through the batch statistics,
+    as ``jax.grad`` of the reference's expression does.
     """
 
     def __init__(self, features: int, epsilon: float = 0.001,
-                 scale: bool = False, device=None):
+                 scale: bool = False, momentum: float = 0.9997, device=None):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.beta = nn.Parameter(torch.zeros(features, device=device))
         self.gamma = (nn.Parameter(torch.ones(features, device=device))
                       if scale else None)
@@ -99,13 +114,39 @@ class SlimBatchNorm(nn.Module):
         self.register_buffer("moving_variance", torch.ones(features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
         if self.training:
-            raise NotImplementedError("train-mode batch norm is not ported yet")
-        inv = torch.rsqrt(self.moving_variance + self.epsilon)
+            var, mean = torch.var_mean(x, dim=tuple(range(x.ndim - 1)), correction=0)
+            with torch.no_grad():
+                m = self.momentum
+                self.moving_mean.copy_(m * self.moving_mean + (1.0 - m) * mean)
+                self.moving_variance.copy_(m * self.moving_variance + (1.0 - m) * var)
+        else:
+            mean, var = self.moving_mean, self.moving_variance
+        inv = torch.rsqrt(var + self.epsilon)
         if self.gamma is not None:
             inv = inv * self.gamma
         # y = (x - mean) * inv + beta, folded into one multiply-add.
-        return x.float() * inv + (self.beta - self.moving_mean * inv)
+        return x * inv + (self.beta - mean * inv)
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` in train mode: each element is kept with
+    probability ``keep_prob`` (``rand < keep_prob``, drawn from
+    ``generator``, torch's default generator of the tensor's device when
+    None) and scaled by ``1 / keep_prob``; the others are 0.  The identity
+    in eval mode or when ``keep_prob >= 1``."""
+
+    def __init__(self, keep_prob: float):
+        super().__init__()
+        self.keep_prob = keep_prob
+
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        if not self.training or self.keep_prob >= 1.0:
+            return x
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < self.keep_prob
+        return torch.where(keep, x / self.keep_prob, torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
 
 
 class ConvBN(nn.Module):
@@ -117,7 +158,7 @@ class ConvBN(nn.Module):
                  padding: str = "SAME", use_bn: bool = True,
                  use_bias: bool = False, relu: bool = True,
                  bn_epsilon: float = 0.001, bn_scale: bool = False,
-                 dtype=torch.float32, device=None):
+                 bn_momentum: float = 0.9997, dtype=torch.float32, device=None):
         super().__init__()
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding must be SAME or VALID, got {padding!r}")
@@ -130,7 +171,7 @@ class ConvBN(nn.Module):
         self.biases = (nn.Parameter(torch.zeros(features, device=device))
                        if use_bias else None)
         self.BatchNorm: Optional[SlimBatchNorm] = (
-            SlimBatchNorm(features, bn_epsilon, bn_scale, device=device)
+            SlimBatchNorm(features, bn_epsilon, bn_scale, bn_momentum, device=device)
             if use_bn else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -200,8 +241,35 @@ def avg_pool(x: torch.Tensor, window: Tuple[int, int], strides: Tuple[int, int],
     pad = same_padding(window, strides) if padding == "SAME" else (0, 0)
     if x.dtype == torch.bfloat16:
         return _avg_pool_bf16(x, window, strides, pad)
-    return to_nhwc(F.avg_pool2d(to_nchw(x), window, strides, padding=pad,
-                                count_include_pad=False))
+    if pad != (0, 0):
+        return to_nhwc(_SameAvgPool.apply(to_nchw(x), tuple(window), pad))
+    return to_nhwc(F.avg_pool2d(to_nchw(x), window, strides, count_include_pad=False))
+
+
+def _window_counts(x: torch.Tensor, window, pad) -> torch.Tensor:
+    """[1,1,H,W]: the in-image taps of each stride-1 window."""
+    ones = torch.ones(1, 1, x.shape[-2], x.shape[-1], dtype=x.dtype, device=x.device)
+    return F.avg_pool2d(ones, window, 1, padding=pad, divisor_override=1)
+
+
+class _SameAvgPool(torch.autograd.Function):
+    """The SAME (stride 1, padded) ``count_include_pad=False`` average pool
+    of an NCHW tensor, with its backward written out as the exact adjoint:
+    ``grad / count``, summed back over each window with forward pool
+    kernels.  PyTorch's own CUDA backward of this pool on a channels-last
+    tensor divides by the wrong count (torch 2.11 on an H100: gradients
+    off by ~100%, the forward exact), which training reaches through every
+    Inception block's pool branch."""
+
+    @staticmethod
+    def forward(ctx, x, window, pad):
+        ctx.window, ctx.pad = window, pad
+        return F.avg_pool2d(x, window, 1, padding=pad, count_include_pad=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad / _window_counts(grad, ctx.window, ctx.pad)
+        return F.avg_pool2d(g, ctx.window, 1, padding=ctx.pad, divisor_override=1), None, None
 
 
 def _avg_pool_bf16(x, window, strides, pad):

@@ -1,6 +1,6 @@
 """Text branch: embedding lookup -> aggregate -> dense softmax head.
 
-Port of ``tumblr_emotions_tpu/models/text_model.py`` in eval mode.  Post
+Port of ``tumblr_emotions_tpu/models/text_model.py``.  Post
 text arrives as fixed-length id sequences ``[B, T]`` with an explicit
 length per row (pad id 0); the ids are looked up in a ``[V, D]`` embedding
 matrix, the rows past each length are zeroed, and the sequence is
@@ -9,7 +9,9 @@ aggregated by a masked mean, a sum or an LSTM before the Dense head.
 Parameter names are the JAX package's (``WordEmbedding/embeddings``,
 ``RNN.OptimizedLSTMCell_0.{ii,if,ig,io,hi,hf,hg,ho}``, ``TextHidden``,
 ``TextLogits``), so ``convert.py`` maps the flax tree by string alone.  The
-f32 path runs with TF32 off, as the reference runs in full f32.
+f32 path runs with TF32 off, as the reference runs in full f32.  The model
+has no batch norm and no dropout, so train mode computes what eval mode
+does (the bf16 model refuses it, as the image models do).
 
 ``dtype=torch.bfloat16`` is the JAX package's bf16 (perf) model: the
 table is cast to bf16 before the lookup, the masked sum is accumulated in
@@ -43,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
-from tumblr_emotions_torch.models.layers import Dense
+from tumblr_emotions_torch.models.layers import Dense, check_trainable
 
 GATES = ("i", "f", "g", "o")   # flax OptimizedLSTMCell's gate order (torch's too)
 AGGREGATORS = ("mean", "sum", "rnn")
@@ -120,7 +122,7 @@ class LSTMAggregator(nn.Module):
 
 
 class TextEmotionModel(nn.Module):
-    """Vocab-lookup text classifier over the emotion labels, eval mode.
+    """Vocab-lookup text classifier over the emotion labels.
 
     ``num_classes=0`` builds the text feature only, without ``TextHidden``
     and ``TextLogits``: the joint model's ``Text`` branch, whose tree has no
@@ -173,12 +175,11 @@ class TextEmotionModel(nn.Module):
                 return total / lengths.clamp_min(1).to(emb.dtype)[:, None]
             return total
 
-    def forward(self, token_ids, lengths=None
+    def forward(self, token_ids, lengths=None, generator=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """-> (logits, end_points: TextFeature, TextHidden, Logits,
-        Predictions)."""
-        if self.training:
-            raise NotImplementedError("train mode is not ported yet")
+        Predictions).  ``generator`` is unused: the model draws nothing."""
+        check_trainable(self)
         if self.TextLogits is None:
             raise ValueError("built with num_classes=0: call represent() for the feature")
         feat = self.represent(token_ids, lengths)

@@ -1,6 +1,6 @@
 """Where the served program's time goes on the card: a torch.profiler trace.
 
-    python -m tumblr_emotions_torch.profile_serving [--engine bf16|int8|joint]
+    python -m tumblr_emotions_torch.profile_serving [--engine bf16|int8|joint|train]
         [--batch 64] [--batches 3]
 
 Builds seeded full-width weights (as chip_smoke.py does), warms up, then
@@ -12,7 +12,11 @@ space-to-depth front, calibrated on one seeded batch, and the same tower
 behind the all-int8 uint8 front (``int8_uint8``); ``--engine joint``
 that program and, in the same call, the joint_finetune program on the same
 tower (``build_forward(engine="int8")`` with seeded [B,50] token batches),
-so the difference is what the text branch and the fusion head add.  Prints
+so the difference is what the text branch and the fusion head add;
+``--engine train`` a train step instead of a served batch:
+``Trainer(joint_finetune, preprocess="train").train_step`` at full width on
+seeded weights, batch 32 unless ``--batch`` says otherwise (the batch's
+ids are seeded [B,50] ids, its labels seeded).  Prints
 one JSON line per program: host wall ms per batch, device busy ms per batch
 (sum of kernel times on the one stream), the idle share (1 - busy/wall),
 and device time by kernel group.  Needs a CUDA card; raises without one.
@@ -43,7 +47,10 @@ GROUPS = [
     ("conv_int8", "int8 conv kernel (ours)"),
     ("maxpool_", "int8 max-pool kernel (ours)"),
     ("conv_bf16", "block conv kernel (ours)"),  # conv_bf16_wgmma<BM,BN,POOL>
+    ("dgrad", "cuDNN conv backward"),
+    ("wgrad", "cuDNN conv backward"),
     ("fprop", "cuDNN conv"),          # sm90_xmma_fprop_implicit_gemm_*
+    ("winograd", "cuDNN conv"),
     ("conv", "cuDNN conv"),           # precomputed_convolve_sgemm, ...
     ("gemm", "matmul (resize, logits, text heads)"),
     ("index", "torch gather (text lookup)"),   # before "elementwise": index_elementwise_kernel
@@ -97,13 +104,45 @@ def profile_engine(serve, n: int) -> dict:
             "top_kernels_ms_per_batch": {k: v / n for k, v in top}}
 
 
+def profile_training(args) -> None:
+    """Profile ``--batches`` train steps of joint_finetune at full width."""
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    cfg = get_preset("joint_finetune")
+    batch = args.batch or cfg.train.batch_size
+    trainer = Trainer(cfg, preprocess="train")
+    state = trainer.init_state(joint_model.init_state(build_model(cfg, device="meta"),
+                                                      args.seed))
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    rng = np.random.RandomState(args.seed + 1)
+    batches = [{"image": torch.randint(0, 256, (batch, 347, 347, 3), generator=g,
+                                       device="cuda", dtype=torch.uint8),
+                "tokens": torch.from_numpy(synthetic_ids(rng, batch, cfg.text.max_len,
+                                                         cfg.text.vocab_size)).cuda(),
+                "label": torch.randint(0, cfg.image.num_classes, (batch,), generator=g,
+                                       device="cuda")}
+               for _ in range(args.batches)]
+
+    def step(i):
+        nonlocal state
+        state, _ = trainer.train_step(state, batches[i], g)
+
+    print(json.dumps({"engine": "train_joint", "batch": batch, "card": card_line(),
+                      **profile_engine(step, len(batches))}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--engine", choices=("bf16", "int8", "joint"), default="bf16")
-    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--engine", choices=("bf16", "int8", "joint", "train"), default="bf16")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="64 for a served program, the preset's 32 for train")
     ap.add_argument("--batches", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    if args.engine == "train":
+        profile_training(args)
+        return
+    args.batch = args.batch or 64
     model = InceptionV3(device="meta")
     state = init_state(model, args.seed)
     g = torch.Generator(device="cuda").manual_seed(args.seed)

@@ -1,2 +1,3 @@
-"""Training-side modules of the port.  So far the batch-1 ``Predictor``
-(``train/predict.py``); the trainer comes with the training slice."""
+"""Training-side modules of the port: the trainer and its optimizers
+(``train/trainer.py``, ``train/optim.py``) and the batch-1 ``Predictor``
+(``train/predict.py``)."""

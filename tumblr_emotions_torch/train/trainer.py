@@ -1,0 +1,351 @@
+"""Training and evaluation on one card.
+
+Port of the single-device path of ``tumblr_emotions_tpu/train/trainer.py``
+(``Trainer(cfg, preprocess=...)`` -> ``init_state`` -> ``fit`` ->
+``evaluate``).  One train step is: the batch to the card, the train
+distortions (``preprocess="train"``), the forward in train mode (batch
+statistics, dropout), the loss, the backward by autograd and the optimizer
+update; the BN moving statistics move in place during the forward.  The
+reference's step is one jitted XLA program whose backward is XLA's autodiff
+of the same modules.
+
+The loss is slim's: mean softmax cross-entropy, ``aux_loss_weight`` (0.4) x
+the cross-entropy of ``AuxLogits`` in train mode, and TF-style L2, ``wd *
+sum(w^2) / 2`` over conv and dense kernels (state-dict keys ending in
+``.weights`` or ``.kernel``), not over biases, batch norm or the embedding.
+
+The state is held outside the model: :class:`TrainState` carries the
+model's state dict (parameters and BN moving statistics) and the optimizer
+state, and every step runs the model on it with
+``torch.func.functional_call``; the step updates it in place (the
+reference donates its state).  Parameters outside ``trainable_scopes`` do
+not require gradients and are never updated; the tower still runs in train
+mode, so its BN statistics move (as the reference's frozen tower does).
+
+Parity mode (f32) only: the whole step, forward, backward and update, runs
+with TF32 off (``_device.full_f32``), as the reference runs
+``precision="highest"``.  Left for later slices: bf16 (``perf``) training,
+data parallel, orbax checkpoints and resume, the profiler hook and the
+TensorBoard writer (``fit`` logs its scalars, which is what the reference
+does when ``clu`` is missing).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from tumblr_emotions_torch._device import full_f32, resolve_device
+from tumblr_emotions_torch.config import Config
+from tumblr_emotions_torch.data import preprocessing as pp
+from tumblr_emotions_torch.models import build_model
+from tumblr_emotions_torch.train.optim import Optimizer, learning_rate
+from tumblr_emotions_torch.utils import metrics as metrics_lib
+
+log = logging.getLogger("tumblr_emotions_torch")
+
+EMBEDDINGS = "WordEmbedding/embeddings"
+LATER = "not ported yet: it comes with the {} slice"
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``step``: updates applied; ``state``: the model's state dict on the
+    trainer's device (trainable parameters require gradients); ``opt_state``:
+    the optimizer state (``train/optim.py``)."""
+
+    step: int
+    state: Dict[str, torch.Tensor]
+    opt_state: Dict[str, Any]
+
+
+def parse_scopes(trainable_scopes: str) -> Tuple[str, ...]:
+    return tuple(s.strip() for s in trainable_scopes.split(",") if s.strip())
+
+
+def path_in_scopes(key: str, scopes: Tuple[str, ...]) -> bool:
+    """slim-style scope matching on path-segment boundaries, on a state-dict
+    key: its ``.``-separated levels become ``/`` (module names already hold
+    ``/``), so ``Logits`` matches ``InceptionV3/Logits/Conv2d_1c_1x1/...``
+    but neither ``AuxLogits`` nor ``JointLogits``."""
+    joined = key.replace(".", "/")
+    return any(f"/{s}/" in f"/{joined}/" for s in scopes)
+
+
+def stop_frozen_gradients(state: Dict[str, torch.Tensor], param_keys: Iterable[str],
+                          trainable_scopes: str) -> List[str]:
+    """Set ``requires_grad`` on the parameters inside ``trainable_scopes``
+    (all of them when it is empty) and clear it on the others; returns the
+    trainable keys.  Autograd then computes no gradient for a frozen leaf
+    (the reference's ``lax.stop_gradient``)."""
+    scopes = parse_scopes(trainable_scopes)
+    trainable = []
+    for k in param_keys:
+        on = not scopes or path_in_scopes(k, scopes)
+        state[k].requires_grad_(on)
+        if on:
+            trainable.append(k)
+    return trainable
+
+
+def l2_leaves(state: Dict[str, torch.Tensor]) -> List[str]:
+    """The keys TF-style L2 covers: conv ``weights`` and dense ``kernel``
+    leaves (the LSTM's too, and a joint model's unused tower ``Logits``)."""
+    return [k for k in state if k.rsplit(".", 1)[-1] in ("weights", "kernel")]
+
+
+def l2_regularization(state: Dict[str, torch.Tensor], weight_decay: float) -> torch.Tensor:
+    """``weight_decay * sum(||w||^2 / 2)`` over :func:`l2_leaves`."""
+    ws = [state[k] for k in l2_leaves(state)]
+    if weight_decay <= 0 or not ws:
+        return torch.zeros((), device=next(iter(state.values())).device)
+    return weight_decay * (0.5 * torch.stack([(w * w).sum() for w in ws]).sum())
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  reduce: bool = True) -> torch.Tensor:
+    return F.cross_entropy(logits.float(), labels.long(), reduction="mean" if reduce else "none")
+
+
+class Trainer:
+    """Runs the train and eval steps of ``cfg``'s model on ``device``
+    (default ``"cuda"``, which raises without a card).
+
+    ``preprocess``: None (``batch["image"]`` is model-ready, NHWC f32 in
+    [-1, 1]), ``"train"`` (uint8 -> the train distortions in train steps,
+    the eval preprocessing in eval steps) or ``"eval"`` (uint8 -> the eval
+    preprocessing).  A batch is a dict of arrays or tensors: ``image``,
+    ``tokens``, ``lengths``, ``label`` and, for eval, an optional 0/1
+    ``weight`` that masks padding rows.
+    """
+
+    def __init__(self, cfg: Config, preprocess: Optional[str] = None, device="cuda"):
+        if preprocess not in (None, "train", "eval"):
+            raise ValueError(f"preprocess must be None, 'train' or 'eval', got {preprocess!r}")
+        if cfg.train.precision_mode != "parity":
+            raise NotImplementedError(
+                "training in precision_mode=" + repr(cfg.train.precision_mode) + " is "
+                + LATER.format("perf-mode (bf16) training"))
+        self.cfg = cfg
+        self.preprocess = preprocess
+        self.device = resolve_device(device)
+        self.optimizer = Optimizer(cfg.train)
+        # The model only gives the computation: its tensors stay on the meta
+        # device, and every step runs it on a TrainState's tensors.
+        self.model = build_model(cfg, device="meta")
+        self.param_keys = [k for k, _ in self.model.named_parameters()]
+        self.state_keys = list(self.model.state_dict())
+
+    # -- initialization ----------------------------------------------------
+
+    def init_state(self, state: Dict[str, Any],
+                   embedding_matrix: Optional[np.ndarray] = None) -> TrainState:
+        """A fresh TrainState from a state dict of the model (tensors or
+        arrays, e.g. from ``convert.to_state`` or a model's ``init_state``),
+        copied to the device; ``embedding_matrix`` replaces every
+        ``WordEmbedding/embeddings`` leaf."""
+        if sorted(state) != sorted(self.state_keys):
+            missing = sorted(set(self.state_keys) - set(state))
+            extra = sorted(set(state) - set(self.state_keys))
+            raise ValueError(f"state does not fit the {self.cfg.model!r} model: "
+                             f"missing {missing[:5]}, unexpected {extra[:5]}")
+        st = {k: self._copy(v) for k, v in state.items()}
+        if embedding_matrix is not None:
+            hits = [k for k in st if k.endswith(EMBEDDINGS)]
+            if not hits:
+                raise ValueError("model has no WordEmbedding/embeddings parameter")
+            for k in hits:
+                if tuple(st[k].shape) != tuple(embedding_matrix.shape):
+                    raise ValueError(f"embedding shape {embedding_matrix.shape} != "
+                                     f"{tuple(st[k].shape)}")
+                st[k] = self._copy(embedding_matrix)
+        trainable = stop_frozen_gradients(st, self.param_keys, self.cfg.train.trainable_scopes)
+        return TrainState(step=0, state=st,
+                          opt_state=self.optimizer.init({k: st[k] for k in trainable}))
+
+    def _copy(self, v) -> torch.Tensor:
+        t = v.detach() if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+        return t.to(self.device, copy=True)
+
+    def trainable_keys(self, state: TrainState) -> List[str]:
+        return [k for k in self.param_keys if state.state[k].requires_grad]
+
+    # -- the steps -----------------------------------------------------------
+
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def _maybe_preprocess(self, batch: Dict[str, torch.Tensor], train: bool,
+                          generator: Optional[torch.Generator],
+                          draws: Optional[pp.TrainDraws]) -> Dict[str, torch.Tensor]:
+        if self.preprocess is None or "image" not in batch:
+            return batch
+        image = batch["image"]
+        size = self.cfg.image.image_size
+        if self.preprocess == "train" and train:
+            if draws is None:
+                n, h, w, _ = image.shape
+                draws = pp.draw_train(generator, n, (h, w), device=image.device)
+            image = pp.apply_train(image, draws, size, size,
+                                   resize_method=self.cfg.data.resize_method)
+        else:
+            image = pp.preprocess_for_eval(
+                image, size, size, central_fraction=self.cfg.data.eval_central_crop,
+                resize_method=self.cfg.data.resize_method)
+        return dict(batch, image=image)
+
+    def _model_args(self, batch: Dict[str, torch.Tensor]) -> Tuple:
+        if self.cfg.model == "text":
+            return (batch["tokens"], batch.get("lengths"))
+        if self.cfg.model == "image":
+            return (batch["image"],)
+        return (batch["image"], batch["tokens"], batch.get("lengths"))
+
+    def train_step(self, state: TrainState, batch: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None,
+                   draws: Optional[pp.TrainDraws] = None) -> Tuple[TrainState, Dict]:
+        """One update of ``state`` (in place) from ``batch``; returns the
+        state and ``{"loss", "accuracy"}`` as tensors on the device (read
+        them back only when needed: that waits for the step).  The train
+        distortions and the dropout draw from ``generator`` (on the
+        device); ``draws`` gives the distortions' draws instead.  The step's
+        three stages are the methods below."""
+        batch = self.train_inputs(batch, generator, draws)
+        loss, logits, grads = self.loss_and_grads(state, batch, generator)
+        self.apply_gradients(state, grads)
+        acc = (logits.argmax(-1) == batch["label"].long()).float().mean()
+        return TrainState(state.step + 1, state.state, state.opt_state), {"loss": loss,
+                                                                          "accuracy": acc}
+
+    def train_inputs(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
+                     draws: Optional[pp.TrainDraws] = None) -> Dict[str, torch.Tensor]:
+        """The batch on the device, with the train distortions applied."""
+        with full_f32():
+            return self._maybe_preprocess(self._to_device(batch), True, generator, draws)
+
+    def loss_and_grads(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """The forward in train mode (the BN moving statistics move in
+        place), the loss, and by autograd the gradient of every trainable
+        leaf: ``(loss, logits, {key: grad})``, TF32 off throughout."""
+        cfg = self.cfg
+        params = {k: state.state[k] for k in self.trainable_keys(state)}
+        with full_f32(), torch.enable_grad():
+            self.model.train()
+            logits, end_points = functional_call(self.model, state.state,
+                                                 self._model_args(batch),
+                                                 {"generator": generator})
+            label = batch["label"]
+            loss = cross_entropy(logits, label)
+            if "AuxLogits" in end_points:
+                loss = loss + cfg.image.aux_loss_weight * cross_entropy(
+                    end_points["AuxLogits"], label)
+            loss = loss + l2_regularization(state.state, cfg.train.weight_decay)
+            # A leaf the loss does not reach (the joint model's unused tower
+            # Logits bias) has a zero gradient, as jax.grad gives it.
+            grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
+        return loss.detach(), logits.detach(), grads
+
+    def apply_gradients(self, state: TrainState, grads: Dict[str, torch.Tensor]) -> None:
+        """The optimizer update of the leaves in ``grads``, in place."""
+        with full_f32():
+            self.optimizer.update({k: state.state[k] for k in grads}, grads, state.opt_state)
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch's metric statistics (``metrics.batch_stats``) and its
+        pad-masked ``loss_sum`` (cross-entropy plus the per-example-constant
+        L2 term, scaled by the weighted count), on the device."""
+        with full_f32():
+            batch = self._maybe_preprocess(self._to_device(batch), False, None, None)
+            self.model.eval()
+            logits, _ = functional_call(self.model, state.state, self._model_args(batch))
+            w = batch.get("weight")
+            stats = metrics_lib.batch_stats(logits, batch["label"], self.cfg.image.num_classes,
+                                            weights=w)
+            per_ex = cross_entropy(logits, batch["label"], reduce=False)
+            w = torch.ones_like(per_ex) if w is None else w.float()
+            l2 = l2_regularization(state.state, self.cfg.train.weight_decay)
+            stats["loss_sum"] = (per_ex * w).sum() + l2 * stats["count"].float()
+        return stats
+
+    # -- loops ---------------------------------------------------------------
+
+    def fit(self, state: TrainState, batches: Iterable[Dict[str, Any]],
+            num_steps: Optional[int] = None,
+            eval_batches: Optional[Callable[[], Iterable]] = None) -> TrainState:
+        """Train for ``num_steps`` (default ``cfg.train.num_steps``) or until
+        ``batches`` ends, logging loss, accuracy, examples/s and the
+        learning rate every ``log_every`` steps (the only reads of the
+        card's results); then evaluate ``eval_batches()`` if given.  The
+        draws come from a generator on the device seeded by
+        ``(cfg.train.seed, state.step)``."""
+        t = self.cfg.train
+        if t.profile_start_step > 0:
+            raise NotImplementedError("profile_start_step > 0: the profiler hook is "
+                                      + LATER.format("tooling"))
+        num_steps = t.num_steps if num_steps is None else num_steps
+        seed = np.random.SeedSequence([t.seed, state.step]).generate_state(1, np.uint64)[0]
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        it = iter(batches)
+        step = last_step = state.step
+        last_t = time.perf_counter()
+        for _ in range(num_steps):
+            try:
+                batch = next(it)
+            except StopIteration:
+                log.info("input exhausted at step %d", step)
+                break
+            state, m = self.train_step(state, batch, gen)
+            step += 1
+            if step % t.log_every == 0:
+                loss, acc = float(m["loss"]), float(m["accuracy"])
+                now = time.perf_counter()
+                ips = t.batch_size * (step - last_step) / max(now - last_t, 1e-9)
+                log.info("step %d loss %.4f acc %.3f (%.1f ex/s, lr %.3g)", step, loss, acc,
+                         ips, learning_rate(t, step))
+                last_t, last_step = now, step
+        if eval_batches is not None:
+            summary = self.evaluate(state, eval_batches())
+            log.info("eval @ step %d: accuracy %.4f loss %.4f (n=%d)", step,
+                     summary.get("accuracy", 0.0), summary.get("loss", 0.0),
+                     summary.get("count", 0))
+        return state
+
+    def evaluate(self, state: TrainState, batches: Iterable[Dict[str, Any]],
+                 class_names=None) -> Dict:
+        """Streaming evaluation: each batch's statistics are added on the
+        device and read back once, at the end.  Returns
+        ``metrics.summarize`` plus the mean ``loss`` over the weighted
+        examples."""
+        total = None
+        loss_sum = torch.zeros((), dtype=torch.float64, device=self.device)
+        for batch in batches:
+            stats = self.eval_step(state, batch)
+            loss_sum += stats.pop("loss_sum").double()
+            total = stats if total is None else metrics_lib.merge_stats(total, stats)
+        if total is None:
+            return {"accuracy": 0.0, "count": 0}
+        total = {k: v.cpu() for k, v in total.items()}
+        count = int(total["count"])
+        if count == 0:
+            return {"accuracy": 0.0, "count": 0}
+        summary = metrics_lib.summarize(total, class_names)
+        summary["loss"] = float(loss_sum) / count
+        return summary
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def checkpoint_manager(self, directory: Optional[str] = None):
+        raise NotImplementedError("orbax checkpoints are " + LATER.format("checkpoint"))
