@@ -106,7 +106,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
                bit-unchanged, every BN statistic moved.
 15. train_text -- text_only (Adam, batch 64) at full width, 4 steps, the
                first held against the CPU.
-16. kernels -- one JSON line listing every ported kernel.
+16. cli     -- the main path: python -m tumblr_emotions_torch.cli at
+               full width from records on disk.  A posts CSV of 400 seeded
+               captions over the fixture JPEGs -> convert-dataset (4 TFRecord
+               shards, a validation split) and build-vocab, in process; train
+               --preset joint_finetune --batch-size 32 --steps 6
+               --checkpoint-every 3 as run A, and as run B (--steps 3, then
+               --steps 6 in a second process that resumes), each a
+               subprocess: every logged loss finite, B resumed at step 3 with
+               its input position, B's step-3 checkpoint restored on the card
+               gives back every saved tensor, the step-6 input positions
+               equal, A's and B's step-3 parameters within TRAIN_NOISE_FACTOR
+               of train_joint's noise floor (the step-6 distance printed,
+               not held: the steps after the resume are not compared here);
+               eval (subprocess) equal in count, accuracy and confusion to
+               Trainer.evaluate on the CPU; export-checkpoint's slim bundle
+               holding the checkpoint's tower bit for bit; infer --engine
+               int8 --front s2d in process over the train split (6 device
+               batches, img/s of the real rows; 66 conv_int8 + 4
+               maxpool3x3s2_int8 per forward, probabilities within
+               INT8_PROB_TOL of the plain int8 engine from the same checkpoint
+               and calibration batch); the serve stack (cli.build_server) in
+               process answering 64 concurrent posts within HTTP_PROB_TOL of
+               its runner, 66 + 4 launches per device batch; predict
+               (subprocess) against the Predictor.  Prints the time split,
+               the checkpoint's bytes and write seconds and infer's img/s.
+17. kernels -- one JSON line listing every ported kernel.
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -198,6 +223,15 @@ TRAIN_NOISE_FACTOR = 3.0
 TRAIN_NOISE_EPS = 1e-6
 TRAIN_NOISE_SEEDS = (1, 2, 3)
 TEXT_UPDATE_TOL = 1e-3
+# Phase 16, cli: the CLI from records on disk at full width.
+CLI_POSTS = 400
+CLI_SHARDS = 4
+CLI_VALID = 0.1               # the validation split's share (md5 of the post id)
+CLI_BATCH = 32
+CLI_STEPS = 6
+CLI_CKPT_EVERY = 3
+CLI_SERVE_POSTS = 64
+CLI_TIMEOUT_S = 600           # each CLI subprocess
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 # The block conv's pooled form (the 3x3 average pool fused into Branch_3's
@@ -205,7 +239,14 @@ REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 POOLED = "conv_same_bias_relu pooled"
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also gets the seconds since the
+    script started (``elapsed_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -1304,7 +1345,377 @@ def train_phases(dev, smi):
           "held_step_loss_card_cpu": [loss_card, loss_cpu],
           "held_step_worst_leaf_vs_update": worst, "update_tol": TEXT_UPDATE_TOL,
           "fit_s": tfit_s, "card": smi})
-    return {"train_joint_int8": int8_launches}
+    return {"train_joint_int8": int8_launches}, held
+
+
+def cli_phase(dev, smi, held):
+    """Phase 16, cli: the port's CLI from records on disk, at full width.
+    convert-dataset and build-vocab (in process) over a posts CSV of the
+    committed fixture JPEGs; train run A (6 steps, checkpoints every 3) and
+    run B (3 steps, then resumed to 6 in a second process), each a
+    subprocess; eval (subprocess) against Trainer.evaluate on the CPU;
+    export-checkpoint read back; infer --engine int8 and the serve stack
+    (in process, counting launches); predict (subprocess) against the
+    Predictor.  ``held`` is train_joint's noise floor.  Returns {path:
+    launches}."""
+    import io
+    import json as _json
+    import os
+    import re
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+    import urllib.parse
+    import urllib.request
+    from contextlib import redirect_stdout
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import EMOTIONS, cli, convert
+    from tumblr_emotions_torch.data import jpeg, pipeline
+    from tumblr_emotions_torch.data.vocab import Vocabulary
+    from tumblr_emotions_torch.models import build_model
+    from tumblr_emotions_torch.models.joint_model import tower_state
+    from tumblr_emotions_torch.ops import quant
+    from tumblr_emotions_torch.ops.serving import build_forward, joint_server
+    from tumblr_emotions_torch.train.predict import Predictor
+    from tumblr_emotions_torch.train.trainer import Trainer
+    from tumblr_emotions_torch.utils.checkpoint import BundleReader, CheckpointManager
+
+    root = Path(__file__).resolve().parent
+    tmp = Path(tempfile.mkdtemp(prefix="tet_cli_"))
+    times = {}
+    try:
+        # ---- the dataset: a posts CSV over the fixture JPEGs ----
+        t0 = time.perf_counter()
+        rng = np.random.RandomState(SEED + 4)
+        fixtures = sorted((root / FIXTURES).glob("*.jpg"))
+        (tmp / "images").mkdir()
+        for f in fixtures:
+            shutil.copy(f, tmp / "images" / f.name)
+        letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+        words = sorted({"".join(rng.choice(letters, rng.randint(3, 9))) for _ in range(600)})
+        captions = [" ".join(rng.choice(words + list(EMOTIONS), rng.randint(1, 30)))
+                    for _ in range(CLI_POSTS)]
+        with open(tmp / "posts.csv", "w") as f:
+            f.write("id,text,label,image\n")
+            for i, c in enumerate(captions):
+                f.write(f"p{i},{c},{rng.randint(15)},{fixtures[i % len(fixtures)].name}\n")
+        data = tmp / "data"
+        vocab_path = str(data / "vocab.txt")
+        out = io.StringIO()
+        with redirect_stdout(out):
+            cli.main(["convert-dataset", "--csv", str(tmp / "posts.csv"), "--images-dir",
+                      str(tmp / "images"), "--out", str(data), "--num-shards", str(CLI_SHARDS),
+                      "--valid-fraction", str(CLI_VALID)])
+            cli.main(["build-vocab", "--csv", str(tmp / "posts.csv"), "--out", vocab_path,
+                      "--min-freq", "1"])
+        counts = _json.loads(out.getvalue().splitlines()[0])
+        if counts["skipped"] or counts["train"] + counts["validation"] != CLI_POSTS \
+                or counts["validation"] == 0:
+            fail(f"cli: convert-dataset counted {counts}")
+        vocab = Vocabulary.load(vocab_path)
+        times["convert"] = time.perf_counter() - t0
+
+        train_glob = str(data / "train-*.tfrecord")
+        val_glob = str(data / "validation-*.tfrecord")
+        width = [] if DEPTH == 1.0 else ["--depth-multiplier", str(DEPTH)]
+        common = ["--preset", "joint_finetune", "--vocab", vocab_path, "--device", DEVICE,
+                  "--batch-size", str(CLI_BATCH), *width]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+
+        def run(name, *argv):
+            """``python -m tumblr_emotions_torch.cli argv`` as a subprocess;
+            its output goes to <tmp>/<name>.log."""
+            log_path = tmp / f"{name}.log"
+            with open(log_path, "w") as log_f:
+                r = subprocess.run([sys.executable, "-m", "tumblr_emotions_torch.cli", *argv],
+                                   cwd=root, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+                                   timeout=CLI_TIMEOUT_S)
+            text = log_path.read_text()
+            if r.returncode != 0:
+                fail(f"cli: {name} exited {r.returncode}:\n{text[-3000:]}")
+            return text
+
+        def beside(name, *argv):
+            """``run(name, *argv)`` on a thread beside the caller's work; the
+            function returned waits for it: (its output, its seconds)."""
+            box = {}
+
+            def go():
+                t = time.perf_counter()
+                try:
+                    box["out"] = run(name, *argv)
+                except BaseException as e:  # noqa: BLE001 -- raised again by result()
+                    box["error"] = e
+                box["s"] = time.perf_counter() - t
+
+            th = threading.Thread(target=go)
+            th.start()
+
+            def result():
+                th.join(timeout=CLI_TIMEOUT_S + 60)
+                if th.is_alive():
+                    fail(f"cli: {name} did not end")
+                if "error" in box:
+                    raise box["error"]
+                return box["out"], box["s"]
+
+            return result
+
+        def losses(text):
+            return [float(x) for x in re.findall(r"step \d+ loss (\S+)", text)]
+
+        # ---- the host's record pipeline: read, parse, decode+resize ----
+        feed = pipeline.batches(train_glob, vocab, pipeline.PipelineConfig(
+            batch_size=CLI_BATCH, max_len=50, decode_threads=8))
+        next(feed)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            next(feed)
+        feed_img_s = 5 * CLI_BATCH / (time.perf_counter() - t0)
+
+        # ---- train: run A straight, run B stopped at 3 and resumed ----
+        train = ["train", *common, "--records", train_glob, "--log-every", "1",
+                 "--checkpoint-every", str(CLI_CKPT_EVERY)]
+        t0 = time.perf_counter()
+        log_a = run("train_a", *train, "--steps", str(CLI_STEPS), "--checkpoint-dir",
+                    str(tmp / "A"))
+        times["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log_b1 = run("train_b1", *train, "--steps", str(CLI_CKPT_EVERY), "--checkpoint-dir",
+                     str(tmp / "B"))
+        log_b2 = run("train_b2", *train, "--steps", str(CLI_STEPS), "--checkpoint-dir",
+                     str(tmp / "B"))
+        times["resume"] = time.perf_counter() - t0
+        saves = [(int(a), int(b), float(c), float(d)) for a, b, c, d in re.findall(
+            r"checkpoint @ step (\d+): (\d+) bytes in (\S+) s \(written in (\S+) s\)", log_a)]
+        all_losses = {"A": losses(log_a), "B": losses(log_b1) + losses(log_b2)}
+        # ms per step from the examples/s fit logs each step (host clock
+        # between two logs: a checkpoint's write falls in the next step's)
+        step_ms = [1e3 * CLI_BATCH / float(x)
+                   for x in re.findall(r"step \d+ loss \S+ acc \S+ \((\S+) ex/s", log_a)]
+        for run_name, ls in all_losses.items():
+            if len(ls) != CLI_STEPS or not all(np.isfinite(ls)):
+                fail(f"cli: run {run_name} logged losses {ls}")
+        if f"resumed at step {CLI_CKPT_EVERY} (input position restored)" not in log_b2:
+            fail("cli: the second process of run B did not resume at step "
+                 f"{CLI_CKPT_EVERY} with its input position")
+        if [s_[0] for s_ in saves] != list(range(CLI_CKPT_EVERY, CLI_STEPS + 1,
+                                                 CLI_CKPT_EVERY)):
+            fail(f"cli: run A saved {saves}")
+        pos_a = _json.loads((tmp / "A" / f"input_iterator_{CLI_STEPS}.json").read_text())
+        pos_b = _json.loads((tmp / "B" / f"input_iterator_{CLI_STEPS}.json").read_text())
+        if pos_a != pos_b or pos_a != {"epoch": CLI_STEPS * CLI_BATCH // counts["train"],
+                                       "index": CLI_STEPS * CLI_BATCH % counts["train"]}:
+            fail(f"cli: input positions at step {CLI_STEPS}: A {pos_a}, B {pos_b}")
+
+        # run B's step-3 checkpoint restores exactly: the restore path the
+        # resumed process ran, on the card, gives back every saved tensor
+        args = cli.parser().parse_args(["eval", *common, "--records", val_glob])
+        cfg = cli._build_config(args)
+        cfg = cfg.replace(text=cfg.text.replace(vocab_size=vocab.size))
+        state0 = cli._initial_state(cfg)
+        tr = Trainer(cfg, preprocess="train", device=dev)
+        tr.checkpoint_manager(str(tmp / "B"))
+        fresh = tr.init_state(state0)
+        b3 = tr.restore(fresh, CLI_CKPT_EVERY)
+        saved = tr.checkpoint_manager().reader(CLI_CKPT_EVERY)
+        restored = tr.state_tensors(b3)
+        if sorted(restored) != sorted(saved.keys()) or any(
+                not np.array_equal(v, saved.get_tensor(k)) for k, v in restored.items()):
+            fail("cli: run B's step-3 checkpoint does not restore exactly")
+        del b3, fresh, restored
+
+        # run A against run B: the same steps, within train_joint's noise floor
+        def params_of(directory, step):
+            r = CheckpointManager(str(directory)).reader(step)
+            return {k: r.get_tensor(k) for k in r.keys() if k.startswith("params/")}
+
+        init = {f"params/{k.replace('.', '/')}": convert.to_jax_leaf(k, v)
+                for k, v in state0.items() if not k.endswith(("moving_mean", "moving_variance"))}
+
+        def update_distance(step):
+            a, b = params_of(tmp / "A", step), params_of(tmp / "B", step)
+            num = sum(float(((a[k].astype(np.float64) - b[k]) ** 2).sum()) for k in a)
+            den = sum(float(((a[k].astype(np.float64) - init[k]) ** 2).sum()) for k in a)
+            return (num / max(den, 1e-300)) ** 0.5
+
+        d3, d6 = update_distance(CLI_CKPT_EVERY), update_distance(CLI_STEPS)
+        floor = held["params_noise_floor"]
+        if d3 > TRAIN_NOISE_FACTOR * floor + 1e-6:
+            fail(f"cli: runs A and B at step {CLI_CKPT_EVERY} {d3} apart, above "
+                 f"{TRAIN_NOISE_FACTOR} x train_joint's noise floor {floor}")
+
+        # ---- eval and predict (subprocesses, beside Trainer.evaluate on the
+        # CPU, which eval is held to) ----
+        body, text = fixtures[1], captions[1]
+        eval_job = beside("eval", "eval", *common, "--records", val_glob, "--checkpoint-dir",
+                          str(tmp / "A"), "--out", str(tmp / "eval.json"))
+        predict_job = beside("predict", "predict", *common, "--checkpoint-dir", str(tmp / "A"),
+                             "--image", str(body), "--text", text)
+        cpu_tr = Trainer(cfg, preprocess="eval", device="cpu")
+        cpu_tr.checkpoint_manager(str(tmp / "A"))
+        cpu_state = cpu_tr.restore_latest(cpu_tr.init_state(state0))
+        val_batches = list(cli._make_batches(args, cfg, vocab, train=False))
+        ev_cpu = cpu_tr.evaluate(cpu_state, val_batches)
+        times["eval"] = eval_job()[1]
+        pred_out = predict_job()[0]
+        ev = _json.loads((tmp / "eval.json").read_text().splitlines()[-1])
+        if ev["step"] != CLI_STEPS or ev["count"] != counts["validation"] or \
+                (ev["count"], ev["accuracy"]) != (ev_cpu["count"], ev_cpu["accuracy"]) or \
+                not np.array_equal(np.asarray(ev["confusion"]), ev_cpu["confusion"]):
+            fail(f"cli: eval {ev['count']}/{ev['accuracy']} (step {ev['step']}) differs from "
+                 f"Trainer.evaluate on the CPU {ev_cpu['count']}/{ev_cpu['accuracy']} or in "
+                 "the confusion matrix")
+        weights = {k: v.detach() for k, v in cpu_state.state.items()}
+        del cpu_tr, cpu_state
+
+        # ---- export-checkpoint: the slim bundle holds the tower, bit for bit ----
+        slim = str(tmp / "slim" / "model.ckpt")
+        with redirect_stdout(io.StringIO()):
+            cli.main(["export-checkpoint", *common, "--checkpoint-dir", str(tmp / "A"),
+                      "--out", slim])
+        exported, step_r = BundleReader(slim), CheckpointManager(str(tmp / "A")).reader(CLI_STEPS)
+        tower_names = [k for k in step_r.keys()
+                       if k.startswith(("params/InceptionV3/", "batch_stats/InceptionV3/"))]
+        if len(exported.keys()) != len(tower_names) or any(
+                not np.array_equal(exported.get_tensor(k.split("/", 1)[1]), step_r.get_tensor(k))
+                for k in tower_names):
+            fail("cli: the exported slim checkpoint's tower differs from the checkpoint's")
+
+        # ---- infer --engine int8 --front s2d, in process, over the train
+        # split (6 device batches; images/s counts only real rows) ----
+        t0 = time.perf_counter()
+        reset_all_launches()
+        out = io.StringIO()
+        with redirect_stdout(out):
+            cli.main(["infer", *common, "--records", train_glob, "--checkpoint-dir",
+                      str(tmp / "A"), "--engine", "int8", "--front", "s2d",
+                      "--probs-out", str(tmp / "probs.npy")])
+        torch.cuda.synchronize()
+        infer_launches = all_launches()
+        times["infer"] = time.perf_counter() - t0
+        inf = _json.loads(out.getvalue().splitlines()[-1])
+        check_int8_launches("cli_infer", infer_launches, forwards=inf["forwards"])
+        got = np.load(tmp / "probs.npy")
+        # the plain int8 engine from the same checkpoint and calibration batch
+        infer_batches = list(cli._make_batches(
+            cli.parser().parse_args(["infer", *common, "--records", train_glob]),
+            cfg, vocab, train=False))
+        calib = cli._calibration(cfg, infer_batches[0]["image"], dev)
+        w_dev = {k: v.to(dev) for k, v in weights.items()}
+        kern = build_forward(cfg, w_dev, engine="int8", front="s2d", calib_images=calib,
+                             device=dev)
+        plain = quant.QuantizedInceptionV3(tower_state(w_dev), calib, stem_s2d="pre",
+                                           use_kernels=False, device=dev)
+        plain.scales = kern.engine.scales
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(w_dev)
+        plain_srv = joint_server(plain, model, device=dev)
+        want = np.concatenate([
+            plain_srv(b["image"], torch.as_tensor(b["tokens"]).to(dev),
+                      torch.as_tensor(b["lengths"]).to(dev)).cpu().numpy()[b["weight"] == 1]
+            for b in infer_batches])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            fail(f"cli: infer probabilities {got.shape}, plain {want.shape}")
+        infer_diff = float(np.abs(got - want).max())
+        if infer_diff > INT8_PROB_TOL:
+            fail(f"cli: infer probabilities {infer_diff} from the plain int8 engine > "
+                 f"{INT8_PROB_TOL}")
+        del kern, plain, plain_srv, model, infer_batches
+
+        # ---- serve --engine int8 --port 0, in process through cli.build_server ----
+        t0 = time.perf_counter()
+        sargs = cli.parser().parse_args(
+            ["serve", *common, "--records", val_glob, "--checkpoint-dir", str(tmp / "A"),
+             "--engine", "int8", "--host", "127.0.0.1", "--port", "0",
+             "--max-delay-ms", str(HTTP_MAX_DELAY_MS)])
+        httpd, info = cli.build_server(sargs)
+        runner = info["runner"]
+        pick = [(fixtures[i % len(fixtures)], captions[i]) for i in range(CLI_SERVE_POSTS)]
+        answers = {}
+
+        def post(i):
+            body, text = pick[i][0].read_bytes(), pick[i][1]
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{info['port']}/predict?text={urllib.parse.quote(text)}",
+                data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers[i] = _json.loads(r.read())
+
+        try:
+            httpd.serve_background()
+            with urllib.request.urlopen(f"http://127.0.0.1:{info['port']}/healthz",
+                                        timeout=60) as r:
+                r.read()
+            reset_all_launches()
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(CLI_SERVE_POSTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+            torch.cuda.synchronize()
+            serve_launches = all_launches()
+            stats = httpd.predictor.stats.snapshot(httpd.predictor.batch_size)
+        finally:
+            httpd.close()
+        times["serve"] = time.perf_counter() - t0
+        if len(answers) != CLI_SERVE_POSTS or stats["errors"]:
+            fail(f"cli: serve answered {len(answers)} of {CLI_SERVE_POSTS} posts, {stats}")
+        check_int8_launches("cli_serve", serve_launches, forwards=stats["batches"])
+        imgs = np.empty((CLI_SERVE_POSTS, sargs.host_size, sargs.host_size, 3), np.uint8)
+        if any(jpeg.decode_resize_batch([b.read_bytes() for b, _ in pick], sargs.host_size,
+                                        imgs)):
+            fail("cli: fixture decode failed")
+        tok, lens = vocab.encode_batch([c for _, c in pick], cfg.text.max_len)
+        in_process = runner(imgs, tok, lens).cpu().numpy()
+        serve_diff = max(abs(answers[i]["probs"][e] - float(in_process[i][k]))
+                         for i in range(CLI_SERVE_POSTS) for k, e in enumerate(EMOTIONS))
+        if serve_diff > HTTP_PROB_TOL:
+            fail(f"cli: served answers {serve_diff} from the in-process runner > "
+                 f"{HTTP_PROB_TOL}")
+        del runner, httpd, info
+
+        # ---- predict (run above) against the Predictor on the checkpoint ----
+        got_p = _json.loads(pred_out[pred_out.index("{"):pred_out.rindex("}") + 1])
+        want_p = Predictor(cfg, w_dev, vocab=vocab, device=dev).predict(body.read_bytes(), text)
+        predict_diff = max(abs(got_p[e] - want_p[e]) for e in EMOTIONS)
+        if next(iter(got_p)) != next(iter(want_p)) or predict_diff > PREDICT_TOL:
+            fail(f"cli: predict {predict_diff} from the Predictor (top {next(iter(got_p))} vs "
+                 f"{next(iter(want_p))})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "cli", "config": "joint_finetune", "depth": DEPTH, "batch": CLI_BATCH,
+          "posts": CLI_POSTS, "records": counts, "vocab": vocab.size, "steps": CLI_STEPS,
+          "checkpoint_every": CLI_CKPT_EVERY, "losses": all_losses,
+          "checkpoint_bytes": [s_[1] for s_ in saves],
+          "checkpoint_save_s": [s_[2] for s_ in saves],
+          "checkpoint_write_s": [s_[3] for s_ in saves],
+          "input_position": pos_a, "step3_restore_exact": True,
+          "host_feed_img_s_8_threads_small_fixtures": feed_img_s,
+          "train_ms_per_step_run_a": step_ms,
+          "update_distance_a_vs_b": {str(CLI_CKPT_EVERY): d3, str(CLI_STEPS): d6},
+          "noise_floor": floor, "noise_factor": TRAIN_NOISE_FACTOR,
+          "eval": {"count": ev["count"], "accuracy": ev["accuracy"], "loss": ev["loss"],
+                   "equal_to_cpu": True},
+          "exported_tower_tensors": len(tower_names),
+          "infer": {k: inf[k] for k in ("examples", "accuracy", "images_per_sec", "forwards")},
+          "infer_launches": infer_launches, "infer_prob_max_abs_diff_vs_plain": infer_diff,
+          "serve": {"posts": CLI_SERVE_POSTS, "device_batches": stats["batches"],
+                    "latency_ms": stats["latency_ms"]},
+          "serve_launches": serve_launches, "serve_prob_max_abs_diff_vs_in_process": serve_diff,
+          "predict_max_abs_diff_vs_predictor": predict_diff,
+          "seconds": times,
+          "seconds_note": "eval: the subprocess's wall, run beside the predict subprocess and "
+                          "the CPU's evaluate",
+          "card": smi})
+    return {"cli_infer": infer_launches, "cli_serve": serve_launches}
 
 
 def _wrappers():
@@ -1609,9 +2020,13 @@ def main() -> int:
     paths["e2e_http"] = http_phase(dev, smi, calib)
 
     # ---- 13-15. training on the card, the main path ----
-    paths.update(train_phases(dev, smi))
+    train_paths, held = train_phases(dev, smi)
+    paths.update(train_paths)
 
-    # ---- 16. the kernels line ----
+    # ---- 16. cli: the CLI from records on disk, the main path ----
+    paths.update(cli_phase(dev, smi, held))
+
+    # ---- 17. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
     info = {  # name -> (source, replaces, launches in its path's run)
         "fused_inception_a": (src, f"{REPLACES}:230", launches),
@@ -1619,9 +2034,9 @@ def main() -> int:
         "conv_same_bias_relu": (src, f"{REPLACES}:127", launches),
         POOLED: (src, f"{REPLACES}:147", launches),
         "conv_int8": ("tumblr_emotions_torch/csrc/int8_conv.cu",
-                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", paths["e2e_http"]),
+                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", paths["cli_serve"]),
         "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
-                              "experiments/pallas_pool.py:53", paths["e2e_http"]),
+                              "experiments/pallas_pool.py:53", paths["cli_serve"]),
     }
     kernels = []
     for name, (source, replaces, counts) in info.items():
@@ -1641,8 +2056,8 @@ def main() -> int:
             "library_ms": sum(libs) if all(v is not None for v in libs) else None,
             "shapes": len(rs)}
         if name in ("conv_int8", "maxpool3x3s2_int8"):
-            # launches: the HTTP run (this slice's main path); the other
-            # int8 paths' runs beside it.
+            # launches: the CLI serve run (this slice's main path); the
+            # other int8 paths' runs beside it.
             entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"

@@ -891,3 +891,81 @@ def test_image_frozen_leaves_frozen_parameters_bit_unchanged_on_the_card(dev):
     for k in state:
         if k.endswith(("moving_mean", "moving_variance")):
             assert not torch.equal(ts.state[k].cpu(), state[k]), k
+
+
+def test_device_prefetch_copies_from_pinned_memory_on_a_side_stream(dev):
+    from tumblr_emotions_torch.data.pipeline import DevicePrefetchIterator
+
+    class Source:
+        def __init__(self):
+            self.n = 0
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            if self.n == 6:
+                raise StopIteration
+            self.n += 1
+            return {"image": np.full((4, 33, 33, 3), self.n, np.uint8),
+                    "label": np.arange(4, dtype=np.int32) + self.n}
+
+        def get_state(self):
+            return {"n": self.n}
+
+        def set_state(self, state):
+            self.n = state["n"]
+
+    src = Source()
+    pinned = []
+    real_empty = torch.empty
+
+    def spy(*a, **k):
+        t = real_empty(*a, **k)
+        if k.get("pin_memory"):
+            pinned.append(t.is_pinned())
+        return t
+
+    torch.empty = spy
+    try:
+        pf = DevicePrefetchIterator(src, device=dev, depth=2)
+        got = []
+        for i, b in enumerate(pf, start=1):
+            assert b["image"].device == dev and b["label"].device == dev
+            assert int(b["image"][0, 0, 0, 0]) == i and int(b["label"][0]) == i
+            assert pf.get_state() == {"n": i}
+            got.append(i)
+    finally:
+        torch.empty = real_empty
+    assert got == [1, 2, 3, 4, 5, 6] and pinned and all(pinned)
+
+
+def test_one_cli_train_step_on_the_card(tmp_path):
+    import csv
+    import shutil
+
+    from tumblr_emotions_torch import cli
+    from tumblr_emotions_torch.utils.checkpoint import CheckpointManager
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    fixtures = sorted((Path(__file__).parent / "data" / "jpeg").glob("*.jpg"))
+    (tmp_path / "images").mkdir()
+    for f in fixtures:
+        shutil.copy(f, tmp_path / "images" / f.name)
+    with open(tmp_path / "posts.csv", "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["id", "text", "label", "image"])
+        for i in range(24):
+            w.writerow([f"p{i}", f"post {i} so happy", i % 15, fixtures[i % len(fixtures)].name])
+    data = tmp_path / "data"
+    assert cli.main(["convert-dataset", "--csv", str(tmp_path / "posts.csv"), "--images-dir",
+                     str(tmp_path / "images"), "--out", str(data), "--num-shards", "2"]) == 0
+    common = ["--preset", "joint_finetune", "--vocab", str(data / "vocab.txt"),
+              "--depth-multiplier", "0.5", "--batch-size", "8", "--checkpoint-dir",
+              str(tmp_path / "ck")]
+    assert cli.main(["train", *common, "--records", str(data / "train-*.tfrecord"),
+                     "--steps", "1", "--prefetch-depth", "2"]) == 0
+    reader = CheckpointManager(str(tmp_path / "ck")).reader(1)
+    assert int(reader.get_tensor("step")) == 1
+    assert np.isfinite(reader.get_tensor("params/JointLogits/kernel")).all()

@@ -113,7 +113,8 @@ def test_tower_rejects_train_mode_and_wrong_rank(towers):
 # Guards
 # ---------------------------------------------------------------------------
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tumblr_emotions_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tumblr_emotions_tpu", "PIL", "grain", "orbax",
+             "google_crc32c", "tensorflow")
 
 
 def _imports(path):
@@ -142,7 +143,11 @@ def test_port_imports_with_jax_blocked():
             "import tumblr_emotions_torch.server, tumblr_emotions_torch.train.predict\n"
             "import tumblr_emotions_torch.data.jpeg, tumblr_emotions_torch.data.pipeline\n"
             "import tumblr_emotions_torch.train.trainer, tumblr_emotions_torch.train.optim\n"
-            "import tumblr_emotions_torch.utils.metrics\n"
+            "import tumblr_emotions_torch.utils.metrics, tumblr_emotions_torch.cli\n"
+            "import tumblr_emotions_torch.data.records, tumblr_emotions_torch.data.csv_dataset\n"
+            "import tumblr_emotions_torch.data.convert, tumblr_emotions_torch.data.index_shuffle\n"
+            "import tumblr_emotions_torch.utils.checkpoint, tumblr_emotions_torch.utils.crc32c\n"
+            "import tumblr_emotions_torch.utils.host_lib\n"
             "print('ok')\n" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)

@@ -660,8 +660,9 @@ def test_trainer_refuses_what_is_not_ported():
     tr = ttrainer.Trainer(tcfg, device="cpu")
     with pytest.raises(NotImplementedError, match="tooling"):
         tr.fit(tr.init_state(_init(tcfg)), [])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tr.checkpoint_manager()
+    with pytest.raises(NotImplementedError, match="perf"):
+        ttrainer.Trainer(tcfg.replace(train=tcfg.train.replace(precision_mode="perf")),
+                         device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
         tr.init_state({"x": torch.zeros(1)})
     with pytest.raises(ValueError):

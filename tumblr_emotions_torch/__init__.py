@@ -8,6 +8,9 @@ points take ``device`` (default ``"cuda"``) and raise when no card is
 present.
 
 Layer map:
+  entry        -> cli (python -m tumblr_emotions_torch.cli: train, eval,
+                  predict, infer, serve, convert-dataset, build-vocab,
+                  export-checkpoint)
   front end    -> server (EmotionHTTPServer, BatchedPredictor: posts over
                   HTTP in fixed-size device batches), train.predict
                   (Predictor, batch 1)
@@ -18,13 +21,19 @@ Layer map:
   text, fusion -> models.text_model (TextEmotionModel), models.joint_model
                   (DeepSentimentModel.fuse)
   training     -> train.trainer (Trainer: fit, evaluate; the models in train
-                  mode), train.optim (the optimizers as optax computes
-                  them), utils.metrics (streaming counts and confusion)
+                  mode; step checkpoints and resume), train.optim (the
+                  optimizers as optax computes them), utils.metrics
+                  (streaming counts and confusion), utils.checkpoint (TF
+                  tensor bundles: step checkpoints, slim warm start and
+                  export), utils.crc32c + csrc/crc32c.cc
   kernels      -> ops.int8_conv + csrc/int8_conv.cu, ops.int8_pool +
                   csrc/int8_pool.cu, ops.fused_inception + csrc/inception_blocks.cu
   data         -> data.jpeg + csrc/jpeg_decode.cc (host JPEG decode and
                   the PIL-bilinear resize, bit for bit, built by g++),
-                  data.pipeline (_host_resize_uint8), data.preprocessing
+                  data.records (TFRecords, tf.Example), data.convert and
+                  data.csv_dataset, data.pipeline (grain's record order by
+                  data.index_shuffle, resumable batches, the device feed),
+                  data.preprocessing
                   (eval, s2d, the train distortions), data.vocab (tokenizer, vocabulary, embedding
                   loaders), convert (weights from JAX)
 """

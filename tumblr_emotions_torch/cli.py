@@ -1,0 +1,681 @@
+"""Command-line entry points of the port: train / eval / predict / infer /
+serve plus the dataset tooling (convert-dataset, build-vocab,
+export-checkpoint).
+
+Port of ``tumblr_emotions_tpu/cli.py`` over the port's modules, with the
+reference's commands, flags and output:
+
+  python -m tumblr_emotions_torch.cli convert-dataset --csv posts.csv \\
+      --images-dir images/ --out data/
+  python -m tumblr_emotions_torch.cli train --preset joint_finetune \\
+      --records 'data/train-*.tfrecord' --vocab data/vocab.txt \\
+      --checkpoint-dir ckpt/ [--warmstart inception_v3.ckpt]
+  python -m tumblr_emotions_torch.cli eval --preset joint_finetune \\
+      --records 'data/validation-*.tfrecord' --vocab data/vocab.txt \\
+      --checkpoint-dir ckpt/ [--follow]
+  python -m tumblr_emotions_torch.cli infer|serve|predict ...
+  python -m tumblr_emotions_torch.cli export-checkpoint --out slim/model.ckpt ...
+
+Every command that runs a model takes ``--device`` (default ``cuda``, which
+raises without a card; ``--device cpu`` runs on the CPU).  ``train``
+resumes from the latest checkpoint in ``--checkpoint-dir`` at the exact
+input record.  Commands and flags the port does not have yet are refused
+with the ROADMAP item that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import logging
+import sys
+import time
+from typing import Dict
+
+import numpy as np
+
+log = logging.getLogger("tumblr_emotions_torch")
+
+# Refused commands and flags -> the ROADMAP (Queue 1) item that brings them.
+LEFT = {
+    "analyze": "6(i) (analysis.py's circumplex analysis)",
+    "parity": "6(i) (the one-shot logit-parity gate)",
+    "tune": "6(i) (compiler-option tuning, utils/compile_opts.py's role)",
+    "train-embeddings": "6(g) (word2vec)",
+    "scrape": "6(i) (data/scraper.py)",
+    "--dp": "6(h) (data parallel and multi-host)",
+    "multi-process": "6(h) (data parallel and multi-host)",
+}
+
+
+def _left(what: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported yet: ROADMAP Queue 1, item {LEFT[what]}")
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--preset", default="joint_finetune")
+    p.add_argument("--model", choices=["text", "image", "joint"], default=None)
+    p.add_argument("--records", default="", help="TFRecord glob")
+    p.add_argument("--csv", default="", help="posts CSV (text-only runs)")
+    p.add_argument("--vocab", default="", help="vocab.txt path")
+    p.add_argument("--embeddings", default="", help="GloVe txt / .npy matrix")
+    p.add_argument("--labels", default="", help="labels.txt (defaults to built-in)")
+    p.add_argument("--checkpoint-dir", default="")
+    p.add_argument("--batch-size", type=int, default=0)
+    p.add_argument("--steps", type=int, default=0)
+    p.add_argument("--learning-rate", type=float, default=0.0)
+    p.add_argument("--max-len", type=int, default=0)
+    p.add_argument("--image-size", type=int, default=0)
+    p.add_argument("--depth-multiplier", type=float, default=0.0)
+    p.add_argument("--no-aux", action="store_true",
+                   help="disable the auxiliary classifier head")
+    p.add_argument("--precision", choices=["parity", "perf"], default="")
+    p.add_argument("--warmstart", default="",
+                   help="slim .ckpt to warm-start the Inception tower from")
+    p.add_argument("--trainable-scopes", default=None,
+                   help="comma list; e.g. Logits,AuxLogits for head-only")
+    p.add_argument("--head-steps", type=int, default=0,
+                   help="two-phase fine-tune: first N steps train only the new heads "
+                        "(Logits/AuxLogits/JointLogits/TextLogits), then the remaining "
+                        "steps train end-to-end (the reference's warm-start recipe)")
+    p.add_argument("--seed", type=int, default=-1)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="checkpoint (and in-train eval) interval in steps")
+    p.add_argument("--log-every", type=int, default=0)
+    p.add_argument("--coordinator-address", default="")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=-1)
+    p.add_argument("--device", default="cuda",
+                   help="torch device to run on (cuda: the card; cpu for a machine "
+                        "without one)")
+
+
+def _build_config(args):
+    from tumblr_emotions_torch.config import get_preset
+
+    cfg = get_preset(args.preset)
+    if args.model:
+        cfg = cfg.replace(model=args.model)
+    t = {}
+    if args.batch_size:
+        t["batch_size"] = args.batch_size
+    if args.steps:
+        t["num_steps"] = args.steps
+    if args.learning_rate:
+        t["learning_rate"] = args.learning_rate
+    if args.checkpoint_dir:
+        t["checkpoint_dir"] = args.checkpoint_dir
+    if args.precision:
+        t["precision_mode"] = args.precision
+    if args.warmstart:
+        t["warmstart_checkpoint"] = args.warmstart
+    if args.trainable_scopes is not None:
+        t["trainable_scopes"] = args.trainable_scopes
+    if args.seed >= 0:
+        t["seed"] = args.seed
+    if getattr(args, "checkpoint_every", 0):
+        t["checkpoint_every"] = args.checkpoint_every
+    if getattr(args, "log_every", 0):
+        t["log_every"] = args.log_every
+    if t:
+        cfg = cfg.replace(train=cfg.train.replace(**t))
+    if args.max_len:
+        cfg = cfg.replace(text=cfg.text.replace(max_len=args.max_len))
+    im = {}
+    if args.image_size:
+        im["image_size"] = args.image_size
+    if args.depth_multiplier:
+        im["depth_multiplier"] = args.depth_multiplier
+        im["min_depth"] = 8
+    if args.no_aux:
+        im["create_aux_logits"] = False
+    if im:
+        cfg = cfg.replace(image=cfg.image.replace(**im))
+    if getattr(args, "labels", ""):
+        # A custom label file resizes every classifier head.
+        cfg = cfg.replace(image=cfg.image.replace(num_classes=len(_load_emotions(args))))
+    return cfg
+
+
+def _load_emotions(args):
+    from tumblr_emotions_torch.config import EMOTIONS
+
+    if args.labels:
+        with open(args.labels) as f:
+            return tuple(line.strip() for line in f if line.strip())
+    return EMOTIONS
+
+
+def _load_vocab(args, cfg, texts=None):
+    from tumblr_emotions_torch.data.vocab import Vocabulary, build_vocabulary
+
+    if args.vocab:
+        return Vocabulary.load(args.vocab)
+    if texts is not None:
+        return build_vocabulary(texts, max_size=cfg.text.vocab_size)
+    raise SystemExit("--vocab is required for records input")
+
+
+def _check_single_process(args) -> None:
+    """One process on one device: a multi-process run is refused."""
+    if args.num_processes > 1 or args.process_id > 0 or args.coordinator_address:
+        raise _left("multi-process")
+    if getattr(args, "dp", False):
+        raise _left("--dp")
+
+
+def _make_batches(args, cfg, vocab, train: bool):
+    from tumblr_emotions_torch.data import csv_dataset, pipeline
+
+    bs = cfg.train.batch_size if train else cfg.train.eval_batch_size
+    if args.csv and cfg.model != "text":
+        raise SystemExit(
+            f"--csv provides text-only batches; model {cfg.model!r} needs "
+            "images: convert the dataset and pass --records instead")
+    if args.csv:
+        posts = csv_dataset.load_posts_csv(args.csv, emotions=_load_emotions(args))
+        return csv_dataset.text_batches(
+            posts, vocab, bs, cfg.text.max_len, shuffle=train,
+            seed=cfg.train.seed, num_epochs=None if train else 1,
+            drop_remainder=train)
+    if not args.records:
+        raise SystemExit("need --records or --csv")
+    pcfg = pipeline.PipelineConfig(
+        batch_size=bs, max_len=cfg.text.max_len, shuffle=train,
+        seed=cfg.train.seed, num_epochs=None if train else 1,
+        drop_remainder=train, decode_threads=cfg.data.num_workers)
+    return pipeline.batches(args.records, vocab, pcfg)
+
+
+def _initial_state(cfg) -> Dict:
+    """Seeded initial weights of ``cfg``'s model (``cfg.train.seed``)."""
+    from tumblr_emotions_torch.models import build_model, inception_v3, joint_model, text_model
+
+    init = {"image": inception_v3.init_state, "joint": joint_model.init_state,
+            "text": text_model.init_state}[cfg.model]
+    return init(build_model(cfg, device="meta"), cfg.train.seed)
+
+
+def _init_trainer_state(args, cfg, vocab, sample_batch):
+    from tumblr_emotions_torch.data.vocab import load_embeddings
+    from tumblr_emotions_torch.train.trainer import Trainer
+    from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
+
+    if vocab is not None:
+        cfg = cfg.replace(text=cfg.text.replace(vocab_size=vocab.size))
+    preprocess = None
+    if cfg.model in ("image", "joint") and "image" in sample_batch and \
+            np.asarray(sample_batch["image"]).dtype == np.uint8:
+        preprocess = "train"
+    emb = None
+    if args.embeddings and vocab is not None:
+        if args.embeddings.endswith(".npy"):
+            emb = np.load(args.embeddings).astype(np.float32)
+            if emb.shape[0] != vocab.size:
+                raise SystemExit(f"embedding rows {emb.shape[0]} != vocab size {vocab.size}")
+            cfg = cfg.replace(text=cfg.text.replace(embed_dim=emb.shape[1]))
+        else:
+            emb = load_embeddings(args.embeddings, vocab, cfg.text.embed_dim)
+    trainer = Trainer(cfg, preprocess=preprocess, device=args.device)
+    state = _initial_state(cfg)
+    if cfg.train.warmstart_checkpoint:
+        pretrained = ckpt_lib.load_slim_checkpoint(
+            cfg.train.warmstart_checkpoint, exclude_scopes=cfg.train.warmstart_exclude)
+        state = ckpt_lib.merge_pretrained(
+            state, pretrained, subtree="InceptionV3" if cfg.model == "joint" else None)
+        log.info("warm-started from %s", cfg.train.warmstart_checkpoint)
+    return trainer, trainer.init_state(state, embedding_matrix=emb), cfg
+
+
+def _restored(trainer, ts, what: str):
+    restored = trainer.restore_latest(ts)
+    if restored is None:
+        log.warning("no checkpoint found in %s; %s from fresh init",
+                    trainer.cfg.train.checkpoint_dir, what)
+        return ts
+    return restored
+
+
+def _weights(ts) -> Dict:
+    """A TrainState's state dict, detached, for the served programs."""
+    return {k: v.detach() for k, v in ts.state.items()}
+
+
+def cmd_train(args) -> int:
+    from tumblr_emotions_torch.data import pipeline
+    from tumblr_emotions_torch.train.trainer import Trainer, TrainState
+
+    _check_single_process(args)
+    cfg = _build_config(args)
+    vocab = None
+    if cfg.model in ("text", "joint"):
+        texts = None
+        if args.csv and not args.vocab:
+            from tumblr_emotions_torch.data.csv_dataset import load_posts_csv
+
+            texts = [p.text for p in load_posts_csv(args.csv)]
+        vocab = _load_vocab(args, cfg, texts)
+    batches = _make_batches(args, cfg, vocab, train=True)
+    it = iter(batches)
+    first = next(it)
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, first)
+    trainer.checkpoint_manager()
+    resumed = trainer.restore_latest(state)
+    resumed_input = False
+    if resumed is not None:
+        state = resumed
+        # Resume the input position too (saved with each checkpoint), so the
+        # stream does not replay the epoch's seen prefix; `first` (pulled
+        # for shape inference) is superseded by set_state.
+        resumed_input = trainer.restore_input_iterator(it)
+        log.info("resumed at step %d%s", state.step,
+                 " (input position restored)" if resumed_input else "")
+    stream = it if resumed_input else itertools.chain([first], it)
+    eval_batches = None
+    if args.eval_records or args.eval_csv:
+        eval_args = argparse.Namespace(**vars(args))
+        eval_args.records, eval_args.csv = args.eval_records, args.eval_csv
+        eval_batches = lambda: _make_batches(eval_args, cfg, vocab, train=False)  # noqa: E731
+    input_it = it if hasattr(it, "get_state") else None
+    if args.prefetch_depth > 0:
+        # A producer thread keeps batches on the device; it reports the
+        # consumed position, so exact-record resume holds.
+        stream = pipeline.DevicePrefetchIterator(stream, trainer.device,
+                                                 depth=args.prefetch_depth,
+                                                 state_source=input_it)
+        if input_it is not None:
+            input_it = stream
+    if args.head_steps and state.step < args.head_steps:
+        # Phase 1: only the classification heads train.
+        heads = "Logits,AuxLogits,JointLogits,JointHidden,TextLogits,TextHidden"
+        head_cfg = cfg.replace(train=cfg.train.replace(trainable_scopes=heads))
+        head_trainer = Trainer(head_cfg, preprocess=trainer.preprocess, device=trainer.device)
+        head = head_trainer.init_state(state.state)
+        head_state = TrainState(state.step, head.state, head.opt_state)
+        log.info("phase 1: training heads only for %d steps", args.head_steps)
+        head_state = head_trainer.fit(head_state, stream,
+                                      num_steps=args.head_steps - state.step,
+                                      eval_batches=eval_batches, input_iterator=input_it)
+        # Phase 2 resumes with a fresh full-model optimizer.
+        full = trainer.init_state(head_state.state)
+        state = TrainState(head_state.step, full.state, full.opt_state)
+        log.info("phase 2: fine-tuning end-to-end")
+    state = trainer.fit(state, stream, num_steps=cfg.train.num_steps - state.step,
+                        eval_batches=eval_batches, input_iterator=input_it)
+    log.info("finished at step %d", state.step)
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from tumblr_emotions_torch.utils.metrics import format_per_class
+
+    cfg = _build_config(args)
+    emotions = _load_emotions(args)
+    vocab = _load_vocab(args, cfg) if cfg.model in ("text", "joint") else None
+    batches = list(_make_batches(args, cfg, vocab, train=False))
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, batches[0])
+    # Eval batches may arrive as uint8 host images: use eval preprocessing.
+    if trainer.preprocess is not None:
+        trainer.preprocess = "eval"
+    if args.follow:
+        # slim evaluation_loop mode: every new checkpoint until the run's
+        # final step.
+        for step, summary in trainer.evaluate_continuously(
+                state, lambda: batches, class_names=emotions,
+                interval_secs=args.eval_interval, timeout_secs=args.eval_timeout or None):
+            print(f"== step {step} ==")
+            print(format_per_class(summary))
+            _write_summary(args.out, dict(summary, step=step))
+        return 0
+    state = _restored(trainer, state, "evaluating")
+    summary = trainer.evaluate(state, batches, class_names=emotions)
+    print(format_per_class(summary))
+    _write_summary(args.out, dict(summary, step=state.step))
+    return 0
+
+
+def _write_summary(path: str, summary: Dict) -> None:
+    """The evaluation summary as one JSON line (appended) at ``path``."""
+    if not path:
+        return
+    with open(path, "a") as f:
+        f.write(json.dumps({k: np.asarray(v).tolist() if isinstance(v, np.ndarray) else v
+                            for k, v in summary.items()}) + "\n")
+
+
+def _sample(cfg, image_size: int, image_dtype=np.float32) -> Dict[str, np.ndarray]:
+    sample: Dict[str, np.ndarray] = {"label": np.zeros((1,), np.int32)}
+    if cfg.model in ("image", "joint"):
+        sample["image"] = np.zeros((1, image_size, image_size, 3), image_dtype)
+    if cfg.model in ("text", "joint"):
+        sample["tokens"] = np.zeros((1, cfg.text.max_len), np.int32)
+        sample["lengths"] = np.ones((1,), np.int32)
+    return sample
+
+
+def cmd_predict(args) -> int:
+    from tumblr_emotions_torch.train.predict import Predictor
+
+    cfg = _build_config(args)
+    emotions = _load_emotions(args)
+    vocab = _load_vocab(args, cfg) if cfg.model in ("text", "joint") else None
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, _sample(cfg, 299))
+    restored = trainer.restore_latest(state)
+    if restored is not None:
+        state = restored
+    elif not cfg.train.warmstart_checkpoint:
+        log.warning("no checkpoint found in %s; predicting from fresh init",
+                    cfg.train.checkpoint_dir)
+    predictor = Predictor(cfg, _weights(state), vocab=vocab, emotions=emotions,
+                          device=trainer.device)
+    image_bytes = open(args.image, "rb").read() if args.image else None
+    result = predictor.predict(image_bytes=image_bytes, text=args.text or None)
+    print(json.dumps(result, indent=2))
+    return 0
+
+
+def _calibration(cfg, images, device):
+    """The int8 engine's calibration batch: the first 64 images with the
+    eval preprocessing the engine serves with."""
+    import torch
+
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+
+    s = cfg.image.image_size
+    return preprocess_for_eval(torch.as_tensor(np.asarray(images[:64])).to(device), s, s,
+                               central_fraction=cfg.data.eval_central_crop,
+                               resize_method=cfg.data.resize_method, dtype=torch.float32)
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_infer(args) -> int:
+    """Batch inference over a records split with the served engines: int8
+    (quantized, the default), bf16 (BN-folded) or parity (the f32 slim
+    model).  Serves the image model, or the joint model (the tower in the
+    engine, the text branch and fusion head on its feature; needs
+    --vocab).  Writes one JSON line per example to --out (and, with
+    --probs-out, the probabilities unrounded as a .npy), and prints a
+    summary with the measured images/s."""
+    import torch
+
+    from tumblr_emotions_torch.models.joint_model import tower_state
+    from tumblr_emotions_torch.ops import serving as serving_lib
+
+    _check_single_process(args)
+    cfg = _build_config(args)
+    if cfg.model == "text":
+        raise SystemExit("infer serves the image/joint towers; use eval/predict for "
+                         "text-only models")
+    emotions = _load_emotions(args)
+    vocab = _load_vocab(args, cfg) if cfg.model == "joint" else None
+    batches = list(_make_batches(args, cfg, vocab, train=False))
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, batches[0])
+    dev = trainer.device
+    weights = _weights(_restored(trainer, state, "serving"))
+    tower = weights if cfg.model == "image" else tower_state(weights)
+    calib = _calibration(cfg, batches[0]["image"], dev) if args.engine == "int8" else None
+    runner = serving_lib.build_forward(cfg, weights, engine=args.engine, device=dev,
+                                       calib_images=calib, front=args.front)
+
+    def forward(b):
+        tokens = lengths = None
+        if cfg.model == "joint":
+            tokens = torch.as_tensor(b["tokens"]).to(dev)
+            lengths = torch.as_tensor(b["lengths"]).to(dev) if "lengths" in b else None
+        return runner(b["image"], tokens, lengths).float().cpu().numpy()
+
+    forward(batches[0])  # untimed warm-up: steady-state images/s
+    n, n_correct, t_total, n_timed = 0, 0, 0.0, 0
+    kept = []
+    out_f = open(args.out, "w") if args.out else None
+    for b in batches:
+        _sync(dev)
+        t0 = time.perf_counter()
+        probs = forward(b)
+        t_total += time.perf_counter() - t0
+        valid = np.asarray(b.get("weight", np.ones(len(probs), np.int32))) == 1
+        n_timed += int(valid.sum())  # real images: padding rows are not served
+        kept.append(probs[valid])
+        for i in np.nonzero(valid)[0]:
+            n += 1
+            n_correct += int(probs[i].argmax() == int(b["label"][i]))
+            if out_f is not None:
+                out_f.write(json.dumps({
+                    "label": int(b["label"][i]),
+                    "top1": emotions[int(probs[i].argmax())],
+                    "probs": {e: round(float(p), 5) for e, p in zip(emotions, probs[i])},
+                }) + "\n")
+    if out_f is not None:
+        out_f.close()
+    if args.probs_out:
+        np.save(args.probs_out, np.concatenate(kept))
+    summary = {"examples": n, "engine": args.engine,
+               "accuracy": round(n_correct / max(n, 1), 4),
+               "images_per_sec": round(n_timed / max(t_total, 1e-9), 1),
+               "forwards": len(batches) + 1}
+    if args.validate and args.engine == "int8":
+        from tumblr_emotions_torch.ops.quant import quantization_delta
+
+        imgs = _calibration(cfg, batches[0]["image"], dev)
+        summary["quantization_delta"] = quantization_delta(
+            tower, imgs, device=dev, stem_s2d="pre" if args.front == "s2d" else False)
+    print(json.dumps(summary))
+    return 0
+
+
+def build_server(args):
+    """The serving stack of ``cmd_serve`` for the ``serve`` command's
+    arguments (``parser().parse_args(["serve", ...])``): (EmotionHTTPServer,
+    info), the server bound but not yet serving, the runner warmed up.
+    ``info`` is the JSON line ``cmd_serve`` prints, with the runner under
+    ``runner``."""
+    from tumblr_emotions_torch.ops import serving as serving_lib
+    from tumblr_emotions_torch.server import BatchedPredictor, EmotionHTTPServer
+
+    _check_single_process(args)
+    cfg = _build_config(args)
+    emotions = _load_emotions(args)
+    if args.engine == "int8" and cfg.model != "text" and not args.records:
+        raise SystemExit("--engine int8 needs --records for a real calibration batch "
+                         "(or use bf16/parity)")
+    vocab = _load_vocab(args, cfg) if cfg.model in ("text", "joint") else None
+    B, S = args.serve_batch_size, args.host_size
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, _sample(cfg, S, np.uint8))
+    dev = trainer.device
+    weights = _weights(_restored(trainer, state, "serving"))
+    engine = "parity" if cfg.model == "text" else args.engine
+    calib = None
+    if engine == "int8":
+        first = next(iter(_make_batches(args, cfg, vocab, train=False)))
+        calib = _calibration(cfg, first["image"], dev)
+    runner = serving_lib.build_forward(cfg, weights, engine=engine, device=dev,
+                                       calib_images=calib, front=args.front)
+    predictor = BatchedPredictor(
+        runner, B, host_size=S, needs_image=cfg.model in ("image", "joint"),
+        vocab=vocab, max_len=cfg.text.max_len, max_delay_ms=args.max_delay_ms,
+        max_queue=args.max_queue or None, decode_threads=cfg.data.num_workers,
+        emotions=emotions)
+    # Pay the first call's set-up before accepting traffic.
+    warm_img = np.zeros((B, S, S, 3), np.uint8) if cfg.model in ("image", "joint") else None
+    warm_tok = np.zeros((B, cfg.text.max_len), np.int32) if vocab is not None else None
+    warm_len = np.ones((B,), np.int32) if vocab is not None else None
+    runner(warm_img, warm_tok, warm_len).cpu()
+    httpd = EmotionHTTPServer(predictor, host=args.host, port=args.port,
+                              request_timeout=args.request_timeout)
+    info = {"serving": True, "host": httpd.server_address[0],
+            "port": httpd.server_address[1], "engine": engine, "model": cfg.model,
+            "batch_size": B, "max_delay_ms": args.max_delay_ms, "device": str(dev)}
+    return httpd, dict(info, runner=runner)
+
+
+def cmd_serve(args) -> int:
+    """Online HTTP serving with micro-batching (server.py) of the latest
+    checkpoint.  --port 0 binds an ephemeral port (printed on stdout as JSON)."""
+    httpd, info = build_server(args)
+    info.pop("runner")
+    print(json.dumps(info), flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.close()
+    return 0
+
+
+def cmd_convert_dataset(args) -> int:
+    from tumblr_emotions_torch.data.convert import convert
+
+    counts = convert(args.csv, args.images_dir, args.out, num_shards=args.num_shards,
+                     valid_fraction=args.valid_fraction, record_format=args.format)
+    print(json.dumps(counts))
+    return 0
+
+
+def cmd_build_vocab(args) -> int:
+    from tumblr_emotions_torch.data.csv_dataset import load_posts_csv
+    from tumblr_emotions_torch.data.vocab import build_vocabulary
+
+    posts = load_posts_csv(args.csv)
+    v = build_vocabulary((p.text for p in posts), max_size=args.max_size,
+                         min_freq=args.min_freq)
+    v.save(args.out)
+    print(f"wrote {v.size} tokens to {args.out}")
+    return 0
+
+
+def cmd_export_checkpoint(args) -> int:
+    """Export the latest step checkpoint as a slim (TF name-based)
+    checkpoint of the Inception tower, the inverse of --warmstart."""
+    from tumblr_emotions_torch.models.joint_model import tower_state
+    from tumblr_emotions_torch.train.trainer import Trainer
+    from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
+
+    cfg = _build_config(args)
+    vocab = _load_vocab(args, cfg) if (cfg.model in ("text", "joint") and args.vocab) else None
+    if vocab is not None:
+        cfg = cfg.replace(text=cfg.text.replace(vocab_size=vocab.size))
+    trainer = Trainer(cfg, device=args.device)
+    restored = trainer.restore_latest(trainer.init_state(_initial_state(cfg)))
+    if restored is None:
+        raise SystemExit(f"no checkpoint in {cfg.train.checkpoint_dir}")
+    weights = _weights(restored)
+    if cfg.model == "joint":
+        weights = tower_state(weights)
+    path = ckpt_lib.save_as_slim_checkpoint(weights, args.out)
+    print(f"wrote slim checkpoint {path} (step {restored.step})")
+    return 0
+
+
+REFUSED = ("analyze", "parity", "tune", "train-embeddings", "scrape")
+
+
+def parser() -> argparse.ArgumentParser:
+    """The CLI's argument parser (each command's namespace has ``fn``)."""
+    parser = argparse.ArgumentParser(prog="tumblr_emotions_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    for name, fn in [("train", cmd_train), ("eval", cmd_eval), ("predict", cmd_predict)]:
+        p = sub.add_parser(name)
+        _add_common(p)
+        if name == "predict":
+            p.add_argument("--image", default="")
+            p.add_argument("--text", default="")
+        if name == "train":
+            p.add_argument("--eval-records", default="",
+                           help="eval-split TFRecord glob: evaluate at every checkpoint "
+                                "interval (in-train eval)")
+            p.add_argument("--eval-csv", default="",
+                           help="eval-split posts CSV (text-only models)")
+            p.add_argument("--prefetch-depth", type=int, default=0,
+                           help="batches kept on the device by a background feeder "
+                                "(0: no prefetch)")
+        if name == "eval":
+            p.add_argument("--follow", action="store_true",
+                           help="continuous mode: evaluate each new checkpoint "
+                                "(slim evaluation_loop)")
+            p.add_argument("--eval-interval", type=float, default=30.0,
+                           help="--follow poll interval (seconds)")
+            p.add_argument("--eval-timeout", type=float, default=0.0,
+                           help="--follow: stop after this long with no new checkpoint "
+                                "(0 = wait forever)")
+            p.add_argument("--out", default="",
+                           help="append each summary (count, accuracy, loss, confusion) "
+                                "as a JSON line here")
+        p.set_defaults(fn=fn)
+
+    p = sub.add_parser("convert-dataset")
+    p.add_argument("--csv", required=True)
+    p.add_argument("--images-dir", default="")
+    p.add_argument("--out", required=True)
+    p.add_argument("--num-shards", type=int, default=5)
+    p.add_argument("--valid-fraction", type=float, default=0.1)
+    p.add_argument("--format", choices=["tfrecord", "arrayrecord"], default="tfrecord")
+    p.set_defaults(fn=cmd_convert_dataset)
+
+    for name in ("infer", "serve"):
+        p = sub.add_parser(name)
+        _add_common(p)
+        p.add_argument("--engine", choices=["int8", "bf16", "parity"], default="int8")
+        p.add_argument("--front", choices=["s2d", "uint8", "float"], default="s2d",
+                       help="int8 preprocess front: s2d (the benchmarked default), uint8 "
+                            "(all-int8), float (normal layout)")
+        p.add_argument("--dp", action="store_true", help=f"refused: ROADMAP {LEFT['--dp']}")
+        if name == "infer":
+            p.add_argument("--out", default="", help="output JSONL path")
+            p.add_argument("--probs-out", default="",
+                           help="write the probabilities unrounded as a .npy here")
+            p.add_argument("--validate", action="store_true",
+                           help="also report int8-vs-bf16 quantization deltas")
+            p.set_defaults(fn=cmd_infer)
+        else:
+            p.add_argument("--host", default="0.0.0.0")
+            p.add_argument("--port", type=int, default=8080,
+                           help="0 binds an ephemeral port (printed as JSON)")
+            p.add_argument("--serve-batch-size", type=int, default=64,
+                           help="fixed device batch size (partial batches padded)")
+            p.add_argument("--max-delay-ms", type=float, default=5.0,
+                           help="max micro-batching wait after the first request")
+            p.add_argument("--host-size", type=int, default=347,
+                           help="host-side decoded/resized image side")
+            p.add_argument("--request-timeout", type=float, default=60.0)
+            p.add_argument("--max-queue", type=int, default=0,
+                           help="bounded request queue; full -> fast-fail 503 "
+                                "(0 = default 8 device batches of headroom)")
+            p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("build-vocab")
+    p.add_argument("--csv", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--max-size", type=int, default=50_000)
+    p.add_argument("--min-freq", type=int, default=2)
+    p.set_defaults(fn=cmd_build_vocab)
+
+    p = sub.add_parser("export-checkpoint")
+    _add_common(p)
+    p.add_argument("--out", required=True, help="output slim .ckpt path prefix")
+    p.set_defaults(fn=cmd_export_checkpoint)
+
+    for name in REFUSED:
+        sub.add_parser(name, help=f"not ported yet (ROADMAP {LEFT[name]})")
+    return parser
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in REFUSED:
+        raise _left(argv[0])
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
+    args = parser().parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -51,7 +51,8 @@ def _leaves(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...
             yield prefix + (k,), v
 
 
-def _to_port(path: Tuple[str, ...], leaf) -> torch.Tensor:
+def to_port_leaf(path: Tuple[str, ...], leaf) -> torch.Tensor:
+    """One JAX leaf at tree ``path`` -> the port's tensor (a CPU copy)."""
     if any("." in p for p in path):
         raise ValueError(f"'.' in variable path {path}")
     arr = np.asarray(leaf)
@@ -62,7 +63,8 @@ def _to_port(path: Tuple[str, ...], leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, order="C"))  # a copy
 
 
-def _to_jax(key: str, t: torch.Tensor) -> np.ndarray:
+def to_jax_leaf(key: str, t: torch.Tensor) -> np.ndarray:
+    """The port's tensor at state-dict ``key`` -> the JAX leaf (numpy)."""
     arr = t.detach().cpu().numpy()
     leaf = key.rsplit(".", 1)[-1]
     if leaf == "weights":
@@ -77,7 +79,7 @@ def to_state(variables: Dict) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(collection, {})):
-            state[".".join(path)] = _to_port(path, leaf)
+            state[".".join(path)] = to_port_leaf(path, leaf)
     return state
 
 
@@ -89,7 +91,7 @@ def to_variables(state: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
         node = out["batch_stats" if path[-1] in _STATS else "params"]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = _to_jax(key, t)
+        node[path[-1]] = to_jax_leaf(key, t)
     return out
 
 
@@ -117,7 +119,7 @@ def opt_state_from_optax(tree) -> Dict:
             for field in node._fields:
                 v = getattr(node, field)
                 if field in _MOMENTS:
-                    out[field] = {".".join(path): _to_port(path, leaf)
+                    out[field] = {".".join(path): to_port_leaf(path, leaf)
                                   for path, leaf in _leaves(v) if not _is_record(leaf)}
                 elif field == "count":
                     c = int(np.asarray(v))
@@ -147,7 +149,7 @@ def opt_state_to_optax(opt_state: Dict, template):
         if _is_record(tree):                 # a frozen leaf's MaskedNode
             return tree
         key = ".".join(path)
-        return _to_jax(key, values[key])
+        return to_jax_leaf(key, values[key])
 
     def fill(node):
         if _is_record(node):

@@ -26,20 +26,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "jpeg_decode.cc"
-BUILD_DIR = _PKG.parent / "build" / "host_jpeg"
+from tumblr_emotions_torch.utils import host_lib
+
+SOURCE = host_lib.PKG / "csrc" / "jpeg_decode.cc"
+BUILD_DIR = host_lib.BUILD_ROOT / "host_jpeg"
 FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 _ERRLEN = 256
+_compiler = host_lib.compiler
 
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -52,35 +50,10 @@ _SIGNATURES = {
 }
 
 
-def _compiler() -> str:
-    cxx = shutil.which("c++") or shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("no host C++ compiler (c++ or g++ on PATH) to build the "
-                           "JPEG decoder")
-    return cxx
-
-
-def _target() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join(FLAGS).encode())
-    return BUILD_DIR / f"libjpeg_decode_{digest.hexdigest()[:16]}.so"
-
-
 def build() -> Path:
     """Compile ``csrc/jpeg_decode.cc`` unless its library exists; return
     the library's path.  Raises ``RuntimeError`` if the compiler fails."""
-    lib = _target()
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        r = subprocess.run([_compiler(), *FLAGS, "-o", str(tmp), str(SOURCE)],
-                           capture_output=True, text=True, timeout=300)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"building {SOURCE.name} failed ({r.returncode}):\n"
-                               f"{r.stdout}{r.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    return host_lib.build(SOURCE, BUILD_DIR, "libjpeg_decode", FLAGS, _compiler())
 
 
 @functools.lru_cache(maxsize=None)

@@ -55,10 +55,12 @@ EMBEDDINGS = "WordEmbedding/embeddings"
 def take_fill(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)`` in mode ``"fill"``: rows of
     ``table`` for ids in ``[-V, V)`` (negative ids wrap), NaN rows for any
-    other id."""
+    other id.  The rows are gathered by ``F.embedding``, whose gradient is
+    summed in a fixed order (that of ``table[ids]`` on the CPU is not, so
+    two runs of one step would differ in the last bits)."""
     V = table.shape[0]
     ids = ids.long()
-    rows = table[torch.where(ids < 0, ids + V, ids).clamp(0, V - 1)]
+    rows = F.embedding(torch.where(ids < 0, ids + V, ids).clamp(0, V - 1), table)
     valid = ((ids >= -V) & (ids < V)).unsqueeze(-1)
     return torch.where(valid, rows, torch.full((), float("nan"), dtype=table.dtype,
                                                device=table.device))

@@ -22,31 +22,50 @@ reference donates its state).  Parameters outside ``trainable_scopes`` do
 not require gradients and are never updated; the tower still runs in train
 mode, so its BN statistics move (as the reference's frozen tower does).
 
+Each step's randomness (the train distortions and dropout) is drawn from a
+generator seeded by ``(cfg.train.seed, step)`` at that step, as the
+reference draws from ``fold_in(rng, state.step)``: a run stopped at step k
+and resumed from its checkpoint computes what a run that never stopped
+computes.
+
+Checkpoints: ``checkpoint_manager`` keeps one tensor bundle per step under
+``cfg.train.checkpoint_dir`` (``utils/checkpoint.py``: the parameters, BN
+statistics and optimizer state under the JAX tree's names, and the step),
+``fit`` saves every ``checkpoint_every`` steps and at the end, with the
+input iterator's position beside each (``input_iterator_<step>.json``), and
+``restore_latest`` / ``restore_input_iterator`` resume at the exact record;
+``evaluate_continuously`` scores each new checkpoint as it appears.
+
 Parity mode (f32) only: the whole step, forward, backward and update, runs
 with TF32 off (``_device.full_f32``), as the reference runs
 ``precision="highest"``.  Left for later slices: bf16 (``perf``) training,
-data parallel, orbax checkpoints and resume, the profiler hook and the
-TensorBoard writer (``fit`` logs its scalars, which is what the reference
-does when ``clu`` is missing).
+data parallel, the profiler hook and the TensorBoard writer (``fit`` logs
+its scalars, which is what the reference does when ``clu`` is missing).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import logging
+import os
+import re
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from tumblr_emotions_torch import convert
 from tumblr_emotions_torch._device import full_f32, resolve_device
 from tumblr_emotions_torch.config import Config
+from tumblr_emotions_torch.data import pipeline
 from tumblr_emotions_torch.data import preprocessing as pp
 from tumblr_emotions_torch.models import build_model
 from tumblr_emotions_torch.train.optim import Optimizer, learning_rate
+from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
 from tumblr_emotions_torch.utils import metrics as metrics_lib
 
 log = logging.getLogger("tumblr_emotions_torch")
@@ -64,6 +83,11 @@ class TrainState:
     step: int
     state: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of step ``step``'s draws (the reference's ``fold_in(rng, step)``)."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
 
 
 def parse_scopes(trainable_scopes: str) -> Tuple[str, ...]:
@@ -142,6 +166,8 @@ class Trainer:
         self.model = build_model(cfg, device="meta")
         self.param_keys = [k for k, _ in self.model.named_parameters()]
         self.state_keys = list(self.model.state_dict())
+        self._ckpt_mgr: Optional[ckpt_lib.CheckpointManager] = None
+        self.last_save: Optional[Dict[str, float]] = None
 
     # -- initialization ----------------------------------------------------
 
@@ -284,20 +310,26 @@ class Trainer:
 
     def fit(self, state: TrainState, batches: Iterable[Dict[str, Any]],
             num_steps: Optional[int] = None,
-            eval_batches: Optional[Callable[[], Iterable]] = None) -> TrainState:
+            eval_batches: Optional[Callable[[], Iterable]] = None,
+            input_iterator=None) -> TrainState:
         """Train for ``num_steps`` (default ``cfg.train.num_steps``) or until
         ``batches`` ends, logging loss, accuracy, examples/s and the
         learning rate every ``log_every`` steps (the only reads of the
-        card's results); then evaluate ``eval_batches()`` if given.  The
-        draws come from a generator on the device seeded by
-        ``(cfg.train.seed, state.step)``."""
+        card's results).  Step ``s`` draws from a generator on the device
+        seeded by ``step_seed(cfg.train.seed, s)``.
+
+        With a checkpoint manager (``checkpoint_manager()``), the state is
+        saved every ``checkpoint_every`` steps and at the end, and
+        ``eval_batches()`` (a fresh pass over the eval split) is evaluated
+        at each save and at the end.  ``input_iterator`` (a resumable
+        iterator underneath ``batches``) has its position saved beside each
+        checkpoint, so a restart resumes at the exact record."""
         t = self.cfg.train
         if t.profile_start_step > 0:
             raise NotImplementedError("profile_start_step > 0: the profiler hook is "
                                       + LATER.format("tooling"))
         num_steps = t.num_steps if num_steps is None else num_steps
-        seed = np.random.SeedSequence([t.seed, state.step]).generate_state(1, np.uint64)[0]
-        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        gen = torch.Generator(device=self.device)
         it = iter(batches)
         step = last_step = state.step
         last_t = time.perf_counter()
@@ -307,6 +339,7 @@ class Trainer:
             except StopIteration:
                 log.info("input exhausted at step %d", step)
                 break
+            gen.manual_seed(step_seed(t.seed, step))
             state, m = self.train_step(state, batch, gen)
             step += 1
             if step % t.log_every == 0:
@@ -316,12 +349,23 @@ class Trainer:
                 log.info("step %d loss %.4f acc %.3f (%.1f ex/s, lr %.3g)", step, loss, acc,
                          ips, learning_rate(t, step))
                 last_t, last_step = now, step
+            if self._ckpt_mgr is not None and step % t.checkpoint_every == 0:
+                self.save_checkpoint(state, input_iterator=input_iterator)
+                if eval_batches is not None:
+                    self._eval_and_log(state, eval_batches, step)
+        if self._ckpt_mgr is not None:
+            self.save_checkpoint(state, input_iterator=input_iterator)
         if eval_batches is not None:
-            summary = self.evaluate(state, eval_batches())
-            log.info("eval @ step %d: accuracy %.4f loss %.4f (n=%d)", step,
-                     summary.get("accuracy", 0.0), summary.get("loss", 0.0),
-                     summary.get("count", 0))
+            self._eval_and_log(state, eval_batches, step)
         return state
+
+    def _eval_and_log(self, state: TrainState, eval_batches: Callable[[], Iterable],
+                      step: int) -> Dict:
+        summary = self.evaluate(state, eval_batches())
+        log.info("eval @ step %d: accuracy %.4f loss %.4f (n=%d)", step,
+                 summary.get("accuracy", 0.0), summary.get("loss", 0.0),
+                 summary.get("count", 0))
+        return summary
 
     def evaluate(self, state: TrainState, batches: Iterable[Dict[str, Any]],
                  class_names=None) -> Dict:
@@ -345,7 +389,155 @@ class Trainer:
         summary["loss"] = float(loss_sum) / count
         return summary
 
+    def evaluate_continuously(self, state: TrainState, batches_fn: Callable[[], Iterable],
+                              class_names=None, interval_secs: float = 30.0,
+                              max_step: Optional[int] = None,
+                              timeout_secs: Optional[float] = None,
+                              _sleep=time.sleep) -> Iterator[Tuple[int, Dict]]:
+        """slim ``evaluation_loop`` semantics: poll the checkpoint dir,
+        evaluate every new checkpoint as it appears, and stop once the
+        evaluated step reaches ``max_step`` (default
+        ``cfg.train.num_steps``) or no new checkpoint arrives within
+        ``timeout_secs`` (wall clock).  ``batches_fn()`` gives a fresh pass
+        over the eval split per evaluation.  Yields ``(step, summary)``."""
+        mgr = self.checkpoint_manager()
+        stop_step = max_step if max_step is not None else self.cfg.train.num_steps
+        last_evaluated = -1
+        deadline = time.monotonic() + timeout_secs if timeout_secs is not None else None
+        while True:
+            step = mgr.latest_step()
+            restored = None
+            if step is not None and step > last_evaluated:
+                try:
+                    restored = self.restore_latest(state)
+                except (OSError, ValueError) as e:  # vanished or unreadable meanwhile
+                    log.warning("checkpoint %d not restorable: %s", step, e)
+            if restored is None:
+                # No new checkpoint, or it vanished or is unreadable: honour
+                # the deadline (not reset: a corrupt latest checkpoint must
+                # still time out) and back off.
+                if deadline is not None and time.monotonic() >= deadline:
+                    log.info("eval loop: no new checkpoint after %.0fs, stopping",
+                             timeout_secs)
+                    return
+                _sleep(interval_secs)
+                continue
+            if timeout_secs is not None:
+                deadline = time.monotonic() + timeout_secs
+            summary = self.evaluate(restored, batches_fn(), class_names=class_names)
+            last_evaluated = restored.step
+            log.info("eval @ step %d: accuracy %.4f loss %.4f", last_evaluated,
+                     summary.get("accuracy", 0.0), summary.get("loss", 0.0))
+            yield last_evaluated, summary
+            if last_evaluated >= stop_step:
+                log.info("eval loop: reached final step %d", last_evaluated)
+                return
+
     # -- checkpoints ---------------------------------------------------------
 
-    def checkpoint_manager(self, directory: Optional[str] = None):
-        raise NotImplementedError("orbax checkpoints are " + LATER.format("checkpoint"))
+    def checkpoint_manager(self, directory: Optional[str] = None) -> ckpt_lib.CheckpointManager:
+        if self._ckpt_mgr is None:
+            self._ckpt_mgr = ckpt_lib.CheckpointManager(
+                directory or self.cfg.train.checkpoint_dir, self.cfg.train.keep_checkpoints)
+        return self._ckpt_mgr
+
+    def _optax_template(self, state: TrainState):
+        return ckpt_lib.optax_template(self.cfg.train, self.param_keys,
+                                       self.trainable_keys(state))
+
+    def state_tensors(self, state: TrainState) -> Dict[str, np.ndarray]:
+        """The TrainState as named host arrays under the JAX tree's names:
+        ``params/<scope>/...`` and ``batch_stats/...`` in the JAX layouts,
+        ``opt_state/...`` as the optax tree's leaves, ``step`` (int32)."""
+        out = {"step": np.asarray(state.step, np.int32)}
+        for k, t in state.state.items():
+            col = "batch_stats" if ckpt_lib.is_stat(k) else "params"
+            out[f"{col}/{k.replace('.', '/')}"] = convert.to_jax_leaf(k, t)
+        tree = convert.opt_state_to_optax(state.opt_state, self._optax_template(state))
+        out.update({"opt_state/" + name: np.asarray(v)
+                    for name, v in ckpt_lib.flatten_tree(tree)})
+        return out
+
+    def save_checkpoint(self, state: TrainState, input_iterator=None) -> None:
+        """Save ``state`` as its step's checkpoint (once per step), after
+        the input position: a crash between the two writes leaves at worst
+        an orphan position file (pruned later), never a checkpoint beside a
+        stale position.  ``last_save`` keeps the data ``bytes``, the
+        ``seconds`` of the whole save (the copy to the host included) and
+        the bundle's ``write_seconds``."""
+        mgr = self.checkpoint_manager()
+        if input_iterator is not None and hasattr(input_iterator, "get_state"):
+            pipeline.save_iterator_state(input_iterator, self._input_state_path(state.step))
+        if state.step not in mgr.all_steps():
+            t0 = time.perf_counter()
+            saved = mgr.save(state.step, self.state_tensors(state))
+            self.last_save = {"bytes": saved["bytes"], "write_seconds": saved["seconds"],
+                              "seconds": time.perf_counter() - t0}
+            log.info("checkpoint @ step %d: %d bytes in %.3f s (written in %.3f s)",
+                     state.step, saved["bytes"], self.last_save["seconds"], saved["seconds"])
+        self._prune_input_states()
+
+    def _input_state_path(self, step: int) -> str:
+        """The input-position file of ``step``."""
+        return os.path.join(self.checkpoint_manager().directory,
+                            f"input_iterator_{int(step)}.json")
+
+    def _prune_input_states(self) -> None:
+        """Drop position files whose step the manager no longer keeps."""
+        mgr = self.checkpoint_manager()
+        keep = set(mgr.all_steps())
+        pat = re.compile(r"input_iterator_(\d+)\.json$")
+        for p in glob.glob(os.path.join(mgr.directory, "input_iterator_*.json")):
+            m = pat.search(p)
+            if m and int(m.group(1)) not in keep:
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
+    def restore_input_iterator(self, iterator, step: Optional[int] = None) -> bool:
+        """Restore the input position saved with the checkpoint at ``step``
+        (default: the latest).  False when there is none or the iterator is
+        not resumable (e.g. a plain generator)."""
+        if iterator is None or not hasattr(iterator, "set_state"):
+            return False
+        if step is None:
+            step = self.checkpoint_manager().latest_step()
+        return step is not None and pipeline.restore_iterator_state(
+            iterator, self._input_state_path(step))
+
+    def restore_latest(self, state: TrainState) -> Optional[TrainState]:
+        """Resume: the latest checkpoint in the shape of ``state`` (a
+        TrainState of this trainer, e.g. a fresh ``init_state``) on the
+        trainer's device, or None when there is no checkpoint.  An
+        unreadable checkpoint raises (OSError or ValueError)."""
+        step = self.checkpoint_manager().latest_step()
+        return None if step is None else self.restore(state, step)
+
+    def restore(self, state: TrainState, step: int) -> TrainState:
+        """The checkpoint of ``step`` in the shape of ``state``; raises when
+        it is gone or unreadable."""
+        reader = self.checkpoint_manager().reader(step)
+
+        def read(name: str, like: np.ndarray) -> np.ndarray:
+            arr = reader.get_tensor(name)
+            if arr.shape != like.shape:
+                raise ValueError(f"checkpoint {name}: shape {arr.shape} != {like.shape}")
+            return arr
+
+        st = {}
+        for k, t in state.state.items():
+            col = "batch_stats" if ckpt_lib.is_stat(k) else "params"
+            arr = read(f"{col}/{k.replace('.', '/')}", convert.to_jax_leaf(k, t))
+            st[k] = convert.to_port_leaf(tuple(k.split(".")), arr).to(
+                self.device, t.dtype).requires_grad_(t.requires_grad)
+        like = dict(ckpt_lib.flatten_tree(
+            convert.opt_state_to_optax(state.opt_state, self._optax_template(state))))
+        tree = ckpt_lib.fill_tree(self._optax_template(state),
+                                  lambda n: read("opt_state/" + n, np.asarray(like[n])))
+        opt = convert.opt_state_from_optax(tree)
+        restored_step = int(reader.get_tensor("step"))
+        opt_state: Dict[str, Any] = {"count": opt.get("count", restored_step)}
+        for m in self.optimizer.moments:
+            opt_state[m] = {k: v.to(self.device) for k, v in opt[m].items()}
+        return TrainState(step=restored_step, state=st, opt_state=opt_state)
