@@ -223,6 +223,34 @@ TRAIN_NOISE_FACTOR = 3.0
 TRAIN_NOISE_EPS = 1e-6
 TRAIN_NOISE_SEEDS = (1, 2, 3)
 TEXT_UPDATE_TOL = 1e-3
+# Phase 17, train_perf: the data_parallel preset (bf16 on f32 masters) at
+# full width, PERF_BATCH rows per process (the preset's 1024 over the
+# reference's 8-device mesh), PERF_STEPS steps of fit beside a world-size-1
+# NCCL group (one process runs the plain step), the profiler hook over
+# steps PERF_PROFILE (start, count); a batch-4 perf step on the card held to
+# the CPU's within TRAIN_NOISE_FACTOR of the CPU's own floor (bf16 rounding
+# flips where the f32 sums differ, and train-mode batch norm over 4 images
+# amplifies them).
+PERF_BATCH = 128
+PERF_STEPS = 8
+PERF_PROFILE = (6, 2)
+PERF_CPU_BATCH = 4
+# the distorted images, f32 in [-1, 1]: two f32 programs of the same
+# distortions (tests/test_torch_train_preprocessing.py's JIT_TOL)
+PERF_IMAGE_ATOL = 1e-4
+# 8 f32 roundings of the larger of a parameter before and after its update
+PERF_UPDATE_RTOL = 2.0 ** -20
+# Phase 18, train_dp: two processes on the one card (gloo), the joint model
+# at DP_DEPTH, global batch DP_BATCH, DP_FIRST steps + checkpoint + restart
+# + the rest of DP_STEPS, against one process; DP_LR keeps the steps near
+# the initial weights, so gradients are compared, not chaotic trajectories.
+DP_DEPTH = 0.25
+DP_VOCAB = 1000
+DP_BATCH = 16
+DP_SRC = 347
+DP_LR = 1e-6
+DP_FIRST, DP_STEPS = 3, 5
+DP_TIMEOUT_S = 600
 # Phase 16, cli: the CLI from records on disk at full width.
 CLI_POSTS = 400
 CLI_SHARDS = 4
@@ -1036,11 +1064,9 @@ def train_phases(dev, smi):
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from tumblr_emotions_torch import get_preset
     from tumblr_emotions_torch.data import preprocessing as pp
-    from tumblr_emotions_torch.data.vocab import synthetic_ids
     from tumblr_emotions_torch.models import build_model, inception_v3, joint_model, text_model
     from tumblr_emotions_torch.ops.serving import build_forward
     from tumblr_emotions_torch.train.optim import Optimizer
@@ -1050,18 +1076,7 @@ def train_phases(dev, smi):
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
 
     def make_batch(n, vocab, weight=None):
-        """A seeded uint8 [n,347,347,3] batch made on the card (low-frequency
-        colour patterns plus noise), [n,50] ids with lengths 0-50, labels."""
-        lo = torch.rand((n, 3, 8, 8), generator=gen, device=dev) * 255
-        im = F.interpolate(lo, size=(SRC_HW, SRC_HW), mode="bilinear", align_corners=False)
-        im = im + torch.randn(im.shape, generator=gen, device=dev) * 20
-        tokens = torch.from_numpy(synthetic_ids(rng, n, TEXT_T, vocab)).to(dev)
-        b = {"image": im.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous(),
-             "tokens": tokens, "lengths": (tokens != 0).sum(-1).int(),
-             "label": torch.randint(0, 15, (n,), generator=gen, device=dev)}
-        if weight is not None:
-            b["weight"] = torch.tensor(weight, dtype=torch.int32, device=dev)
-        return b
+        return train_batch(gen, rng, dev, n, vocab, weight)
 
     def snapshot(ts):
         return {k: v.detach().clone() for k, v in ts.state.items()}
@@ -1082,23 +1097,7 @@ def train_phases(dev, smi):
         tr.train_step = recorded
         return losses
 
-    def distance(a, a0, b, b0, keys):
-        """||(a - a0) - (b - b0)|| / ||b - b0|| over ``keys`` (dicts of CPU
-        tensors): how far update a is from update b."""
-        def d(x, x0, k):
-            return x[k].double() - x0[k].double()
-
-        num = sum(float(((d(a, a0, k) - d(b, b0, k)) ** 2).sum()) for k in keys)
-        den = sum(float((d(b, b0, k) ** 2).sum()) for k in keys)
-        return (num / max(den, 1e-300)) ** 0.5
-
-    def one_step(cfg, state, batch, draws, where):
-        """One train step from ``state`` on ``where``: (loss, state on the CPU)."""
-        tr = Trainer(cfg, preprocess="train" if cfg.model != "text" else None, device=where)
-        ts = tr.init_state(state)
-        ts, m = tr.train_step(ts, {k: v.to(where) for k, v in batch.items()},
-                              draws=None if draws is None else draws.to(where))
-        return float(m["loss"]), {k: v.detach().cpu() for k, v in ts.state.items()}
+    distance, one_step = update_distance, train_one_step
 
     # ---- 13. train_joint: joint_finetune at full width ----
     cfg = get_preset("joint_finetune")
@@ -1346,6 +1345,526 @@ def train_phases(dev, smi):
           "held_step_worst_leaf_vs_update": worst, "update_tol": TEXT_UPDATE_TOL,
           "fit_s": tfit_s, "card": smi})
     return {"train_joint_int8": int8_launches}, held
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_perf_phase(dev, smi):
+    """Phase 17, train_perf: this slice's main path, the data_parallel
+    preset trained in perf mode (bf16 on f32 masters) at full width in a
+    world-size-1 NCCL group, with the event writer and the profiler hook.
+    One process has no group in the trainer (``create_mesh``), so ``fit``
+    runs the plain step, as the reference runs plain jit on one device;
+    then 3 steps of the collective path (a mesh given the NCCL group) time
+    what the collectives cost.  Then a batch-4 perf step on the card against
+    the CPU's, and the bf16 model's eval-mode gradients.  Returns the served
+    kernels' launches in fit (0)."""
+    import dataclasses
+    import glob
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data import preprocessing as pp
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops import int8_conv as ic
+    from tumblr_emotions_torch.parallel import distributed
+    from tumblr_emotions_torch.parallel import mesh as mesh_lib
+    from tumblr_emotions_torch.train import noise_floor
+    from tumblr_emotions_torch.train.trainer import Trainer
+    from tumblr_emotions_torch.utils import summaries
+
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "train_perf"))
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = get_preset("data_parallel")
+    preset_batch = cfg.train.batch_size
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DEPTH),
+                      train=cfg.train.replace(batch_size=PERF_BATCH, log_every=1, log_dir=work,
+                                              profile_start_step=PERF_PROFILE[0],
+                                              profile_num_steps=PERF_PROFILE[1]))
+    t = cfg.train
+    vocab = cfg.text.vocab_size
+    rng = np.random.RandomState(SEED + 5)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    state0 = joint_model.init_state(build_model(cfg, device="meta"), SEED)
+    batches = [train_batch(gen, rng, dev, PERF_BATCH, vocab) for _ in range(PERF_STEPS)]
+
+    distributed.init_group(f"127.0.0.1:{free_port()}", 1, 0, device=dev, backend="nccl")
+    try:
+        tr = Trainer(cfg, preprocess="train", device=dev)
+        if tr.group is not None or torch.distributed.get_backend() != "nccl":
+            fail("train_perf: one process must run the plain step beside an NCCL group")
+        if tr.model.dtype != torch.bfloat16:
+            fail("train_perf: the perf model is not bf16")
+        ts = tr.init_state(state0)
+        starts, losses = [], []
+        step_fn = tr.train_step
+
+        def recorded(*a, **k):
+            starts.append(time.perf_counter())
+            state, m = step_fn(*a, **k)
+            losses.append(m["loss"])
+            return state, m
+
+        tr.train_step = recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        ts = tr.fit(ts, batches, num_steps=PERF_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = all_launches()
+        launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
+        peak = torch.cuda.max_memory_allocated()
+        tr.train_step = step_fn
+        step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:] + [t0 + fit_s])]
+        losses = [float(x) for x in losses]
+        if any(launches.values()):
+            fail(f"train_perf: kernels of the served path launched in training: {launches}")
+        if len(losses) != PERF_STEPS or not all(np.isfinite(losses)):
+            fail(f"train_perf: losses {losses}")
+        if ts.step != PERF_STEPS or ts.opt_state["count"] != PERF_STEPS:
+            fail(f"train_perf: step {ts.step}, optimizer count {ts.opt_state['count']}")
+        trained = {k: v.detach().cpu() for k, v in ts.state.items()}
+        head = "InceptionV3.Logits/Conv2d_1c_1x1."
+        unmoved = [k for k in tr.param_keys
+                   if torch.equal(trained[k], state0[k]) and not k.startswith(head)]
+        stats = [k for k in state0 if k.endswith(("moving_mean", "moving_variance"))]
+        still = [k for k in stats if torch.equal(trained[k], state0[k])]
+        if unmoved or still:
+            fail(f"train_perf: unmoved leaves {unmoved[:3]}, statistics {still[:3]}")
+        # the stages of a step, CUDA events over 3 more steps
+        ev_t = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        split = {"preprocess": 0.0, "forward_backward": 0.0, "update": 0.0}
+        for b in batches[:3]:
+            ev_t[0].record()
+            inputs = tr.train_inputs(b, gen)
+            ev_t[1].record()
+            _, _, grads = tr.loss_and_grads(ts, inputs, gen)
+            ev_t[2].record()
+            tr.apply_gradients(ts, grads)
+            ev_t[3].record()
+            ev_t[3].synchronize()
+            for i, name in enumerate(split):
+                split[name] += ev_t[i].elapsed_time(ev_t[i + 1]) / 3
+        del grads, inputs
+        # the collective path on the NCCL group (world size 1: every
+        # all-reduce returns its input) against the plain step from the
+        # trained state: one step to warm up, then 3 timed on the host clock
+        collective = {}
+        nccl = mesh_lib.Mesh(1, 0, torch.distributed.group.WORLD)
+        for name, mesh in (("plain", None), ("collective", nccl)):
+            trm = Trainer(cfg.replace(train=t.replace(log_dir="", profile_start_step=0)),
+                          preprocess="train", device=dev, mesh=mesh)
+            tsm = trm.init_state({k: v.detach() for k, v in ts.state.items()})
+            tsm, _ = trm.train_step(tsm, batches[3], gen)
+            cl = []
+            torch.cuda.synchronize()
+            c0 = time.perf_counter()
+            for b in batches[:3]:
+                tsm, m = trm.train_step(tsm, b, gen)
+                cl.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            collective[name] = {"ms_per_step": 1e3 * (time.perf_counter() - c0) / 3,
+                                "losses": cl}
+            del trm, tsm
+        if (torch.distributed.get_backend(nccl.group) != "nccl"
+                or not all(np.isfinite(collective["collective"]["losses"]))):
+            fail(f"train_perf: the collective path on NCCL: {collective}")
+        collective["overhead_ms_per_step"] = (collective["collective"]["ms_per_step"]
+                                              - collective["plain"]["ms_per_step"])
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # the profiler hook's trace: the card's kernels, steps 6 and 7 only
+    trace = json.load(open(tr.last_trace))["traceEvents"]
+    kernel_events = [e for e in trace if e.get("cat") == "kernel"]
+    kernels = len(kernel_events)
+    # where the device time goes: kernel time per step by kernel name
+    per_name = {}
+    for e in kernel_events:
+        per_name[e["name"]] = per_name.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    busy_ms = sum(per_name.values()) / PERF_PROFILE[1]
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:12]
+    ranges = sorted({e["name"] for e in trace if str(e.get("name", "")).startswith("train_step ")})
+    want_ranges = [f"train_step {s}" for s in range(PERF_PROFILE[0], sum(PERF_PROFILE))]
+    if kernels == 0 or ranges != want_ranges:
+        fail(f"train_perf: trace {tr.last_trace}: {kernels} kernel events, ranges {ranges}")
+    # the event file reads back what fit wrote
+    (events,) = glob.glob(os.path.join(work, "events.out.tfevents.*"))
+    scalars = summaries.read_scalars(events)
+    want_loss = [(i + 1, float(np.float32(v))) for i, v in enumerate(losses)]
+    if scalars.get("train/loss") != want_loss or sorted(scalars) != sorted(
+            ["train/loss", "train/accuracy", "train/examples_per_sec", "train/learning_rate"]):
+        fail(f"train_perf: the event file holds {sorted(scalars)}, loss "
+             f"{scalars.get('train/loss')} != {want_loss}")
+
+    # one batch-4 perf step on the card against the CPU's (dropout off, the
+    # same distortion draws), in three parts.  The distorted images within
+    # PERF_IMAGE_ATOL of the CPU's (they still flip some bf16 roundings of
+    # the input, which the model amplifies: tumblr_emotions_torch/
+    # perf_noise.py).  The model on the CPU's images: the loss, the batch
+    # statistics and the gradients within TRAIN_NOISE_FACTOR of the CPU's
+    # own floor (its step under float64 accumulation, and from weights moved
+    # by TRAIN_NOISE_EPS and brightness nudged as much), the gradients as a
+    # whole and each leaf whose floor is under SIGNAL_FLOOR, a check that
+    # refuses no gradient and a reversed one.  The update the card's
+    # optimizer makes from the CPU's gradients, within PERF_UPDATE_RTOL of
+    # each of the CPU's parameters.  Then the eval-mode gradients of the
+    # whole bf16 model (batch norm on its moving statistics, so rounding
+    # noise is not amplified), within TRAIN_NOISE_FACTOR of the CPU's
+    # float64 floor.
+    ccfg = cfg.replace(image=cfg.image.replace(dropout_keep_prob=1.0),
+                       train=t.replace(batch_size=PERF_CPU_BATCH, log_dir="",
+                                       profile_start_step=0))
+    b4 = {k: v[:PERF_CPU_BATCH] for k, v in batches[0].items()}
+    draws = pp.draw_train(torch.Generator().manual_seed(SEED), PERF_CPU_BATCH,
+                          (SRC_HW, SRC_HW))
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu, st_cpu, tr_p, ts_p, images = perf_grads(ccfg, state0, b4, draws, "cpu")
+    loss_own, _, _, _, _, own_images = perf_grads(ccfg, state0, b4, draws, dev)
+    loss_card, g_card, st_card, tr_c, ts_c, _ = perf_grads(ccfg, state0, b4, draws, dev, images)
+    with noise_floor.float64_accumulation():
+        floors = [perf_grads(ccfg, state0, b4, draws, "cpu")[:3]]
+    for seed in TRAIN_NOISE_SEEDS:
+        g = torch.Generator().manual_seed(seed)
+        moved = {k: v * (1 + TRAIN_NOISE_EPS * torch.randn(v.shape, generator=g))
+                 for k, v in state0.items()}
+        nudged = dataclasses.replace(draws, delta=draws.delta + TRAIN_NOISE_EPS * torch.randn(
+            PERF_CPU_BATCH, generator=g))
+        floors.append(perf_grads(ccfg, moved, b4, nudged, "cpu")[:3])
+    gkeys = [k for k in g_cpu if bool(g_cpu[k].any())]
+    grads_held = noise_floor.hold(g_card, g_cpu, g_cpu, [f[1] for f in floors], None, gkeys,
+                                  TRAIN_NOISE_FACTOR, 2.0 ** -7, 2.0 ** -6)
+    held = {"image_max_abs_diff": float((own_images - images).abs().max()),
+            "loss_rel_diff_own_images": abs(loss_own - loss_cpu) / abs(loss_cpu),
+            "loss_rel_diff": abs(loss_card - loss_cpu) / abs(loss_cpu),
+            "loss_noise_floors": [abs(f[0] - loss_cpu) / abs(loss_cpu) for f in floors],
+            "stats_to_cpu": noise_floor.distance(st_card, state0, st_cpu, state0, stats),
+            "stats_noise_floors": [noise_floor.distance(f[2], state0, st_cpu, state0, stats)
+                                   for f in floors],
+            "grads_to_cpu": grads_held["to_ref"], "grads_noise_floor": grads_held["floor"],
+            "grads_signal_leaves": grads_held["signal_leaves"],
+            "grads_refuse_none_and_reversed": [grads_held["refuses_noop"],
+                                               grads_held["refuses_flip"]]}
+    if held["image_max_abs_diff"] > PERF_IMAGE_ATOL:
+        fail(f"train_perf: the card's distorted images {held['image_max_abs_diff']} from the "
+             f"CPU's")
+    for what in ("loss", "stats"):
+        got, floor = held[what + ("_rel_diff" if what == "loss" else "_to_cpu")], float(
+            np.mean(held[what + "_noise_floors"]))
+        if got > TRAIN_NOISE_FACTOR * floor + 1e-5:
+            fail(f"train_perf: {what} of a batch-4 perf step {got} from the CPU's, above "
+                 f"{TRAIN_NOISE_FACTOR} x its floor {floor}")
+    if not (grads_held["ok"] and grads_held["refuses_noop"] and grads_held["refuses_flip"]):
+        fail(f"train_perf: gradients of a batch-4 perf step {grads_held['to_ref']} from the "
+             f"CPU's (limit {grads_held['limit']}), leaves {grads_held['failed_leaves']}, "
+             f"refusing no gradient {grads_held['refuses_noop']} and a reversed one "
+             f"{grads_held['refuses_flip']}")
+    tr_c.apply_gradients(ts_c, {k: v.to(dev) for k, v in g_cpu.items()})
+    tr_p.apply_gradients(ts_p, g_cpu)
+    after_c = {k: ts_c.state[k].detach().cpu() for k in gkeys}
+    after_p = {k: ts_p.state[k].detach() for k in gkeys}
+    held["update_from_cpu_grads"] = noise_floor.distance(after_c, state0, after_p, state0,
+                                                         gkeys)
+    held["update_max_rel_diff"], held["update_worst_leaf"] = max((float((
+        (after_c[k] - after_p[k]).abs()
+        / torch.maximum(state0[k].abs(), after_p[k].abs()).clamp_min(1e-30)).max()), k)
+        for k in gkeys)
+    if held["update_max_rel_diff"] > PERF_UPDATE_RTOL:
+        fail(f"train_perf: the card's update from the CPU's gradients is "
+             f"{held['update_max_rel_diff']} of a parameter from the CPU's "
+             f"({held['update_worst_leaf']})")
+    del tr_c, ts_c, tr_p, ts_p
+    ecfg = ccfg.replace(train=ccfg.train.replace(trainable_scopes=""))
+    e_card, e_cpu = eval_mode_grads(ecfg, state0, b4, dev), eval_mode_grads(ecfg, state0, b4,
+                                                                          "cpu")
+    with noise_floor.float64_accumulation():
+        e_f64 = eval_mode_grads(ecfg, state0, b4, "cpu")
+    eval_held = noise_floor.hold(e_card, e_cpu, e_cpu, [e_f64], None, list(e_cpu),
+                                 TRAIN_NOISE_FACTOR, 2.0 ** -7, 2.0 ** -6)
+    held["eval_mode_grads"] = {k: eval_held[k] for k in ("to_ref", "floor", "limit")}
+    if not eval_held["ok"] or eval_held["limit"] >= 0.5:
+        fail(f"train_perf: eval-mode gradients {eval_held['to_ref']} from the CPU's, limit "
+             f"{eval_held['limit']}, leaves {eval_held['failed_leaves']}")
+    cpu_s = time.perf_counter() - t0
+
+    traced = range(PERF_PROFILE[0], sum(PERF_PROFILE))
+    untraced = [ms for s, ms in enumerate(step_ms, 1) if s > 1 and s not in traced]
+    steady = float(np.median(untraced))
+    bound_ms = 3 * 2 * tower_macs(cfg) * PERF_BATCH / H100_BF16_FLOPS * 1e3
+    emit({"phase": "train_perf", "config": "data_parallel", "precision_mode": "perf",
+          "depth": DEPTH, "image_size": cfg.image.image_size, "vocab": vocab,
+          "embed": cfg.text.embed_dim, "optimizer": t.optimizer, "lr": t.learning_rate,
+          "batch_per_process": PERF_BATCH, "processes": 1, "backend": "nccl",
+          "reduced": {"batch": f"{PERF_BATCH} per process: the preset's {preset_batch} over "
+                               "the reference's 8-device mesh, on one card",
+                      "steps": f"{PERF_STEPS} of {t.num_steps}"},
+          "steps": PERF_STEPS, "losses": losses, "fit_s": fit_s,
+          "ms_per_step_each": step_ms, "ms_per_step_steady": steady,
+          "ms_per_step_steady_mean": float(np.mean(untraced)),
+          "examples_per_s_steady": 1e3 * PERF_BATCH / steady,
+          "ms_per_step_split": split, "ms_per_step_split_sum": sum(split.values()),
+          "timing": "each: host clock per step of fit (it reads every loss); steady: the "
+                    "median (and mean) of steps 2-8 but the profiler's (6-7), one step of "
+                    "seconds seen among them; split: CUDA events around the three stages of "
+                    "3 more steps; trace: device time of the profiled steps",
+          "peak_memory_gb": peak / 2 ** 30, "bound_ms_bf16": bound_ms,
+          "bound_note": "3 x 2 x the tower's multiply-adds x batch over the bf16 peak",
+          "launches_served_kernels": launches,
+          "trace": {"path": os.path.relpath(tr.last_trace), "kernel_events": kernels,
+                    "ranges": ranges, "kernels_per_step": kernels / PERF_PROFILE[1],
+                    "device_busy_ms_per_step": busy_ms,
+                    "top_kernels_ms_per_step": {n[:90]: ms / PERF_PROFILE[1] for n, ms in top}},
+          "event_file_tags": sorted(scalars),
+          "collective_path_world_1": collective,
+          "held_against_cpu": dict(held, batch=PERF_CPU_BATCH, noise_factor=TRAIN_NOISE_FACTOR,
+                                   noise_eps=TRAIN_NOISE_EPS, cpu_seconds=cpu_s),
+          "card": smi})
+    print(smi, flush=True)
+    return {"train_perf": launches}
+
+
+def train_batch(gen, rng, dev, n, vocab, weight=None):
+    """A seeded uint8 [n,347,347,3] batch made on the card (low-frequency
+    colour patterns plus noise), [n,50] ids with lengths 0-50, labels."""
+    import torch
+    import torch.nn.functional as F
+
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+
+    lo = torch.rand((n, 3, 8, 8), generator=gen, device=dev) * 255
+    im = F.interpolate(lo, size=(SRC_HW, SRC_HW), mode="bilinear", align_corners=False)
+    im = im + torch.randn(im.shape, generator=gen, device=dev) * 20
+    tokens = torch.from_numpy(synthetic_ids(rng, n, TEXT_T, vocab)).to(dev)
+    b = {"image": im.clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).contiguous(),
+         "tokens": tokens, "lengths": (tokens != 0).sum(-1).int(),
+         "label": torch.randint(0, 15, (n,), generator=gen, device=dev)}
+    if weight is not None:
+        b["weight"] = torch.tensor(weight, dtype=torch.int32, device=dev)
+    return b
+
+
+def train_one_step(cfg, state, batch, draws, where):
+    """One train step from ``state`` on ``where``: (loss, state on the CPU)."""
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, preprocess="train" if cfg.model != "text" else None, device=where)
+    ts = tr.init_state(state)
+    ts, m = tr.train_step(ts, {k: v.to(where) for k, v in batch.items()},
+                          draws=None if draws is None else draws.to(where))
+    return float(m["loss"]), {k: v.detach().cpu() for k, v in ts.state.items()}
+
+
+def update_distance(a, a0, b, b0, keys):
+    """||(a - a0) - (b - b0)|| / ||b - b0|| over ``keys`` (dicts of CPU
+    tensors): how far update a is from update b."""
+    from tumblr_emotions_torch.train.noise_floor import distance
+
+    return distance(a, a0, b, b0, keys)
+
+
+def perf_grads(cfg, state, batch, draws, where, images=None):
+    """A train step's loss, gradients and moved batch statistics on
+    ``where`` (CPU tensors), its trainer and state before the update, and
+    its distorted images (on the CPU); ``images``: distorted images to run
+    the model on instead."""
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, preprocess="train", device=where)
+    ts = tr.init_state(state)
+    inputs = tr.train_inputs({k: v.to(where) for k, v in batch.items()}, None,
+                             draws.to(where))
+    if images is not None:
+        inputs = dict(inputs, image=images.to(where))
+    loss, _, grads = tr.loss_and_grads(ts, inputs)
+    stats = {k: v.detach().cpu() for k, v in ts.state.items()
+             if k.endswith(("moving_mean", "moving_variance"))}
+    return (float(loss), {k: g.detach().cpu() for k, g in grads.items()}, stats, tr, ts,
+            inputs["image"].detach().cpu())
+
+
+def eval_mode_grads(cfg, state, batch, where):
+    """The gradients of the loss (cross-entropy and L2) of every parameter
+    the loss reaches, with the model in eval mode, on ``where`` (CPU
+    tensors)."""
+    import torch
+
+    from tumblr_emotions_torch.train.trainer import Trainer, cross_entropy, l2_regularization
+
+    tr = Trainer(cfg, preprocess="eval", device=where)
+    ts = tr.init_state(state)
+    keys = tr.trainable_keys(ts)
+    with torch.enable_grad():
+        tr.model.eval()
+        inputs = tr._maybe_preprocess(tr._to_device(batch), False, None, None)
+        logits, _ = torch.func.functional_call(tr.model, ts.state, tr._model_args(inputs))
+        loss = cross_entropy(logits, inputs["label"]) + l2_regularization(
+            ts.state, cfg.train.weight_decay)
+        gs = torch.autograd.grad(loss, [ts.state[k] for k in keys], allow_unused=True)
+    return {k: g.detach().cpu() for k, g in zip(keys, gs) if g is not None}
+
+
+def dp_setup():
+    """train_dp's configuration, initial state, global train batches and
+    eval shards (host arrays made from seeds)."""
+    import numpy as np
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, joint_model
+
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DP_DEPTH),
+                      text=cfg.text.replace(vocab_size=DP_VOCAB),
+                      train=cfg.train.replace(batch_size=DP_BATCH // 2, eval_batch_size=8,
+                                              learning_rate=DP_LR, log_every=1,
+                                              checkpoint_every=DP_FIRST))
+    state = joint_model.init_state(build_model(cfg, device="meta"), SEED)
+
+    def batch(seed, n):
+        rng = np.random.RandomState(seed)
+        tokens = synthetic_ids(rng, n, TEXT_T, DP_VOCAB)
+        return {"image": rng.randint(0, 256, (n, DP_SRC, DP_SRC, 3)).astype(np.uint8),
+                "tokens": tokens, "lengths": (tokens != 0).sum(-1).astype(np.int32),
+                "label": rng.randint(0, 15, n).astype(np.int32)}
+
+    train = [batch(100 + i, DP_BATCH) for i in range(DP_STEPS)]
+    evals = [batch(200 + i, 8) for i in range(5)]
+    shards = [evals[0::2], evals[1::2][:-1]]          # 3 and 1 batches: ragged
+    return cfg, state, train, shards
+
+
+def dp_child(rank: int, address: str, work: str) -> int:
+    """One of train_dp's two processes: both share the one card over gloo."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch.parallel import distributed
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    torch.set_grad_enabled(False)
+    dev = distributed.init_group(address, 2, rank, device="cuda")
+    try:
+        if torch.distributed.get_backend() != "gloo":
+            fail("train_dp: two processes on one card must run on gloo")
+        cfg, state0, train, shards = dp_setup()
+        cfg = cfg.replace(train=cfg.train.replace(checkpoint_dir=os.path.join(work, "ck")))
+        rows = slice(rank * DP_BATCH // 2, (rank + 1) * DP_BATCH // 2)
+        local = [{k: v[rows] for k, v in b.items()} for b in train]
+        tr = Trainer(cfg, preprocess="train", device=dev)
+        tr.checkpoint_manager()
+        tr.fit(tr.init_state(state0), local[:DP_FIRST], num_steps=DP_FIRST)
+        tr = Trainer(cfg, preprocess="train", device=dev)
+        tr.checkpoint_manager()
+        ts = tr.restore_latest(tr.init_state(state0))
+        if ts is None or ts.step != DP_FIRST:
+            fail(f"train_dp: process {rank} restored {None if ts is None else ts.step}")
+        ts = tr.fit(ts, local[DP_FIRST:], num_steps=DP_STEPS - DP_FIRST)
+        torch.save({k: v.detach().cpu() for k, v in ts.state.items()},
+                   os.path.join(work, f"final.{rank}.pt"))
+        tr.preprocess = "eval"
+        summary = tr.evaluate(ts, shards[rank])
+        with open(os.path.join(work, f"eval.{rank}.json"), "w") as f:
+            json.dump({k: np.asarray(v).tolist() for k, v in summary.items()}, f)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def train_dp_phase(dev, smi):
+    """Phase 18, train_dp: two processes share the one card over gloo and
+    train the joint model (depth DP_DEPTH, global batch DP_BATCH) for
+    DP_FIRST steps, checkpoint, restart and train on; their end state
+    against one process on the same global batches, and their lockstep
+    eval over ragged shards against the unsharded eval."""
+    import os
+    import shutil
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "train_dp"))
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    address = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, PYTHONPATH=os.path.abspath("."), OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-child", str(r),
+                               address, work], env=env) for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=DP_TIMEOUT_S)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    children_s = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        fail(f"train_dp: child processes exited {[p.returncode for p in procs]}")
+    finals = [torch.load(os.path.join(work, f"final.{r}.pt")) for r in range(2)]
+    if any(not torch.equal(finals[0][k], finals[1][k]) for k in finals[0]):
+        fail("train_dp: the two processes hold different states")
+    cfg, state0, train, shards = dp_setup()
+    cfg1 = cfg.replace(train=cfg.train.replace(batch_size=DP_BATCH))
+
+    def one_process(state):
+        tr = Trainer(cfg1, preprocess="train", device=dev)
+        ts = tr.fit(tr.init_state(state), train, num_steps=DP_STEPS)
+        return tr, {k: v.detach().cpu() for k, v in ts.state.items()}
+
+    tr, ref = one_process(state0)
+    floors = [(state0, one_process(state0)[1])]          # the card's own run to run
+    for seed in TRAIN_NOISE_SEEDS[:2]:
+        g = torch.Generator().manual_seed(seed)
+        moved = {k: v * (1 + TRAIN_NOISE_EPS * torch.randn(v.shape, generator=g))
+                 for k, v in state0.items()}
+        floors.append((moved, one_process(moved)[1]))
+    held = {}
+    for what, keys in (("params", [k for k in tr.param_keys
+                                   if not torch.equal(ref[k], state0[k])]),
+                       ("stats", [k for k in state0
+                                  if k.endswith(("moving_mean", "moving_variance"))])):
+        got = update_distance(finals[0], state0, ref, state0, keys)
+        fl = [update_distance(f, f0, ref, state0, keys) for f0, f in floors]
+        held[what] = {"to_one_process": got, "noise_floors": fl}
+        if got > TRAIN_NOISE_FACTOR * float(np.mean(fl)) + 1e-6:
+            fail(f"train_dp: {what} of two processes {got} from one process's, above "
+                 f"{TRAIN_NOISE_FACTOR} x the floor {np.mean(fl)}")
+    # lockstep eval over ragged shards against the unsharded eval
+    ev = Trainer(cfg, preprocess="eval", device=dev)
+    want = ev.evaluate(ev.init_state(finals[0]), shards[0] + shards[1])
+    for r in range(2):
+        got = json.load(open(os.path.join(work, f"eval.{r}.json")))
+        if (got["count"], got["accuracy"]) != (want["count"], want["accuracy"]) or \
+                not np.array_equal(got["confusion"], want["confusion"]) or \
+                abs(got["loss"] - want["loss"]) > 1e-5 * abs(want["loss"]):
+            fail(f"train_dp: process {r}'s sharded eval {got['count']}/{got['accuracy']}/"
+                 f"{got['loss']} != the unsharded {want['count']}/{want['accuracy']}/"
+                 f"{want['loss']}")
+    emit({"phase": "train_dp", "processes": 2, "backend": "gloo (two processes, one card)",
+          "config": "joint_finetune", "depth": DP_DEPTH, "global_batch": DP_BATCH,
+          "lr": DP_LR, "steps": f"{DP_FIRST} + checkpoint, restart + {DP_STEPS - DP_FIRST}",
+          "held_against_one_process": dict(held, noise_factor=TRAIN_NOISE_FACTOR,
+                                           noise_eps=TRAIN_NOISE_EPS),
+          "eval": {"count": want["count"], "accuracy": want["accuracy"],
+                   "loss": want["loss"], "shards": [len(s) for s in shards]},
+          "children_s": children_s, "card": smi})
 
 
 def cli_phase(dev, smi, held):
@@ -1747,6 +2266,8 @@ def all_launches() -> dict:
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-child":
+        return dp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -2026,7 +2547,12 @@ def main() -> int:
     # ---- 16. cli: the CLI from records on disk, the main path ----
     paths.update(cli_phase(dev, smi, held))
 
-    # ---- 17. the kernels line ----
+    # ---- 17-18. perf-mode training of the data_parallel preset (this
+    # slice's main path) and two processes on the card ----
+    paths.update(train_perf_phase(dev, smi))
+    train_dp_phase(dev, smi)
+
+    # ---- 19. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
     info = {  # name -> (source, replaces, launches in its path's run)
         "fused_inception_a": (src, f"{REPLACES}:230", launches),

@@ -266,8 +266,6 @@ def test_joint_infer_int8_serve_predict_and_export_on_the_cpu(joint_run):
     (["scrape", "--consumer-key", "k"], "6\\(i\\)"),
     (["infer", "--dp", "--device", "cpu"], "6\\(h\\)"),
     (["serve", "--dp", "--device", "cpu"], "6\\(h\\)"),
-    (["train", "--num-processes", "2", "--device", "cpu"], "6\\(h\\)"),
-    (["train", "--coordinator-address", "localhost:1234", "--device", "cpu"], "6\\(h\\)"),
 ])
 def test_refused_commands_and_flags_name_their_roadmap_item(argv, match):
     with pytest.raises(SystemExit, match=match):

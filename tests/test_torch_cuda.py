@@ -5,6 +5,7 @@ On one:  python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
 import dataclasses
+import json
 from pathlib import Path
 
 import numpy as np
@@ -969,3 +970,225 @@ def test_one_cli_train_step_on_the_card(tmp_path):
     reader = CheckpointManager(str(tmp_path / "ck")).reader(1)
     assert int(reader.get_tensor("step")) == 1
     assert np.isfinite(reader.get_tensor("params/JointLogits/kernel")).all()
+
+
+PERF_NOISE_EPS = 1e-6
+
+
+def _perf_grads(cfg, state, batch, where, draws, images=None):
+    """A perf step's loss and gradients on ``where`` (CPU tensors), its
+    trainer and state before the update, and its distorted images (on the
+    CPU); ``images``: distorted images to run the model on instead."""
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    tr = Trainer(cfg, preprocess="train", device=where)
+    ts = tr.init_state(state)
+    inputs = tr.train_inputs(batch, None, draws.to(where))
+    if images is not None:
+        inputs = dict(inputs, image=images.to(where))
+    loss, _, grads = tr.loss_and_grads(ts, inputs)
+    return (float(loss), {k: g.detach().cpu() for k, g in grads.items()}, tr, ts,
+            inputs["image"].detach().cpu())
+
+
+def _perf_step_floors(cfg, state, batch, draws):
+    """The CPU's own floor for a perf step's loss and gradients: its step
+    with the bf16 layers' products accumulated in float64 (another
+    summation order, as the card's is), and its steps from weights moved
+    by PERF_NOISE_EPS of themselves and brightness nudged as much.
+    Returns [(loss, gradients)] of the floor runs."""
+    from tumblr_emotions_torch.train import noise_floor
+
+    with noise_floor.float64_accumulation():
+        runs = [_perf_grads(cfg, state, batch, "cpu", draws)[:2]]
+    for seed in (1, 2, 3):
+        g = torch.Generator().manual_seed(seed)
+        moved = {k: v * (1 + PERF_NOISE_EPS * torch.randn(v.shape, generator=g))
+                 for k, v in state.items()}
+        nudged = dataclasses.replace(draws, delta=draws.delta + PERF_NOISE_EPS * torch.randn(
+            4, generator=g))
+        runs.append(_perf_grads(cfg, moved, batch, "cpu", nudged)[:2])
+    return runs
+
+
+@pytest.mark.parametrize("name", ["joint", "text_mean"])
+def test_perf_train_step_on_the_card_matches_the_cpu(dev, name):
+    """One perf (bf16) step on the card against the same step on the CPU.
+    bf16 roundings flip where the card's and the CPU's f32 sums differ, and
+    train-mode batch norm over 4 images amplifies them.  The joint step is
+    held in three parts.  The train distortions: the card's images within
+    1e-4 of the CPU's (f32 in [-1, 1], two f32 programs of the same
+    distortions, as ``test_torch_train_preprocessing.JIT_TOL`` holds the
+    jitted reference to its own op-by-op run; the card was 6.6e-5 from the
+    CPU on an H100; they still put 0.08-0.5% of the
+    values on the other side of a bf16 rounding, which moves the loss by
+    0.003-0.029 over 8 batches, mean 0.013, against the CPU's float64
+    floor's mean 0.005: ``python -m tumblr_emotions_torch.perf_noise``).
+    The model on the CPU's images: its loss and gradients within 3x the
+    CPU's own floor (``_perf_step_floors``; over the 8 batches the card
+    was 0.004 in mean), the gradients as a whole and leaf by leaf where the
+    floor is under ``noise_floor.SIGNAL_FLOOR``, a check that refuses no
+    gradient and a reversed one.  The optimizer: the update the card makes
+    from the CPU's gradients within 8 f32 roundings of each parameter
+    (the larger of before and after) of the CPU's (global-norm clipping scales every leaf by the noisy tower's
+    norm, so updates from each side's own gradients have no leaf to hold).
+    The text model: its update within one bf16 rounding (2^-8).  The
+    readings are printed (``-s``)."""
+    from tumblr_emotions_torch.data import preprocessing as pp
+    from tumblr_emotions_torch.train import noise_floor
+
+    cfg = _train_cfg(name)
+    cfg = cfg.replace(train=cfg.train.replace(precision_mode="perf"))
+    state, batch = _train_init(cfg), _train_batch(cfg)
+    if cfg.model == "text":
+        loss_card, card, tr = _one_step(cfg, state, batch, dev, None)
+        loss_cpu, cpu, _ = _one_step(cfg, state, batch, "cpu", None)
+        assert tr.model.dtype == torch.bfloat16
+        keys = [k for k in tr.param_keys if not torch.equal(cpu[k], state[k])]
+        assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+        assert noise_floor.distance(card, state, cpu, state, keys) <= 2.0 ** -8
+        return
+    draws = pp.draw_train(torch.Generator().manual_seed(0), 4, (160, 170))
+    loss_cpu, cpu, tr_cpu, ts_cpu, images = _perf_grads(cfg, state, batch, "cpu", draws)
+    loss_own, _, _, _, own_images = _perf_grads(cfg, state, batch, dev, draws)
+    loss_card, card, tr, ts_card, _ = _perf_grads(cfg, state, batch, dev, draws, images)
+    assert tr.model.dtype == torch.bfloat16
+    keys = [k for k in cpu if bool(cpu[k].any())]
+    floors = _perf_step_floors(cfg, state, batch, draws)
+    loss_floors = [abs(f[0] - loss_cpu) / abs(loss_cpu) for f in floors]
+    h = noise_floor.hold(card, cpu, cpu, [f[1] for f in floors], None, keys, 3.0, 2.0 ** -7,
+                         2.0 ** -6)
+    tr.apply_gradients(ts_card, {k: g.to(dev) for k, g in cpu.items()})
+    tr_cpu.apply_gradients(ts_cpu, cpu)
+    after_card = {k: ts_card.state[k].detach().cpu() for k in keys}
+    after_cpu = {k: ts_cpu.state[k].detach() for k in keys}
+    image_diff = float((own_images - images).abs().max())
+    print(json.dumps({
+        "test": f"perf_train_step[{name}]", "image_max_abs_diff": image_diff,
+        "loss_rel_diff_own_images": abs(loss_own - loss_cpu) / abs(loss_cpu),
+        "loss_rel_diff": abs(loss_card - loss_cpu) / abs(loss_cpu), "loss_floors": loss_floors,
+        "grads_to_cpu": h["to_ref"], "grads_floor": h["floor"],
+        "signal_leaves": h["signal_leaves"],
+        "update_from_cpu_grads": noise_floor.distance(after_card, state, after_cpu, state, keys),
+        "update_max_rel_diff": max(float(((after_card[k] - after_cpu[k]).abs() / _scale(
+            state[k], after_cpu[k])).max()) for k in keys)}))
+    assert image_diff <= 1e-4
+    assert abs(loss_card - loss_cpu) / abs(loss_cpu) <= 3 * np.mean(loss_floors) + 1e-5
+    assert h["ok"], (h["to_ref"], h["limit"], h["failed_leaves"])
+    assert h["refuses_noop"] and h["refuses_flip"], h["signal_leaves"]
+    for k in keys:
+        diff = (after_card[k] - after_cpu[k]).abs()
+        assert bool((diff <= 2.0 ** -20 * _scale(state[k], after_cpu[k])).all()), k
+
+
+def _scale(before, after):
+    """The larger magnitude of a parameter before and after its update,
+    elementwise: an update that nearly cancels the parameter is held to the
+    parameter's own rounding, not to the tiny result's."""
+    return torch.maximum(before.abs(), after.abs()).clamp_min(1e-30)
+
+
+def test_perf_eval_mode_gradients_on_the_card_match_the_cpu(dev):
+    """The bf16 tower's backward on the card (cuDNN's convs on bf16 values,
+    ``_Bf16AvgPool``) against the CPU's, with batch norm on its moving
+    statistics (no amplification by batch statistics): every gradient of
+    the image model within 3x the CPU's float64 floor, a limit under 0.5
+    (no gradient is 1)."""
+    from tumblr_emotions_torch.train import noise_floor
+    from tumblr_emotions_torch.train.trainer import Trainer, cross_entropy, l2_regularization
+
+    cfg = _train_cfg("image")
+    cfg = cfg.replace(train=cfg.train.replace(precision_mode="perf", trainable_scopes=""))
+    state, batch = _train_init(cfg), _train_batch(cfg)
+    batch = dict(batch, image=np.random.RandomState(3).uniform(
+        -1, 1, (4, 139, 139, 3)).astype(np.float32))
+
+    def grads(where):
+        tr = Trainer(cfg, device=where)
+        ts = tr.init_state(state)
+        keys = tr.trainable_keys(ts)
+        tr.model.eval()
+        inputs = tr._to_device(batch)
+        logits, _ = torch.func.functional_call(tr.model, ts.state, tr._model_args(inputs))
+        loss = cross_entropy(logits, inputs["label"]) + l2_regularization(
+            ts.state, cfg.train.weight_decay)
+        gs = torch.autograd.grad(loss, [ts.state[k] for k in keys], allow_unused=True)
+        return {k: g.detach().cpu() for k, g in zip(keys, gs) if g is not None}
+
+    with torch.enable_grad():
+        card, cpu = grads(dev), grads("cpu")
+        with noise_floor.float64_accumulation():
+            f64 = grads("cpu")
+    h = noise_floor.hold(card, cpu, cpu, [f64], None, list(cpu), 3.0, 2.0 ** -7, 2.0 ** -6)
+    print(json.dumps({"test": "perf_eval_mode_gradients", "to_cpu": h["to_ref"],
+                      "floor": h["floor"], "limit": h["limit"]}))
+    assert h["ok"] and h["limit"] < 0.5, (h["to_ref"], h["limit"], h["failed_leaves"])
+    assert h["refuses_noop"] and h["refuses_flip"]
+
+
+_TWO_RANKS = """
+import json, sys
+import numpy as np, torch
+from tumblr_emotions_torch import get_preset
+from tumblr_emotions_torch.models import build_model, text_model
+from tumblr_emotions_torch.parallel import distributed
+from tumblr_emotions_torch.train.trainer import Trainer
+
+rank, address, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dev = distributed.init_group(address, 2, rank, device="cuda")
+assert torch.distributed.get_backend() == "gloo" and dev.type == "cuda"
+x = torch.tensor([rank + 1.0], device=dev)
+distributed.all_reduce_(x)
+cfg = get_preset("text_only")
+cfg = cfg.replace(text=cfg.text.replace(vocab_size=300, embed_dim=32, max_len=12),
+                  train=cfg.train.replace(batch_size=4))
+tr = Trainer(cfg, device=dev)
+ts = tr.init_state(text_model.init_state(build_model(cfg, device="meta"), 0))
+rng = np.random.RandomState(5)
+for _ in range(2):
+    b = {"tokens": rng.randint(0, 300, (8, 12)).astype(np.int32),
+         "label": rng.randint(0, 15, 8).astype(np.int32)}
+    ts, m = tr.train_step(ts, {k: v[4 * rank:4 * rank + 4] for k, v in b.items()})
+torch.save({"sum": x.item(), "loss": m["loss"].item(),
+            "state": {k: v.detach().cpu() for k, v in ts.state.items()}}, out)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_ranks_share_one_card(dev, tmp_path):
+    """Two processes on the one card run on gloo (NCCL refuses two ranks on
+    one device): an all-reduce of card tensors, and two data-parallel steps
+    of the text model equal to one process on the same 8 rows."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.models import build_model, text_model
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        address = f"127.0.0.1:{s.getsockname()[1]}"
+    root = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r), address,
+                               str(tmp_path / f"r{r}.pt")], env=env, cwd=root)
+             for r in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    got = [torch.load(str(tmp_path / f"r{r}.pt")) for r in range(2)]
+    assert got[0]["sum"] == got[1]["sum"] == 3.0
+    cfg = get_preset("text_only")
+    cfg = cfg.replace(text=cfg.text.replace(vocab_size=300, embed_dim=32, max_len=12),
+                      train=cfg.train.replace(batch_size=8))
+    tr = Trainer(cfg, device=dev)
+    ts = tr.init_state(text_model.init_state(build_model(cfg, device="meta"), 0))
+    rng = np.random.RandomState(5)
+    for _ in range(2):
+        ts, m = tr.train_step(ts, {"tokens": rng.randint(0, 300, (8, 12)).astype(np.int32),
+                                   "label": rng.randint(0, 15, 8).astype(np.int32)})
+    assert abs(got[0]["loss"] - m["loss"].item()) <= 1e-5 * abs(m["loss"].item())
+    for k, v in ts.state.items():
+        torch.testing.assert_close(got[0]["state"][k], v.detach().cpu(), rtol=1e-5, atol=1e-6)
+        assert torch.equal(got[0]["state"][k], got[1]["state"][k])

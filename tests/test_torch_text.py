@@ -142,12 +142,14 @@ def test_text_model_refuses_what_it_does_not_have():
     assert feature_only.TextLogits is None and feature_only.feature_dim == D
     with pytest.raises(ValueError):
         feature_only(torch.zeros(1, T, dtype=torch.int32))
-    # f32 trains (tests/test_torch_train.py); the bf16 (perf) model's train
-    # mode is not ported yet.
+    # The bf16 (perf) model, once refused in train mode, trains
+    # (tests/test_torch_perf_train.py): its gradients are f32 and finite.
     port = tm.TextEmotionModel(V, D, dtype=torch.bfloat16, device="cpu")
+    port.load_state_dict(tm.init_state(port, 0))
     port.train()
-    with pytest.raises(NotImplementedError, match="perf"):
-        port(torch.zeros(1, T, dtype=torch.int32))
+    logits, _ = port(torch.ones(1, T, dtype=torch.int32))
+    grads = torch.autograd.grad(logits.sum(), list(port.parameters()))
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads)
 
 
 def test_text_model_defaults_to_the_card():

@@ -101,12 +101,14 @@ def test_tower_rejects_train_mode_and_wrong_rank(towers):
     port = InceptionV3(**MODEL, image_size=IMAGE, device="cpu")
     with pytest.raises(ValueError):
         port(torch.zeros(IMAGE, IMAGE, 3))
-    # f32 trains (tests/test_torch_train.py); the bf16 (perf) model's train
-    # mode is not ported yet.
+    # The bf16 (perf) model, once refused in train mode, trains
+    # (tests/test_torch_perf_train.py): the wrong rank is refused there too.
     port = InceptionV3(**MODEL, image_size=IMAGE, dtype=torch.bfloat16, device="cpu")
     port.train()
-    with pytest.raises(NotImplementedError, match="perf"):
-        port(torch.zeros(1, IMAGE, IMAGE, 3))
+    with pytest.raises(ValueError):
+        port(torch.zeros(IMAGE, IMAGE, 3))
+    logits, _ = port(torch.zeros(2, IMAGE, IMAGE, 3))
+    assert logits.dtype == torch.float32 and logits.requires_grad
 
 
 # ---------------------------------------------------------------------------
@@ -114,7 +116,7 @@ def test_tower_rejects_train_mode_and_wrong_rank(towers):
 # ---------------------------------------------------------------------------
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tumblr_emotions_tpu", "PIL", "grain", "orbax",
-             "google_crc32c", "tensorflow")
+             "google_crc32c", "tensorflow", "clu", "tensorboard")
 
 
 def _imports(path):
@@ -147,7 +149,10 @@ def test_port_imports_with_jax_blocked():
             "import tumblr_emotions_torch.data.records, tumblr_emotions_torch.data.csv_dataset\n"
             "import tumblr_emotions_torch.data.convert, tumblr_emotions_torch.data.index_shuffle\n"
             "import tumblr_emotions_torch.utils.checkpoint, tumblr_emotions_torch.utils.crc32c\n"
-            "import tumblr_emotions_torch.utils.host_lib\n"
+            "import tumblr_emotions_torch.utils.host_lib, tumblr_emotions_torch.parallel\n"
+            "import tumblr_emotions_torch.parallel.mesh, tumblr_emotions_torch.parallel.distributed\n"
+            "import tumblr_emotions_torch.utils.summaries, tumblr_emotions_torch.perf_noise\n"
+            "import tumblr_emotions_torch.train.noise_floor\n"
             "print('ok')\n" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)

@@ -492,13 +492,31 @@ def test_joint_model_dropout_acts_before_the_fused_feature():
 
 
 def test_bf16_models_refuse_train_mode():
+    """The bf16 (perf) models used to refuse train mode; they train now: a
+    train-mode forward gives the logits unrounded (f32, as the reference's
+    loss reads them; bf16 in eval mode), every trainable leaf gets a finite
+    f32 gradient, and a perf Trainer step moves the parameters."""
     _, tcfg = _cfgs("fused_inference", image=dict(image_size=75, create_aux_logits=False))
     model = build_model(tcfg, device="cpu")
+    state = _init(tcfg)
+    model.load_state_dict(state)
+    x = torch.rand(2, 75, 75, 3) * 2 - 1
+    with torch.no_grad():
+        assert model(x)[0].dtype == torch.bfloat16
     model.train()
-    with pytest.raises(NotImplementedError, match="perf"):
-        model(torch.zeros(1, 75, 75, 3))
-    with pytest.raises(NotImplementedError, match="perf"):
-        ttrainer.Trainer(tcfg, device="cpu")
+    logits, _ = model(x)
+    assert logits.dtype == torch.float32 and logits.requires_grad
+    grads = torch.autograd.grad(logits.float().square().sum(), list(model.parameters()),
+                                allow_unused=True)
+    used = [g for g in grads if g is not None]
+    assert len(used) > 50 and all(g.dtype == torch.float32 and torch.isfinite(g).all()
+                                  for g in used)
+    tr = ttrainer.Trainer(tcfg, device="cpu")
+    ts = tr.init_state(state)
+    ts, m = tr.train_step(ts, {"image": np.zeros((2, 75, 75, 3), np.float32),
+                               "label": np.array([1, 2], np.int32)})
+    assert np.isfinite(m["loss"].item())
+    assert any(not torch.equal(ts.state[k].detach(), state[k]) for k in tr.param_keys)
 
 
 # ---------------------------------------------------------------------------
@@ -656,13 +674,8 @@ def test_frozen_parameters_are_bit_unchanged():
 
 
 def test_trainer_refuses_what_is_not_ported():
-    _, tcfg = _cfgs("joint_finetune", train=dict(profile_start_step=2))
+    _, tcfg = _cfgs("joint_finetune")
     tr = ttrainer.Trainer(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="tooling"):
-        tr.fit(tr.init_state(_init(tcfg)), [])
-    with pytest.raises(NotImplementedError, match="perf"):
-        ttrainer.Trainer(tcfg.replace(train=tcfg.train.replace(precision_mode="perf")),
-                         device="cpu")
     with pytest.raises(ValueError, match="does not fit"):
         tr.init_state({"x": torch.zeros(1)})
     with pytest.raises(ValueError):

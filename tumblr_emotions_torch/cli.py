@@ -19,8 +19,12 @@ reference's commands, flags and output:
 Every command that runs a model takes ``--device`` (default ``cuda``, which
 raises without a card; ``--device cpu`` runs on the CPU).  ``train``
 resumes from the latest checkpoint in ``--checkpoint-dir`` at the exact
-input record.  Commands and flags the port does not have yet are refused
-with the ROADMAP item that brings them.
+input record.  ``train`` and ``eval`` run as several processes, one card
+each (data parallel, ``parallel/``): started with ``--coordinator-address
+host:port --num-processes N --process-id i`` each, or by torchrun (its
+environment); each process reads its shard of the records.  Commands and
+flags the port does not have yet are refused with the ROADMAP item that
+brings them.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ LEFT = {
     "tune": "6(i) (compiler-option tuning, utils/compile_opts.py's role)",
     "train-embeddings": "6(g) (word2vec)",
     "scrape": "6(i) (data/scraper.py)",
-    "--dp": "6(h) (data parallel and multi-host)",
-    "multi-process": "6(h) (data parallel and multi-host)",
+    "--dp": "6(j) (serving one batch over several cards, what is left of 6(h))",
+    "multi-process": "6(j) (serving one batch over several cards, what is left of 6(h))",
 }
 
 
@@ -157,16 +161,34 @@ def _load_vocab(args, cfg, texts=None):
     raise SystemExit("--vocab is required for records input")
 
 
+def _maybe_init_distributed(args) -> None:
+    """Join the run's process group (an explicit coordinator, else
+    torchrun's environment; parallel/distributed.py) and take this
+    process's card."""
+    from tumblr_emotions_torch.parallel import distributed
+
+    if distributed.maybe_initialize(
+            coordinator_address=args.coordinator_address or None,
+            num_processes=args.num_processes or None,
+            process_id=args.process_id if args.process_id >= 0 else None,
+            device=args.device):
+        rank, world = distributed.host_shard_options()
+        args.device = str(distributed.process_device(
+            args.device, rank, distributed.local_world_size(world)))
+
+
 def _check_single_process(args) -> None:
-    """One process on one device: a multi-process run is refused."""
+    """One process on one device (infer, serve): a multi-process run is
+    refused."""
     if args.num_processes > 1 or args.process_id > 0 or args.coordinator_address:
         raise _left("multi-process")
     if getattr(args, "dp", False):
         raise _left("--dp")
 
 
-def _make_batches(args, cfg, vocab, train: bool):
+def _make_batches(args, cfg, vocab, train: bool, shard_eval: bool = False):
     from tumblr_emotions_torch.data import csv_dataset, pipeline
+    from tumblr_emotions_torch.parallel import distributed
 
     bs = cfg.train.batch_size if train else cfg.train.eval_batch_size
     if args.csv and cfg.model != "text":
@@ -181,10 +203,17 @@ def _make_batches(args, cfg, vocab, train: bool):
             drop_remainder=train)
     if not args.records:
         raise SystemExit("need --records or --csv")
+    # Each process of a data-parallel run reads its slice of the records:
+    # always in training, in evaluation when the statistics are reduced
+    # over the processes (Trainer.evaluate in lockstep); infer and serve
+    # read everything.
+    shard_index, shard_count = (distributed.host_shard_options()
+                                if (train or shard_eval) else (0, 1))
     pcfg = pipeline.PipelineConfig(
         batch_size=bs, max_len=cfg.text.max_len, shuffle=train,
         seed=cfg.train.seed, num_epochs=None if train else 1,
-        drop_remainder=train, decode_threads=cfg.data.num_workers)
+        drop_remainder=train, decode_threads=cfg.data.num_workers,
+        shard_index=shard_index, shard_count=shard_count)
     return pipeline.batches(args.records, vocab, pcfg)
 
 
@@ -246,7 +275,7 @@ def cmd_train(args) -> int:
     from tumblr_emotions_torch.data import pipeline
     from tumblr_emotions_torch.train.trainer import Trainer, TrainState
 
-    _check_single_process(args)
+    _maybe_init_distributed(args)
     cfg = _build_config(args)
     vocab = None
     if cfg.model in ("text", "joint"):
@@ -308,30 +337,38 @@ def cmd_train(args) -> int:
 
 
 def cmd_eval(args) -> int:
+    from tumblr_emotions_torch.parallel import distributed
     from tumblr_emotions_torch.utils.metrics import format_per_class
 
+    _maybe_init_distributed(args)
     cfg = _build_config(args)
     emotions = _load_emotions(args)
     vocab = _load_vocab(args, cfg) if cfg.model in ("text", "joint") else None
-    batches = list(_make_batches(args, cfg, vocab, train=False))
-    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, batches[0])
+    batches = list(_make_batches(args, cfg, vocab, train=False, shard_eval=True))
+    # (a process whose shard is empty fails in the lockstep eval, with the
+    # reference's message)
+    sample = batches[0] if batches else _sample(cfg, cfg.image.image_size, np.uint8)
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, sample)
     # Eval batches may arrive as uint8 host images: use eval preprocessing.
     if trainer.preprocess is not None:
         trainer.preprocess = "eval"
+    first = distributed.host_shard_options()[0] == 0   # one report for the group
     if args.follow:
         # slim evaluation_loop mode: every new checkpoint until the run's
         # final step.
         for step, summary in trainer.evaluate_continuously(
                 state, lambda: batches, class_names=emotions,
                 interval_secs=args.eval_interval, timeout_secs=args.eval_timeout or None):
-            print(f"== step {step} ==")
-            print(format_per_class(summary))
-            _write_summary(args.out, dict(summary, step=step))
+            if first:
+                print(f"== step {step} ==")
+                print(format_per_class(summary))
+                _write_summary(args.out, dict(summary, step=step))
         return 0
     state = _restored(trainer, state, "evaluating")
     summary = trainer.evaluate(state, batches, class_names=emotions)
-    print(format_per_class(summary))
-    _write_summary(args.out, dict(summary, step=state.step))
+    if first:
+        print(format_per_class(summary))
+        _write_summary(args.out, dict(summary, step=state.step))
     return 0
 
 
@@ -674,7 +711,13 @@ def main(argv=None) -> int:
         raise _left(argv[0])
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = parser().parse_args(argv)
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

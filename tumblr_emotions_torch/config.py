@@ -4,9 +4,9 @@ and their eval data.
 A copy of the parts of ``tumblr_emotions_tpu/config.py`` that the port
 reads (it imports nothing of the JAX package): the model and data configs,
 ``TrainConfig`` (the trainer's settings; ``precision_mode`` picks the f32
-``"parity"`` or the bf16 ``"perf"`` model) and four of the reference's five
-presets.  The mesh config and the ``data_parallel`` preset come with the
-data-parallel slice.
+``"parity"`` or the bf16 ``"perf"`` model), ``MeshConfig`` (the data axis:
+one process per card, ``parallel/mesh.py``) and the reference's five
+presets.
 """
 
 from __future__ import annotations
@@ -89,6 +89,17 @@ class DataConfig(_Replaceable):
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig(_Replaceable):
+    """The processes of a data-parallel run (``parallel/mesh.py``): the
+    ``data`` axis is the process group, one card per process; ``model``
+    (tensor parallelism) is the reference's field, and ``create_mesh``
+    refuses any value but 1."""
+
+    data: int = -1                # -1 = every process of the group
+    model: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig(_Replaceable):
     batch_size: int = 32
     eval_batch_size: int = 64
@@ -124,6 +135,7 @@ class Config(_Replaceable):
     text: TextConfig = TextConfig()
     image: ImageConfig = ImageConfig()
     data: DataConfig = DataConfig()
+    mesh: MeshConfig = MeshConfig()
     train: TrainConfig = TrainConfig()
 
 
@@ -149,6 +161,11 @@ PRESETS = {
     "fused_inference": Config(
         name="fused_inference", model="image",
         train=TrainConfig(batch_size=256, precision_mode="perf")),
+    # Full-corpus data-parallel training: bf16 compute on f32 masters, the
+    # batch split over every process of the group.
+    "data_parallel": Config(
+        name="data_parallel", model="joint", mesh=MeshConfig(data=-1),
+        train=TrainConfig(batch_size=1024, precision_mode="perf", num_steps=100_000)),
 }
 
 

@@ -273,6 +273,12 @@ class TrainDraws:
         return TrainDraws(**{f.name: getattr(self, f.name).to(device)
                              for f in dataclasses.fields(self)})
 
+    def rows(self, rows: slice) -> "TrainDraws":
+        """The draws of ``rows`` of the batch (a process's rows of the
+        global batch under data parallelism)."""
+        return TrainDraws(**{f.name: getattr(self, f.name)[rows]
+                             for f in dataclasses.fields(self)})
+
 
 def draw_train(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
                device=None) -> TrainDraws:

@@ -12,8 +12,9 @@ edges, as in the JAX package.  ``dtype=torch.bfloat16`` builds the
 JAX package's bf16 (``precision_mode="perf"``) model: the input is cast to
 bf16 and every layer follows ``models/layers.py``'s bf16 rules, so the
 average pools (the Inception-A/B/C pool branches, the aux head's pool and
-the global pool, hence ``PreLogits``) are f32.  The bf16 model runs in
-eval mode only; its training comes with the perf-mode training slice.
+the global pool, hence ``PreLogits``) are f32.  The bf16 model trains as
+the reference's perf step does, on f32 master weights (``models/layers.py``
+says which roundings its backward keeps).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from torch import nn
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
 from tumblr_emotions_torch.models.layers import (
-    ConvBN, Dropout, avg_pool, check_trainable, max_pool)
+    ConvBN, Dropout, avg_pool, max_pool, train_logits)
 
 
 def inception_a_names(quirky_5c: bool) -> Tuple[str, str]:
@@ -172,7 +173,6 @@ class InceptionV3(nn.Module):
         dropout draws from ``generator``."""
         if x.ndim != 4:
             raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
-        check_trainable(self)
         with full_f32():
             return self._forward(x.to(self.dtype), generator)
 
@@ -233,7 +233,7 @@ class InceptionV3(nn.Module):
                     f"input {tuple(x.shape)} needs a {k}x{k} aux conv; this "
                     f"model was built for image_size={self.image_size}")
             aux = c(self.aux_conv2a)(aux)
-            aux = c("AuxLogits/Conv2d_2b_1x1")(aux)
+            aux = train_logits(c("AuxLogits/Conv2d_2b_1x1").unrounded(aux), self)
             ep["AuxLogits"] = aux.squeeze(2).squeeze(1)
 
         scope = "Mixed_7a"
@@ -268,7 +268,7 @@ class InceptionV3(nn.Module):
         if self.num_classes == 0:
             return net, ep
         pre = c("Logits/Conv2d_1c_1x1").unrounded(net).squeeze(2).squeeze(1)
-        logits = pre.to(self.dtype)
+        logits = train_logits(pre, self)
         ep["Logits"] = logits
         ep["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, ep

@@ -12,7 +12,7 @@ in a fused engine (``ops/quant.py``, ``ops/inference.py``) and this half
 carries the text lookup and the joint softmax; :meth:`forward` runs the
 slim tower (the ``parity`` engine), in f32 or, with ``dtype=torch.bfloat16``,
 as the JAX package's bf16 (perf) model, whose ``PreLogits`` is f32.  In
-train mode (f32 only) the tower's batch norm uses batch statistics and its
+train mode (f32 or bf16) the tower's batch norm uses batch statistics and its
 dropout acts before ``PreLogits``, so the fused image feature is the
 dropped-out one; the tower's own ``Logits`` head is still computed, and
 unused.
@@ -28,7 +28,7 @@ from torch import nn
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
 from tumblr_emotions_torch.models import inception_v3, text_model
-from tumblr_emotions_torch.models.layers import Dense, check_trainable
+from tumblr_emotions_torch.models.layers import Dense, train_logits
 
 
 class DeepSentimentModel(nn.Module):
@@ -54,9 +54,12 @@ class DeepSentimentModel(nn.Module):
             vocab_size, embed_dim, num_classes=0, aggregator=aggregator,
             rnn_hidden=rnn_hidden, pad_id=pad_id, dtype=dtype, device=dev)
         fused = self.InceptionV3.num_features + self.Text.feature_dim
-        self.JointHidden = Dense(fused, fusion_hidden, dtype=dtype, device=dev) \
-            if fusion_hidden > 0 else None
-        self.JointLogits = Dense(fusion_hidden or fused, num_classes, dtype=dtype, device=dev)
+        # (the fusion head's kernel gradient is left unrounded in bf16, as
+        # the reference's perf step leaves it: models/layers.py)
+        self.JointHidden = Dense(fused, fusion_hidden, dtype=dtype, device=dev,
+                                 round_weight_grad=False) if fusion_hidden > 0 else None
+        self.JointLogits = Dense(fusion_hidden or fused, num_classes, dtype=dtype, device=dev,
+                                 round_weight_grad=False)
         self.eval()
 
     def fuse(self, image_feature: torch.Tensor, token_ids, lengths=None
@@ -72,7 +75,7 @@ class DeepSentimentModel(nn.Module):
                 fused = torch.relu(self.JointHidden(fused))
                 end_points["JointHidden"] = fused
             pre = self.JointLogits.unrounded(fused)
-        logits = pre.to(self.JointLogits.dtype)
+        logits = train_logits(pre, self)
         end_points["Logits"] = logits
         end_points["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, end_points
@@ -82,7 +85,6 @@ class DeepSentimentModel(nn.Module):
         """Preprocessed NHWC f32 images and [B, T] ids -> (logits,
         end_points), with the image tower's ``AuxLogits``.  In train mode
         the tower's dropout draws from ``generator``."""
-        check_trainable(self)
         _, img = self.InceptionV3(images, generator=generator)
         logits, end_points = self.fuse(img["PreLogits"].squeeze(2).squeeze(1),
                                        token_ids, lengths)

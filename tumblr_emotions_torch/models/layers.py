@@ -29,6 +29,42 @@ In train mode (``module.train()``) batch norm normalises with the batch's
 own statistics and moves its buffers towards them, as slim and the JAX
 package do (:class:`SlimBatchNorm`), and :class:`Dropout` is flax's.
 ``Dense`` is flax's dense layer for the text and joint heads.
+
+The bf16 model trains on f32 master weights, as the reference's jitted
+perf step does.  Its optimized program (XLA on the CPU, read from the
+compiled HLO of a two-layer ``ConvBN`` net under ``jax.value_and_grad``)
+keeps these roundings and drops the others, and the port follows it:
+
+- forward: as in eval, the conv's f32 accumulator reaches batch norm
+  unrounded, for the batch statistics (f32) as for the normalisation; the
+  norm's output is rounded once; a head's product is rounded before its
+  bf16 bias;
+- the cotangent batch norm passes back to its input is rounded to bf16 on
+  each of its two paths (the normalisation and the statistics, the VJPs of
+  the two ``astype(f32)``), and their sum is rounded again
+  (:func:`round_grad`, then the conv's backward rounds its incoming
+  gradient);
+- a conv's weight gradient is the f32 product of bf16 values, left
+  unrounded (XLA drops the bf16 round trip of the transposed conv and of
+  the VJP of ``w.astype(bf16)``), and so is its input gradient where the
+  input was f32 (an average pool's output, ``PreLogits``); where the input
+  was bf16 (a ReLU's output) the input gradient is rounded to bf16
+  (:class:`_Bf16Conv`); a Dense's weight gradient is rounded to bf16 in
+  the text model's heads, not in the joint model's fusion head nor in the
+  LSTM, whose scan sums it over the steps in f32 (read from the compiled
+  program as it stands; :class:`_Bf16Linear`, ``Dense.round_weight_grad``);
+- a head's logits reach the loss unrounded (XLA drops their round trip
+  before cross-entropy's ``astype(f32)``) and their gradient is rounded to
+  bf16 (:func:`train_logits`);
+- an average pool's backward scales by the f32 reciprocal count, rounds to
+  bf16 and sums the window back in bf16, tap by tap, as its forward does
+  (:class:`_Bf16AvgPool`).
+
+Under data parallelism each :class:`SlimBatchNorm` of the model is given
+the process group (:func:`set_data_parallel`): its statistics are then
+those of the global batch, as under the reference's pjit, through an
+all-reduce that gradients flow back through; :class:`Dropout` draws its
+mask for the global batch and keeps the process's rows.
 """
 
 from __future__ import annotations
@@ -40,14 +76,123 @@ import torch.nn.functional as F
 from torch import nn
 
 from tumblr_emotions_torch._device import tf32_convs
+from tumblr_emotions_torch.parallel.distributed import all_reduce
 
 
-def check_trainable(model: nn.Module) -> None:
-    """Refuse train mode of a bf16 (perf) model: it is not ported yet."""
-    if model.training and model.dtype != torch.float32:
-        raise NotImplementedError(
-            "train mode of the bf16 (precision_mode='perf') model comes with the "
-            "perf-mode training slice; train in precision_mode='parity'")
+def set_data_parallel(model: nn.Module, group=None, rank: int = 0, world: int = 1) -> None:
+    """Make ``model``'s batch norms reduce their statistics over ``group``
+    (None: the local batch) and its dropouts draw for a global batch of
+    ``world`` equal process batches, keeping rows ``[rank*b, (rank+1)*b)``."""
+    for m in model.modules():
+        if isinstance(m, SlimBatchNorm):
+            m.group = group
+        elif isinstance(m, Dropout):
+            m.rank, m.world = rank, world
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose backward rounds the gradient to bf16: the VJP of
+    a bf16 value's ``astype(f32)`` whose forward round trip XLA drops."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _bf16(g).to(g.dtype)
+
+
+def round_grad(x: torch.Tensor) -> torch.Tensor:
+    return _RoundGrad.apply(x)
+
+
+def train_logits(pre: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    """A head's logits from its output before the last rounding (``pre``,
+    f32): rounded to the model's dtype, except in bf16 train mode, where
+    the loss reads them unrounded and rounds their gradient."""
+    if module.training and module.dtype != torch.float32:
+        return round_grad(pre)
+    return pre.to(module.dtype)
+
+
+class _Bf16Conv(torch.autograd.Function):
+    """:func:`conv_f32_accumulate` of ``x`` (NHWC) and ``w`` (OIHW) rounded
+    to bf16, f32 out, with the reference's backward: the incoming gradient
+    rounded to bf16, the input gradient in ``x``'s dtype (rounded iff ``x``
+    is bf16), the weight gradient in f32, unrounded (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, strides, pad):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.conf = (tuple(strides), tuple(pad), x.dtype, w.dtype)
+        return conv_f32_accumulate(xb, wb, strides, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        strides, pad, x_dtype, w_dtype = ctx.conf
+        gx, gw = conv_f32_backward(_bf16(g), xb, wb, strides, pad,
+                                   ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        return (None if gx is None else gx.to(x_dtype),
+                None if gw is None else gw.to(w_dtype), None, None)
+
+
+def conv_f32_backward(g, xb, wb, strides, pad, need_x: bool, need_w: bool):
+    """The input (NHWC) and weight (OIHW) gradients of
+    :func:`conv_f32_accumulate` for the gradient ``g`` (NHWC, bf16 values),
+    accumulated and returned in f32 (None where not needed); TF32 on the
+    card, exact on bf16 values."""
+    with tf32_convs():
+        gx, gw, _ = torch.ops.aten.convolution_backward(
+            to_nchw(g), to_nchw(xb.float()), wb.float(), None, strides, pad,
+            (1, 1), False, (0, 0), 1, [need_x, need_w, False])
+    return (None if gx is None else to_nhwc(gx)), gw
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 values held in f32, accumulated in f32."""
+    return a @ b
+
+
+class _Bf16Linear(torch.autograd.Function):
+    """``x @ w^T`` of ``x`` and ``w`` rounded to bf16, accumulated and
+    returned in f32, with the reference's backward: the incoming gradient
+    rounded to bf16, the input gradient in ``x``'s dtype (rounded iff ``x``
+    is bf16), the weight gradient in f32, rounded to bf16 iff
+    ``round_weight_grad`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, w, round_weight_grad):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.conf = (x.dtype, w.dtype, round_weight_grad)
+        return matmul_f32(xb.float(), wb.float().t())
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        x_dtype, w_dtype, round_w = ctx.conf
+        g = _bf16(g)
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = matmul_f32(g, wb.float()).to(x_dtype)
+        if ctx.needs_input_grad[1]:
+            gw = matmul_f32(g.reshape(-1, g.shape[-1]).t(),
+                            xb.float().reshape(-1, xb.shape[-1]))
+            gw = (_bf16(gw) if round_w else gw).to(w_dtype)
+        return gx, gw, None
+
+
+def bf16_linear(x: torch.Tensor, w: torch.Tensor, round_weight_grad: bool = True
+                ) -> torch.Tensor:
+    return _Bf16Linear.apply(x, w, round_weight_grad)
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -100,13 +245,24 @@ class SlimBatchNorm(nn.Module):
     its running variance takes the unbiased estimate with the momentum
     counted the other way.  Gradients flow through the batch statistics,
     as ``jax.grad`` of the reference's expression does.
+
+    With a process ``group`` (set by :func:`set_data_parallel`) the
+    statistics are the global batch's: the mean from all-reduced sums, then
+    the biased variance about it in a second pass, as ``jnp.mean`` and
+    ``jnp.var`` compute them over an array sharded on the batch axis, both
+    through an autograd all-reduce (``parallel.distributed.all_reduce``).  Not
+    ``nn.SyncBatchNorm``, for the reasons above.  ``dtype`` bf16: the
+    model's perf mode, whose backward rounds (module docstring).
     """
 
     def __init__(self, features: int, epsilon: float = 0.001,
-                 scale: bool = False, momentum: float = 0.9997, device=None):
+                 scale: bool = False, momentum: float = 0.9997, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.dtype = dtype
+        self.group = None
         self.beta = nn.Parameter(torch.zeros(features, device=device))
         self.gamma = (nn.Parameter(torch.ones(features, device=device))
                       if scale else None)
@@ -116,7 +272,10 @@ class SlimBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.training:
-            var, mean = torch.var_mean(x, dim=tuple(range(x.ndim - 1)), correction=0)
+            xs = x
+            if self.dtype != torch.float32 and torch.is_grad_enabled():
+                xs, x = round_grad(x), round_grad(x)
+            mean, var = self.batch_moments(xs)
             with torch.no_grad():
                 m = self.momentum
                 self.moving_mean.copy_(m * self.moving_mean + (1.0 - m) * mean)
@@ -129,22 +288,41 @@ class SlimBatchNorm(nn.Module):
         # y = (x - mean) * inv + beta, folded into one multiply-add.
         return x * inv + (self.beta - mean * inv)
 
+    def batch_moments(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(mean, biased variance) over every axis but the last, over the
+        process group's global batch when there is one."""
+        axes = tuple(range(x.ndim - 1))
+        if self.group is None:
+            var, mean = torch.var_mean(x, dim=axes, correction=0)
+            return mean, var
+        n = x.numel() // x.shape[-1] * torch.distributed.get_world_size(self.group)
+        mean = all_reduce(x.sum(axes), group=self.group) / n
+        var = all_reduce(((x - mean) ** 2).sum(axes), group=self.group) / n
+        return mean, var
+
 
 class Dropout(nn.Module):
     """flax ``nn.Dropout`` in train mode: each element is kept with
     probability ``keep_prob`` (``rand < keep_prob``, drawn from
     ``generator``, torch's default generator of the tensor's device when
-    None) and scaled by ``1 / keep_prob``; the others are 0.  The identity
-    in eval mode or when ``keep_prob >= 1``."""
+    None) and scaled by ``1 / keep_prob`` in the input's dtype; the others
+    are 0.  The identity in eval mode or when ``keep_prob >= 1``.  Under
+    data parallelism (``world`` > 1) the mask is drawn for the global batch
+    and rows ``[rank*b, (rank+1)*b)`` are kept, as the reference draws over
+    the global array."""
 
     def __init__(self, keep_prob: float):
         super().__init__()
         self.keep_prob = keep_prob
+        self.rank, self.world = 0, 1
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         if not self.training or self.keep_prob >= 1.0:
             return x
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < self.keep_prob
+        b = x.shape[0]
+        u = torch.rand((b * self.world,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)
+        keep = u[self.rank * b:(self.rank + 1) * b] < self.keep_prob
         return torch.where(keep, x / self.keep_prob, torch.zeros((), dtype=x.dtype,
                                                                  device=x.device))
 
@@ -171,7 +349,8 @@ class ConvBN(nn.Module):
         self.biases = (nn.Parameter(torch.zeros(features, device=device))
                        if use_bias else None)
         self.BatchNorm: Optional[SlimBatchNorm] = (
-            SlimBatchNorm(features, bn_epsilon, bn_scale, bn_momentum, device=device)
+            SlimBatchNorm(features, bn_epsilon, bn_scale, bn_momentum, dtype=dtype,
+                          device=device)
             if use_bn else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -187,7 +366,7 @@ class ConvBN(nn.Module):
             y = to_nhwc(F.conv2d(to_nchw(x.float()), self.weights, stride=self.strides,
                                  padding=self.pad))
         else:
-            y = conv_f32_accumulate(x.to(d), self.weights.to(d), self.strides, self.pad)
+            y = _Bf16Conv.apply(x, self.weights, self.strides, self.pad)
             if self.BatchNorm is None:
                 y = y.to(d).float()
         if self.biases is not None:
@@ -201,12 +380,14 @@ class Dense(nn.Module):
     """flax ``nn.Dense``: ``x @ kernel^T + bias``, with ``kernel`` held
     [out, in] (``convert.py`` transposes flax's [in, out]).  In bf16 the
     input, kernel and bias are cast to bf16, the product is accumulated in
-    f32 and rounded, and the bias is added in bf16."""
+    f32 and rounded, and the bias is added in bf16; in train mode the
+    kernel's gradient is rounded to bf16 iff ``round_weight_grad``."""
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, round_weight_grad: bool = True):
         super().__init__()
         self.dtype = dtype
+        self.round_weight_grad = round_weight_grad
         self.kernel = nn.Parameter(torch.zeros(features, in_features, device=device))
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
@@ -220,7 +401,7 @@ class Dense(nn.Module):
         d = self.dtype
         if d == torch.float32:
             return F.linear(x, self.kernel, self.bias)
-        y = F.linear(x.to(d).float(), self.kernel.to(d).float()).to(d).float()
+        y = bf16_linear(x, self.kernel, self.round_weight_grad).to(d).float()
         return y if self.bias is None else y + self.bias.to(d).float()
 
 
@@ -272,15 +453,45 @@ class _SameAvgPool(torch.autograd.Function):
         return F.avg_pool2d(g, ctx.window, 1, padding=ctx.pad, divisor_override=1), None, None
 
 
-def _avg_pool_bf16(x, window, strides, pad):
-    (kh, kw), (sh, sw), (ph, pw) = window, strides, pad
-    xp = F.pad(x, (0, 0, pw, pw, ph, ph))
-    ho = (xp.shape[1] - kh) // sh + 1
-    wo = (xp.shape[2] - kw) // sw + 1
-    acc = torch.zeros(x.shape[0], ho, wo, x.shape[3], dtype=x.dtype, device=x.device)
-    for i in range(kh):
-        for j in range(kw):
+class _Bf16AvgPool(torch.autograd.Function):
+    """flax's ``avg_pool`` of a bf16 NHWC input as the jitted reference
+    computes it: the window summed in bf16, one tap at a time in row-major
+    order, times the f32 reciprocal of the in-image count, f32 out.  The
+    backward is its adjoint in the same precision: the gradient times the
+    reciprocal count rounded to bf16, then each tap's share added back in
+    bf16, tap by tap."""
+
+    @staticmethod
+    def forward(ctx, x, window, strides, pad):
+        (kh, kw), (sh, sw), (ph, pw) = window, strides, pad
+        xp = F.pad(x, (0, 0, pw, pw, ph, ph))
+        ho = (xp.shape[1] - kh) // sh + 1
+        wo = (xp.shape[2] - kw) // sw + 1
+        acc = torch.zeros(x.shape[0], ho, wo, x.shape[3], dtype=x.dtype, device=x.device)
+        for i, j in _taps(window):
             acc = acc + xp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw]
-    ones = torch.ones(1, 1, x.shape[1], x.shape[2], device=x.device)
-    counts = F.avg_pool2d(ones, window, strides, padding=pad, divisor_override=1)
-    return acc.float() * (1.0 / to_nhwc(counts))
+        ones = torch.ones(1, 1, x.shape[1], x.shape[2], device=x.device)
+        recip = 1.0 / to_nhwc(F.avg_pool2d(ones, window, strides, padding=pad,
+                                           divisor_override=1))
+        ctx.conf = (window, strides, pad, tuple(xp.shape))
+        ctx.save_for_backward(recip)
+        return acc.float() * recip
+
+    @staticmethod
+    def backward(ctx, g):
+        (recip,) = ctx.saved_tensors
+        (kh, kw), (sh, sw), (ph, pw), shape = ctx.conf
+        gs = (g * recip).to(torch.bfloat16)
+        ho, wo = gs.shape[1], gs.shape[2]
+        gp = torch.zeros(shape, dtype=torch.bfloat16, device=g.device)
+        for i, j in _taps((kh, kw)):
+            gp[:, i:i + sh * (ho - 1) + 1:sh, j:j + sw * (wo - 1) + 1:sw] += gs
+        return gp[:, ph:shape[1] - ph, pw:shape[2] - pw], None, None, None
+
+
+def _taps(window):
+    return [(i, j) for i in range(window[0]) for j in range(window[1])]
+
+
+def _avg_pool_bf16(x, window, strides, pad):
+    return _Bf16AvgPool.apply(x, tuple(window), tuple(strides), tuple(pad))

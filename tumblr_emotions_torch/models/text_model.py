@@ -11,7 +11,8 @@ Parameter names are the JAX package's (``WordEmbedding/embeddings``,
 ``TextLogits``), so ``convert.py`` maps the flax tree by string alone.  The
 f32 path runs with TF32 off, as the reference runs in full f32.  The model
 has no batch norm and no dropout, so train mode computes what eval mode
-does (the bf16 model refuses it, as the image models do).
+does; the bf16 model's Denses train on f32 master weights
+(``layers._Bf16Linear``).
 
 ``dtype=torch.bfloat16`` is the JAX package's bf16 (perf) model: the
 table is cast to bf16 before the lookup, the masked sum is accumulated in
@@ -45,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
-from tumblr_emotions_torch.models.layers import Dense, check_trainable
+from tumblr_emotions_torch.models.layers import Dense, bf16_linear, train_logits
 
 GATES = ("i", "f", "g", "o")   # flax OptimizedLSTMCell's gate order (torch's too)
 AGGREGATORS = ("mean", "sum", "rnn")
@@ -101,8 +102,7 @@ class LSTMAggregator(nn.Module):
         if d == torch.float32:
             x = F.linear(emb, w_i)                                   # all steps at once
         else:
-            x = F.linear(emb.to(d).float(), w_i.to(d).float()).to(d)
-            w_h, b_h = w_h.to(d).float(), b_h.to(d)
+            x = bf16_linear(emb, w_i, round_weight_grad=False).to(d)
         h = c = torch.zeros(B, self.hidden, device=emb.device)
         hs = []
         for t in range(T):
@@ -112,7 +112,7 @@ class LSTMAggregator(nn.Module):
                 c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
                 h = torch.sigmoid(o) * torch.tanh(c)
             else:
-                pre = (F.linear(h.to(d).float(), w_h).to(d) + b_h) + x[:, t]
+                pre = (bf16_linear(h, w_h, round_weight_grad=False).to(d) + b_h.to(d)) + x[:, t]
                 i, f, g, o = pre.chunk(4, dim=-1)
                 i, g = _sigmoid_low(i).to(d).float(), torch.tanh(g).float()
                 c = _sigmoid_low(f) * c + i * g
@@ -181,7 +181,6 @@ class TextEmotionModel(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """-> (logits, end_points: TextFeature, TextHidden, Logits,
         Predictions).  ``generator`` is unused: the model draws nothing."""
-        check_trainable(self)
         if self.TextLogits is None:
             raise ValueError("built with num_classes=0: call represent() for the feature")
         feat = self.represent(token_ids, lengths)
@@ -191,7 +190,7 @@ class TextEmotionModel(nn.Module):
                 feat = torch.relu(self.TextHidden(feat))
                 end_points["TextHidden"] = feat
             pre = self.TextLogits.unrounded(feat)
-        logits = pre.to(self.dtype)
+        logits = train_logits(pre, self)
         end_points["Logits"] = logits
         end_points["Predictions"] = torch.softmax(pre, dim=-1)
         return logits, end_points

@@ -1,8 +1,7 @@
-"""Training and evaluation on one card.
+"""Training and evaluation, on one card or one card per process.
 
-Port of the single-device path of ``tumblr_emotions_tpu/train/trainer.py``
-(``Trainer(cfg, preprocess=...)`` -> ``init_state`` -> ``fit`` ->
-``evaluate``).  One train step is: the batch to the card, the train
+Port of ``tumblr_emotions_tpu/train/trainer.py`` (``Trainer(cfg,
+preprocess=...)`` -> ``init_state`` -> ``fit`` -> ``evaluate``).  One train step is: the batch to the card, the train
 distortions (``preprocess="train"``), the forward in train mode (batch
 statistics, dropout), the loss, the backward by autograd and the optimizer
 update; the BN moving statistics move in place during the forward.  The
@@ -36,15 +35,40 @@ input iterator's position beside each (``input_iterator_<step>.json``), and
 ``restore_latest`` / ``restore_input_iterator`` resume at the exact record;
 ``evaluate_continuously`` scores each new checkpoint as it appears.
 
-Parity mode (f32) only: the whole step, forward, backward and update, runs
+Parity mode (f32): the whole step, forward, backward and update, runs
 with TF32 off (``_device.full_f32``), as the reference runs
-``precision="highest"``.  Left for later slices: bf16 (``perf``) training,
-data parallel, the profiler hook and the TensorBoard writer (``fit`` logs
-its scalars, which is what the reference does when ``clu`` is missing).
+``precision="highest"``.  Perf mode (bf16): the bf16 models of
+``models/layers.py`` on f32 master weights; the loss, the optimizer and
+the train distortions stay f32 (the distortions with TF32 off in both
+modes).
+
+Data parallel (``parallel/mesh.py``): with a process group each process
+holds the whole state and its rows of each global batch, and the step keeps
+the reference's global-batch semantics under pjit.  One process has no
+group (``create_mesh``) and runs the plain step, as the reference runs
+plain jit on a one-device mesh.  The step's train
+distortions and dropout masks are drawn for the global batch from the
+step's seed and each process keeps its rows; batch norm's statistics are
+all-reduced (with their gradients); each process's loss is its share of the
+global mean cross-entropy plus aux term, with L2 counted once (divided by
+the number of processes), so the gradients summed over the processes are
+the global loss's; the summed gradients update every process's copy of the
+state alike; the logged loss and accuracy are global.  ``evaluate`` runs in
+lockstep: every process steps through as many batches as the longest shard
+(the shorter pad with weight-0 copies of their last batch) and each
+batch's statistics are summed over the group.  Process 0 writes the
+checkpoint bundle, every process its own input position
+(``input_iterator_<step>.proc<r>.json``), with barriers around the save.
+
+``fit`` writes ``train/*`` and ``eval/*`` scalars to a TensorBoard event
+file under ``cfg.train.log_dir`` (process 0) and traces steps
+``[profile_start_step, profile_start_step + profile_num_steps)`` with the
+profiler hook (``utils/summaries.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import logging
@@ -64,14 +88,17 @@ from tumblr_emotions_torch.config import Config
 from tumblr_emotions_torch.data import pipeline
 from tumblr_emotions_torch.data import preprocessing as pp
 from tumblr_emotions_torch.models import build_model
+from tumblr_emotions_torch.models.layers import set_data_parallel
+from tumblr_emotions_torch.parallel import distributed
+from tumblr_emotions_torch.parallel import mesh as mesh_lib
 from tumblr_emotions_torch.train.optim import Optimizer, learning_rate
 from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
 from tumblr_emotions_torch.utils import metrics as metrics_lib
+from tumblr_emotions_torch.utils.summaries import ProfilerHook, SummaryWriter
 
 log = logging.getLogger("tumblr_emotions_torch")
 
 EMBEDDINGS = "WordEmbedding/embeddings"
-LATER = "not ported yet: it comes with the {} slice"
 
 
 @dataclasses.dataclass
@@ -148,26 +175,34 @@ class Trainer:
     preprocessing).  A batch is a dict of arrays or tensors: ``image``,
     ``tokens``, ``lengths``, ``label`` and, for eval, an optional 0/1
     ``weight`` that masks padding rows.
+
+    ``mesh``: the data-parallel mesh (default ``parallel.create_mesh`` of
+    ``cfg.mesh`` over the active process group: no group for one process);
+    each batch given to a step is then this process's rows of the global
+    batch (``cfg.train.batch_size`` rows per process).  A mesh with a group
+    takes the collective path, also for one process.
     """
 
-    def __init__(self, cfg: Config, preprocess: Optional[str] = None, device="cuda"):
+    def __init__(self, cfg: Config, preprocess: Optional[str] = None, device="cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
         if preprocess not in (None, "train", "eval"):
             raise ValueError(f"preprocess must be None, 'train' or 'eval', got {preprocess!r}")
-        if cfg.train.precision_mode != "parity":
-            raise NotImplementedError(
-                "training in precision_mode=" + repr(cfg.train.precision_mode) + " is "
-                + LATER.format("perf-mode (bf16) training"))
         self.cfg = cfg
         self.preprocess = preprocess
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_lib.create_mesh(cfg.mesh)
+        self.group, self.rank, self.world = self.mesh.group, self.mesh.rank, self.mesh.data
         self.optimizer = Optimizer(cfg.train)
         # The model only gives the computation: its tensors stay on the meta
         # device, and every step runs it on a TrainState's tensors.
         self.model = build_model(cfg, device="meta")
+        if self.group is not None:
+            set_data_parallel(self.model, self.group, self.rank, self.world)
         self.param_keys = [k for k, _ in self.model.named_parameters()]
         self.state_keys = list(self.model.state_dict())
         self._ckpt_mgr: Optional[ckpt_lib.CheckpointManager] = None
         self.last_save: Optional[Dict[str, float]] = None
+        self.last_trace: Optional[str] = None
 
     # -- initialization ----------------------------------------------------
 
@@ -206,8 +241,20 @@ class Trainer:
     # -- the steps -----------------------------------------------------------
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The batch on the device, by non-blocking copies (from pinned
+        memory they overlap the card's work)."""
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
+
+    def _numerics(self):
+        """The model's numerics: TF32 off in parity mode; in perf mode the
+        bf16 layers decide (their convs run TF32 on bf16 values, exactly)."""
+        return full_f32() if self.cfg.train.precision_mode == "parity" else \
+            contextlib.nullcontext()
+
+    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the process group (itself without one)."""
+        return t if self.group is None else distributed.all_reduce_(t, self.group)
 
     def _maybe_preprocess(self, batch: Dict[str, torch.Tensor], train: bool,
                           generator: Optional[torch.Generator],
@@ -218,8 +265,11 @@ class Trainer:
         size = self.cfg.image.image_size
         if self.preprocess == "train" and train:
             if draws is None:
+                # the global batch's draws; this process keeps its rows
                 n, h, w, _ = image.shape
-                draws = pp.draw_train(generator, n, (h, w), device=image.device)
+                rows = self.mesh.rows(n)
+                draws = pp.draw_train(generator, n * self.world, (h, w),
+                                      device=image.device).rows(rows)
             image = pp.apply_train(image, draws, size, size,
                                    resize_method=self.cfg.data.resize_method)
         else:
@@ -247,7 +297,10 @@ class Trainer:
         batch = self.train_inputs(batch, generator, draws)
         loss, logits, grads = self.loss_and_grads(state, batch, generator)
         self.apply_gradients(state, grads)
-        acc = (logits.argmax(-1) == batch["label"].long()).float().mean()
+        acc = (logits.to(self.model.dtype).argmax(-1) == batch["label"].long()).float().mean()
+        if self.group is not None:
+            # loss is this process's share of the global loss already
+            loss, acc = self._all_reduce(torch.stack([loss, acc / self.world])).unbind()
         return TrainState(state.step + 1, state.state, state.opt_state), {"loss": loss,
                                                                           "accuracy": acc}
 
@@ -262,10 +315,12 @@ class Trainer:
                        ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """The forward in train mode (the BN moving statistics move in
         place), the loss, and by autograd the gradient of every trainable
-        leaf: ``(loss, logits, {key: grad})``, TF32 off throughout."""
+        leaf: ``(loss, logits, {key: grad})``, TF32 off throughout in parity
+        mode.  Under data parallelism the loss is this process's share of
+        the global loss and the gradients are summed over the group."""
         cfg = self.cfg
         params = {k: state.state[k] for k in self.trainable_keys(state)}
-        with full_f32(), torch.enable_grad():
+        with self._numerics(), torch.enable_grad():
             self.model.train()
             logits, end_points = functional_call(self.model, state.state,
                                                  self._model_args(batch),
@@ -275,26 +330,32 @@ class Trainer:
             if "AuxLogits" in end_points:
                 loss = loss + cfg.image.aux_loss_weight * cross_entropy(
                     end_points["AuxLogits"], label)
-            loss = loss + l2_regularization(state.state, cfg.train.weight_decay)
+            loss = (loss + l2_regularization(state.state, cfg.train.weight_decay)) / self.world
             # A leaf the loss does not reach (the joint model's unused tower
             # Logits bias) has a zero gradient, as jax.grad gives it.
             grads = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
+        if self.group is not None:
+            flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]))
+            grads = dict(zip(grads, (f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads.values()]), grads.values()))))
         return loss.detach(), logits.detach(), grads
 
     def apply_gradients(self, state: TrainState, grads: Dict[str, torch.Tensor]) -> None:
         """The optimizer update of the leaves in ``grads``, in place."""
-        with full_f32():
+        with self._numerics():
             self.optimizer.update({k: state.state[k] for k in grads}, grads, state.opt_state)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """The batch's metric statistics (``metrics.batch_stats``) and its
         pad-masked ``loss_sum`` (cross-entropy plus the per-example-constant
-        L2 term, scaled by the weighted count), on the device."""
+        L2 term, scaled by the weighted count), on the device; under data
+        parallelism, summed over the process group."""
         with full_f32():
             batch = self._maybe_preprocess(self._to_device(batch), False, None, None)
+        with self._numerics():
             self.model.eval()
             logits, _ = functional_call(self.model, state.state, self._model_args(batch))
             w = batch.get("weight")
@@ -304,6 +365,11 @@ class Trainer:
             w = torch.ones_like(per_ex) if w is None else w.float()
             l2 = l2_regularization(state.state, self.cfg.train.weight_decay)
             stats["loss_sum"] = (per_ex * w).sum() + l2 * stats["count"].float()
+        if self.group is not None:
+            keys = list(stats)
+            flat = self._all_reduce(torch.cat([stats[k].double().reshape(-1) for k in keys]))
+            parts = flat.split([stats[k].numel() for k in keys])
+            stats = {k: p.view_as(stats[k]).to(stats[k].dtype) for k, p in zip(keys, parts)}
         return stats
 
     # -- loops ---------------------------------------------------------------
@@ -313,58 +379,81 @@ class Trainer:
             eval_batches: Optional[Callable[[], Iterable]] = None,
             input_iterator=None) -> TrainState:
         """Train for ``num_steps`` (default ``cfg.train.num_steps``) or until
-        ``batches`` ends, logging loss, accuracy, examples/s and the
-        learning rate every ``log_every`` steps (the only reads of the
-        card's results).  Step ``s`` draws from a generator on the device
-        seeded by ``step_seed(cfg.train.seed, s)``.
+        ``batches`` ends, logging loss, accuracy, examples/s (of the global
+        batch) and the learning rate every ``log_every`` steps (the only
+        reads of the card's results) and writing them as ``train/*``
+        scalars (process 0).  Step ``s`` draws from a generator on the
+        device seeded by ``step_seed(cfg.train.seed, s)``.
 
         With a checkpoint manager (``checkpoint_manager()``), the state is
         saved every ``checkpoint_every`` steps and at the end, and
         ``eval_batches()`` (a fresh pass over the eval split) is evaluated
-        at each save and at the end.  ``input_iterator`` (a resumable
-        iterator underneath ``batches``) has its position saved beside each
-        checkpoint, so a restart resumes at the exact record."""
+        at each save and at the end (``eval/*`` scalars).  ``input_iterator``
+        (a resumable iterator underneath ``batches``) has its position saved
+        beside each checkpoint, so a restart resumes at the exact record.
+        The profiler hook traces steps ``[profile_start_step,
+        profile_start_step + profile_num_steps)`` into a Chrome trace
+        under ``log_dir`` (its path in ``last_trace``)."""
         t = self.cfg.train
-        if t.profile_start_step > 0:
-            raise NotImplementedError("profile_start_step > 0: the profiler hook is "
-                                      + LATER.format("tooling"))
         num_steps = t.num_steps if num_steps is None else num_steps
         gen = torch.Generator(device=self.device)
         it = iter(batches)
+        writer = SummaryWriter(t.log_dir if self.rank == 0 else "")
+        profiler = ProfilerHook(t.log_dir or os.path.join(t.checkpoint_dir, "trace"),
+                                t.profile_start_step, t.profile_num_steps,
+                                rank=self.rank if self.world > 1 else None)
+        self.last_trace = profiler.trace_path
         step = last_step = state.step
         last_t = time.perf_counter()
-        for _ in range(num_steps):
-            try:
-                batch = next(it)
-            except StopIteration:
-                log.info("input exhausted at step %d", step)
-                break
-            gen.manual_seed(step_seed(t.seed, step))
-            state, m = self.train_step(state, batch, gen)
-            step += 1
-            if step % t.log_every == 0:
-                loss, acc = float(m["loss"]), float(m["accuracy"])
-                now = time.perf_counter()
-                ips = t.batch_size * (step - last_step) / max(now - last_t, 1e-9)
-                log.info("step %d loss %.4f acc %.3f (%.1f ex/s, lr %.3g)", step, loss, acc,
-                         ips, learning_rate(t, step))
-                last_t, last_step = now, step
-            if self._ckpt_mgr is not None and step % t.checkpoint_every == 0:
-                self.save_checkpoint(state, input_iterator=input_iterator)
-                if eval_batches is not None:
-                    self._eval_and_log(state, eval_batches, step)
+        try:
+            for _ in range(num_steps):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    log.info("input exhausted at step %d", step)
+                    break
+                gen.manual_seed(step_seed(t.seed, step))
+                profiler.maybe_start(step + 1)
+                with profiler.step_range(step + 1):
+                    state, m = self.train_step(state, batch, gen)
+                step += 1
+                profiler.maybe_stop(step)
+                if step % t.log_every == 0:
+                    loss, acc = float(m["loss"]), float(m["accuracy"])
+                    now = time.perf_counter()
+                    ips = t.batch_size * self.world * (step - last_step) / max(now - last_t, 1e-9)
+                    lr = learning_rate(t, step)
+                    if self.rank == 0:
+                        log.info("step %d loss %.4f acc %.3f (%.1f ex/s, lr %.3g)", step, loss,
+                                 acc, ips, lr)
+                    writer.write_scalars(step, {"train/loss": loss, "train/accuracy": acc,
+                                                "train/examples_per_sec": ips,
+                                                "train/learning_rate": lr})
+                    last_t, last_step = now, step
+                if self._ckpt_mgr is not None and step % t.checkpoint_every == 0:
+                    self.save_checkpoint(state, input_iterator=input_iterator)
+                    if eval_batches is not None:
+                        self._eval_and_log(state, eval_batches, step, writer)
+        finally:
+            profiler.stop_if_active()
+            writer.flush()
         if self._ckpt_mgr is not None:
             self.save_checkpoint(state, input_iterator=input_iterator)
         if eval_batches is not None:
-            self._eval_and_log(state, eval_batches, step)
+            self._eval_and_log(state, eval_batches, step, writer)
+        writer.close()
         return state
 
     def _eval_and_log(self, state: TrainState, eval_batches: Callable[[], Iterable],
-                      step: int) -> Dict:
+                      step: int, writer: SummaryWriter) -> Dict:
         summary = self.evaluate(state, eval_batches())
-        log.info("eval @ step %d: accuracy %.4f loss %.4f (n=%d)", step,
-                 summary.get("accuracy", 0.0), summary.get("loss", 0.0),
-                 summary.get("count", 0))
+        if self.rank == 0:
+            log.info("eval @ step %d: accuracy %.4f loss %.4f (n=%d)", step,
+                     summary.get("accuracy", 0.0), summary.get("loss", 0.0),
+                     summary.get("count", 0))
+        writer.write_scalars(step, {"eval/accuracy": float(summary.get("accuracy", 0.0)),
+                                    "eval/loss": float(summary.get("loss", 0.0))})
+        writer.flush()
         return summary
 
     def evaluate(self, state: TrainState, batches: Iterable[Dict[str, Any]],
@@ -372,7 +461,11 @@ class Trainer:
         """Streaming evaluation: each batch's statistics are added on the
         device and read back once, at the end.  Returns
         ``metrics.summarize`` plus the mean ``loss`` over the weighted
-        examples."""
+        examples.  Under data parallelism each process passes its own shard
+        and the statistics are the whole split's (lockstep, see
+        :meth:`lockstep_local_batches`)."""
+        if self.group is not None:
+            batches = self.lockstep_local_batches(batches)
         total = None
         loss_sum = torch.zeros((), dtype=torch.float64, device=self.device)
         for batch in batches:
@@ -389,36 +482,72 @@ class Trainer:
         summary["loss"] = float(loss_sum) / count
         return summary
 
+    def lockstep_local_batches(self, batches: Iterable[Dict[str, Any]]) -> List[Dict]:
+        """This process's eval batches, each with a ``weight`` leaf, padded
+        to the longest shard's count with weight-0 copies of the last batch:
+        every process must run the collective eval step as many times.  A
+        zero-weight batch adds nothing to any statistic."""
+        local = []
+        for b in batches:
+            if "weight" not in b:
+                b = dict(b, weight=np.ones(len(b["label"]), np.int32))
+            local.append(b)
+        n_max = max(distributed.all_gather_int(len(local), self.group, self.device))
+        if len(local) < n_max:
+            if not local:
+                raise ValueError(
+                    "multi-host sharded eval: this process's record shard produced zero "
+                    f"batches while another produced {n_max}; shard the eval split so "
+                    "every process gets at least one batch, or evaluate unsharded")
+            w = local[-1]["weight"]
+            pad = dict(local[-1], weight=torch.zeros_like(w) if torch.is_tensor(w)
+                       else np.zeros_like(w))
+            local.extend([pad] * (n_max - len(local)))
+        return local
+
     def evaluate_continuously(self, state: TrainState, batches_fn: Callable[[], Iterable],
                               class_names=None, interval_secs: float = 30.0,
                               max_step: Optional[int] = None,
                               timeout_secs: Optional[float] = None,
                               _sleep=time.sleep) -> Iterator[Tuple[int, Dict]]:
         """slim ``evaluation_loop`` semantics: poll the checkpoint dir,
-        evaluate every new checkpoint as it appears, and stop once the
-        evaluated step reaches ``max_step`` (default
-        ``cfg.train.num_steps``) or no new checkpoint arrives within
-        ``timeout_secs`` (wall clock).  ``batches_fn()`` gives a fresh pass
-        over the eval split per evaluation.  Yields ``(step, summary)``."""
+        evaluate every new checkpoint as it appears (writing ``eval/*``
+        scalars), and stop once the evaluated step reaches ``max_step``
+        (default ``cfg.train.num_steps``) or no new checkpoint arrives
+        within ``timeout_secs`` (wall clock).  ``batches_fn()`` gives a
+        fresh pass over the eval split per evaluation.  Yields ``(step,
+        summary)``.  Under data parallelism process 0's poll decides for
+        every process (which step, whether to stop), so all evaluate the
+        same checkpoint in lockstep."""
         mgr = self.checkpoint_manager()
         stop_step = max_step if max_step is not None else self.cfg.train.num_steps
+        writer = SummaryWriter(self.cfg.train.log_dir if self.rank == 0 else "")
         last_evaluated = -1
         deadline = time.monotonic() + timeout_secs if timeout_secs is not None else None
         while True:
             step = mgr.latest_step()
+            expired = deadline is not None and time.monotonic() >= deadline
+            if self.group is not None:
+                step, expired = self._from_process_0(-1 if step is None else step, int(expired))
+                step = None if step < 0 else step
             restored = None
             if step is not None and step > last_evaluated:
                 try:
-                    restored = self.restore_latest(state)
+                    restored = self.restore(state, step)
                 except (OSError, ValueError) as e:  # vanished or unreadable meanwhile
                     log.warning("checkpoint %d not restorable: %s", step, e)
+                if self.group is not None and self._all_reduce(torch.tensor(
+                        [float(restored is None)], device=distributed.collective_device(
+                            self.group, self.device))).item():
+                    restored = None       # one process could not read it: none evaluates
             if restored is None:
                 # No new checkpoint, or it vanished or is unreadable: honour
                 # the deadline (not reset: a corrupt latest checkpoint must
                 # still time out) and back off.
-                if deadline is not None and time.monotonic() >= deadline:
+                if expired:
                     log.info("eval loop: no new checkpoint after %.0fs, stopping",
                              timeout_secs)
+                    writer.close()
                     return
                 _sleep(interval_secs)
                 continue
@@ -428,10 +557,23 @@ class Trainer:
             last_evaluated = restored.step
             log.info("eval @ step %d: accuracy %.4f loss %.4f", last_evaluated,
                      summary.get("accuracy", 0.0), summary.get("loss", 0.0))
+            writer.write_scalars(last_evaluated, {
+                "eval/accuracy": float(summary.get("accuracy", 0.0)),
+                "eval/loss": float(summary.get("loss", 0.0))})
+            writer.flush()
             yield last_evaluated, summary
             if last_evaluated >= stop_step:
                 log.info("eval loop: reached final step %d", last_evaluated)
+                writer.close()
                 return
+
+    def _from_process_0(self, *values: int) -> List[int]:
+        """Process 0's ``values`` on every process."""
+        t = torch.tensor(values, dtype=torch.int64,
+                         device=distributed.collective_device(self.group, self.device))
+        if self.rank != 0:
+            t.zero_()
+        return [int(v) for v in self._all_reduce(t).tolist()]
 
     # -- checkpoints ---------------------------------------------------------
 
@@ -464,29 +606,42 @@ class Trainer:
         an orphan position file (pruned later), never a checkpoint beside a
         stale position.  ``last_save`` keeps the data ``bytes``, the
         ``seconds`` of the whole save (the copy to the host included) and
-        the bundle's ``write_seconds``."""
+        the bundle's ``write_seconds``.  Under data parallelism every
+        process writes its own input position, then process 0 the bundle
+        (the state is the same on every process), between barriers."""
         mgr = self.checkpoint_manager()
         if input_iterator is not None and hasattr(input_iterator, "get_state"):
             pipeline.save_iterator_state(input_iterator, self._input_state_path(state.step))
-        if state.step not in mgr.all_steps():
+        self._barrier()
+        if self.rank == 0 and state.step not in mgr.all_steps():
             t0 = time.perf_counter()
             saved = mgr.save(state.step, self.state_tensors(state))
             self.last_save = {"bytes": saved["bytes"], "write_seconds": saved["seconds"],
                               "seconds": time.perf_counter() - t0}
             log.info("checkpoint @ step %d: %d bytes in %.3f s (written in %.3f s)",
                      state.step, saved["bytes"], self.last_save["seconds"], saved["seconds"])
+        self._barrier()
         self._prune_input_states()
 
+    def _barrier(self) -> None:
+        if self.group is not None:
+            distributed.barrier(self.group, self.device)
+
+    def _proc_suffix(self) -> str:
+        return f".proc{self.rank}" if self.world > 1 else ""
+
     def _input_state_path(self, step: int) -> str:
-        """The input-position file of ``step``."""
+        """The input-position file of ``step`` (this process's own under
+        data parallelism: each checkpoints its shard's position)."""
         return os.path.join(self.checkpoint_manager().directory,
-                            f"input_iterator_{int(step)}.json")
+                            f"input_iterator_{int(step)}{self._proc_suffix()}.json")
 
     def _prune_input_states(self) -> None:
-        """Drop position files whose step the manager no longer keeps."""
+        """Drop this process's position files whose step the manager no
+        longer keeps."""
         mgr = self.checkpoint_manager()
         keep = set(mgr.all_steps())
-        pat = re.compile(r"input_iterator_(\d+)\.json$")
+        pat = re.compile(r"input_iterator_(\d+)%s\.json$" % re.escape(self._proc_suffix()))
         for p in glob.glob(os.path.join(mgr.directory, "input_iterator_*.json")):
             m = pat.search(p)
             if m and int(m.group(1)) not in keep:
