@@ -79,7 +79,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                /healthz reports cuda, /stats at least 3 batches and no error;
                a corrupt body sent with 15 good ones gets a 400 and they
                get their answers; the batch-1 Predictor on two fixtures at native
-               size agrees with the f32 parity runner.  Prints posts/s, p50
+               size agrees with the f32 parity runner, and its eager program's
+               first and repeated calls against the same program captured
+               (ms, peak memory).  Prints posts/s, p50
                and p99 latency, and the host decode+resize img/s (8 threads).
 13. train_joint -- the training main path: Trainer(joint_finetune,
                preprocess="train") at full width (Inception-v3 depth 1.0, 299
@@ -131,7 +133,43 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its runner, 66 + 4 launches per device batch; predict
                (subprocess) against the Predictor.  Prints the time split,
                the checkpoint's bytes and write seconds and infer's img/s.
-17. kernels -- one JSON line listing every ported kernel.
+    analyze -- the CLI's analyze on run A's checkpoint over the validation
+               records, with --examples: the circumplex within ANALYZE_TOL of
+               the one of the CPU's probabilities, every emotion's section in
+               the report.
+17. train_perf, train_dp -- perf-mode training of the data_parallel preset,
+               and two processes on the card.
+captured -- run before e2e_http: every served runner (int8 s2d, uint8 and
+               float fronts, bf16 cuDNN, bf16 with the block kernels, joint
+               int8, text rnn) at full width, batch 64, as one CUDA graph per
+               batch (utils/compile_opts.capture) against the same program
+               launched op by op: bit-equal on the 3 batches, one graph
+               launch per batch, each graph's kernel nodes (read from the
+               graph by name) against the eager program's launches per
+               forward, img/s of both
+               interleaved over CAPTURED_WINDOWS windows on the host clock,
+               idle share and kernels per batch from a trace, peak memory.
+               e2e_http then serves the captured joint program.
+tune     -- cli tune --engine int8 --batch-size 64 (eager against captured),
+               then again from its cache.
+parity   -- cli parity on a full-width slim checkpoint (1001 classes, aux
+               head, seeded weights): goldens saved on the CPU pass on the
+               card within PARITY_TOL; goldens moved by 0.01 fail (rc 1).
+train_embeddings -- SGNS word2vec at V 50,000, D 200, B 1024, K 5 on a seeded
+               Zipf corpus, at the command's learning rate: steps/s, the host
+               sampler's share, the loss; the first steps against the CPU at a
+               rate whose update stands well above the tolerance.
+full_mode -- slim's full-mode train distortions on uint8 [32,347,347,3] on
+               the card against the CPU on the same draws; ms against fast
+               mode.
+kernels -- one JSON line listing every ported kernel (launches from
+               Python by path; on the card, with each CUDA graph's kernel
+               nodes times its replays, and the replays, by path).
+
+Launch counts: every served runner is a captured program, so each served
+path is counted from its runner's first call, which runs eagerly (the
+warm-up, counted by the wrappers); a replay runs no Python, and the graph's
+kernels are read from the graph itself (served_launches).
 
 The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -260,11 +298,66 @@ CLI_STEPS = 6
 CLI_CKPT_EVERY = 3
 CLI_SERVE_POSTS = 64
 CLI_TIMEOUT_S = 600           # each CLI subprocess
+# analyze's circumplex (printed to 4 decimals) against the one of the CPU's
+# probabilities over the same split: rounding plus the card's f32 forward
+ANALYZE_TOL = 1e-3
+
+# Phase captured: every served runner as one CUDA graph per batch against
+# the same program launched op by op (bit for bit), img/s over
+# CAPTURED_WINDOWS interleaved windows of CAPTURED_PASSES passes over the
+# batches.
+CAPTURED_WINDOWS = 5
+CAPTURED_PASSES = 2
+CAPTURED_TRACE_PASSES = 3
+EAGER = {"cuda_graph": "false"}
+# Phase parity: the full-width slim tower (1001 classes, aux head) on
+# PARITY_N seeded uint8 images, goldens from the CPU, the gate on the card
+# at the reference's budget.
+PARITY_N = 8
+PARITY_TOL = 1e-4
+# Phase train_embeddings: SGNS at the width train-embeddings runs (V 50,000,
+# D 200, B 1024, K 5) on a seeded Zipf corpus; W2V_STEPS timed steps at the
+# command's learning rate (0.025: the objective is a mean over the batch, as
+# in the reference, so from 6 ln 2 with W_out at zero the loss moves below
+# f32's resolution in 200 steps; the line prints it).  The first
+# W2V_CHECK_STEPS against the CPU on the same batches, at W2V_CHECK_LR so
+# that the update (update_max_abs, ~1e-4) stands at least W2V_UPDATE_FACTOR
+# times above W2V_TOL: the gathers' gradients sum in another order on the
+# card, so the two agree to f32 rounding of the updates.
+W2V_VOCAB, W2V_DIM, W2V_BATCH, W2V_NEG = 50_000, 200, 1024, 5
+W2V_POSTS, W2V_WORDS = 20_000, 20
+W2V_STEPS = 200
+W2V_CHECK_STEPS = 20
+W2V_CHECK_LR = 25.0
+W2V_TOL = 1e-6
+W2V_UPDATE_FACTOR = 50
+# Phase full_mode: slim's full-mode distortions on FULL_BATCH uint8 images
+# on the card against the CPU on the same draws, within PERF_IMAGE_ATOL
+# away from hue-sector crossings.
+FULL_BATCH = 32
 
 REPLACES = "tumblr_emotions_tpu/ops/fused_inception.py"
 # The block conv's pooled form (the 3x3 average pool fused into Branch_3's
 # 1x1): a template of the same kernel, listed and counted apart.
 POOLED = "conv_same_bias_relu pooled"
+# Each launch count's kernel functions, by their mangled names in a captured
+# CUDA graph (``Captured.kernel_nodes``).  The blocks (fused_inception_a/b)
+# are plans of conv_bf16_wgmma launches with no node of their own.
+GRAPH_KERNELS = {
+    "conv_int8": r"conv_int8_(wgmma|bytes)",
+    "conv_int8 byte path": r"conv_int8_bytes",
+    "maxpool3x3s2_int8": r"maxpool_(vec|scalar)_kernel",
+    "conv_same_bias_relu": r"conv_bf16_wgmma",
+    POOLED: r"conv_bf16_wgmmaILi\d+ELi\d+ELb1E",   # template <BM, BN, POOL = true>
+}
+# Launches per forward of the int8 programs (66 convs, 4 pools) and of the
+# bf16 program with the block kernels (3 Inception-A and 4 Inception-B
+# blocks, plans of 5 and 8 block-conv launches, 7 of them pooled).
+INT8_PER_FORWARD = {"conv_int8": 66, "maxpool3x3s2_int8": 4}
+BF16_PER_FORWARD = {"fused_inception_a": 3, "fused_inception_b": 4,
+                    "conv_same_bias_relu": 3 * 5 + 4 * 8, POOLED: 7}
+# path -> the CUDA graphs' part of its run (``served_launches``).
+GRAPH_RUNS: dict = {}
 
 
 T0 = time.perf_counter()
@@ -308,15 +401,45 @@ def compare(name: str, got, want, tol: float) -> float:
     return err
 
 
-def check_launches(launches) -> None:
-    """Per served batch: 3 Inception-A and 4 Inception-B blocks, each a plan
-    of 5 and 8 launches of the block conv, one of them its pooled form; the
-    int8 kernels are not on this path."""
-    want = {"fused_inception_a": 3 * N_BATCHES, "fused_inception_b": 4 * N_BATCHES,
-            "conv_same_bias_relu": (3 * 5 + 4 * 8) * N_BATCHES, POOLED: 7 * N_BATCHES,
-            "conv_int8": 0, "maxpool3x3s2_int8": 0}
-    if launches != want:
-        fail(f"launch counts {launches} != {want}")
+def served_launches(phase: str, launches: dict, graphs, forwards: int,
+                    per_forward: dict, byte_path: int = 0) -> dict:
+    """Check what a served program ran over ``forwards`` forwards, counted
+    from before its first call: ``per_forward`` launches each (every other
+    count 0; ``byte_path`` of the int8 convs on the byte-load kernel).
+    ``graphs``: the captured program's ``kernel_nodes()`` (None for a program
+    run eagerly).  A captured program's first call of a signature runs
+    eagerly, as a warm-up whose launches the wrappers count; its later calls
+    replay the graph, whose kernel nodes, read from the graph by name, must
+    be one forward's.
+    The eager forwards and the replays together are ``forwards``, and the
+    wrappers launched each kernel at least once.  Adds the byte-load count to
+    ``launches``; returns the graphs' part: their number, replays, kernel
+    nodes, and the launches on the card (the wrappers' plus each graph's
+    nodes times its replays)."""
+    import re
+
+    from tumblr_emotions_torch.ops import int8_conv as ic
+
+    launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
+    want = {k: per_forward.get(k, 0) for k in launches}
+    want["conv_int8 byte path"] = byte_path if per_forward.get("conv_int8") else 0
+    captured = graphs is not None
+    graphs = [({k: sum(n for name, n in g["kernels"].items() if re.search(pat, name))
+                for k, pat in GRAPH_KERNELS.items()}, g["replays"]) for g in graphs or []]
+    replays = sum(r for _, r in graphs)
+    eager = forwards - replays
+    if eager < 1 or (captured and eager != len(graphs)):
+        fail(f"{phase}: {forwards} forwards, {len(graphs)} graphs replayed {replays} times")
+    if launches != {k: v * eager for k, v in want.items()}:
+        fail(f"{phase}: launch counts {launches}, expected {want} per eager forward "
+             f"({eager})")
+    for nodes, _ in graphs:
+        if nodes != {k: want[k] for k in GRAPH_KERNELS}:
+            fail(f"{phase}: a graph holds {nodes}, expected one forward's {want}")
+    return {"graphs": len(graphs), "replays": replays,
+            "kernel_nodes_per_graph": [nodes for nodes, _ in graphs],
+            "device_launches": {k: launches[k] + sum(n[k] * r for n, r in graphs)
+                                for k in GRAPH_KERNELS}}
 
 
 def conv_bound(x, w, outs) -> dict:
@@ -543,15 +666,16 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
                library_ms=lib, library_note=lib_note, **b)
     del convs, pools
 
-    # ---- 7. e2e_int8: the default served program ----
-    for batch in batches:                      # warm-up: per-site constants, allocator
-        runner(batch)
-    torch.cuda.synchronize()
+    # ---- 7. e2e_int8: the default served program, counted from its first
+    # call (the warm-up: per-site constants, allocator, the capture) ----
     reset_all_launches()
+    for batch in batches:
+        runner(batch)
     probs = [runner(raw) for raw in batches]
     torch.cuda.synchronize()
     launches = all_launches()
-    check_int8_launches("e2e_int8", launches)
+    GRAPH_RUNS["e2e_int8"] = served_launches("e2e_int8", launches, runner.program.kernel_nodes(),
+                                             2 * N_BATCHES, INT8_PER_FORWARD)
     for p in probs:
         if p.shape != (BATCH, 15) or not torch.isfinite(p).all():
             fail(f"int8 probabilities: shape {tuple(p.shape)} or non-finite")
@@ -572,7 +696,8 @@ def int8_phases(dev, state, batches, smi, img_s, eng_k, eng_c):
                                      stem_s2d="pre")
     kinds = list(eng.last_epilogue_kinds.values())
     emit({"phase": "e2e_int8", "batch": BATCH, "batches": N_BATCHES, "src_hw": SRC_HW,
-          "launches": launches, "stage_int8_mismatches_vs_plain": stage_diff,
+          "launches": launches, "graphs": GRAPH_RUNS["e2e_int8"],
+          "stage_int8_mismatches_vs_plain": stage_diff,
           "prob_max_abs_diff_vs_plain": pdiff, "prob_tol": INT8_PROB_TOL,
           "epilogue_kinds": {k: kinds.count(k) for k in sorted(set(kinds))},
           "quantization_delta_vs_bf16_kernels": delta,
@@ -649,14 +774,14 @@ def joint_phases(dev, state, batches, smi, serve_rate, runner, calib):
     jrun = build_forward(cfg, joint_state, engine="int8", front="s2d", calib_images=calib,
                          device=dev)
     setup_s = time.perf_counter() - t0
-    for raw, tok in zip(batches, tokens):      # warm-up
-        jrun(raw, tok)
-    torch.cuda.synchronize()
     reset_all_launches()
+    for raw, tok in zip(batches, tokens):      # warm-up, the capture
+        jrun(raw, tok)
     probs = [jrun(raw, tok) for raw, tok in zip(batches, tokens)]
     torch.cuda.synchronize()
     launches = all_launches()
-    check_int8_launches("e2e_joint", launches)
+    GRAPH_RUNS["e2e_joint"] = served_launches("e2e_joint", launches, jrun.program.kernel_nodes(),
+                                              2 * N_BATCHES, INT8_PER_FORWARD)
     paths["e2e_joint"] = launches
     for p in probs:
         if p.shape != (BATCH, 15) or not torch.isfinite(p).all():
@@ -690,7 +815,8 @@ def joint_phases(dev, state, batches, smi, serve_rate, runner, calib):
           "aggregator": cfg.text.aggregator, "max_len": TEXT_T, "batch": BATCH,
           "batches": N_BATCHES, "src_hw": SRC_HW, "setup_s": setup_s,
           "lengths_min_max": [int(lens.min()), int(lens.max())],
-          "launches": launches, "stage_int8_mismatches_vs_plain": stages,
+          "launches": launches, "graphs": GRAPH_RUNS["e2e_joint"],
+          "stage_int8_mismatches_vs_plain": stages,
           "prob_max_abs_diff_vs_plain": pdiff, "prob_tol": INT8_PROB_TOL,
           "all_pad_row_finite": all(bool(torch.isfinite(p[0]).all()) for p in probs),
           "top1_agree_vs_parity": agree / (BATCH * N_BATCHES),
@@ -711,15 +837,15 @@ def joint_phases(dev, state, batches, smi, serve_rate, runner, calib):
     if d.max().item() > 1 or (d > 0).double().mean().item() > FLOAT_SITE_SHARE:
         fail(f"e2e_uint8: preprocess_for_eval_int8 on the card off its plain version: "
              f"max {d.max().item()}, {int((d > 0).sum())} elements")
-    for raw in batches:
-        urun(raw)
-    torch.cuda.synchronize()
     reset_all_launches()
+    for raw in batches:                        # warm-up, the capture
+        urun(raw)
     uprobs = [urun(raw) for raw in batches]
     torch.cuda.synchronize()
     launches = all_launches()
     # The stem reads the 3-channel int8 image: the conv's byte-load kernel.
-    check_int8_launches("e2e_uint8", launches, byte_path=1)
+    GRAPH_RUNS["e2e_uint8"] = served_launches("e2e_uint8", launches, urun.program.kernel_nodes(),
+                                              2 * N_BATCHES, INT8_PER_FORWARD, byte_path=1)
     paths["e2e_uint8"] = launches
     uplain = quant.QuantizedInceptionV3(state, calib, use_kernels=False, device=dev)
     stages = stage_mismatches("e2e_uint8", eng, uplain, (q, s_in))
@@ -736,7 +862,7 @@ def joint_phases(dev, state, batches, smi, serve_rate, runner, calib):
     emit({"phase": "e2e_uint8", "batch": BATCH, "batches": N_BATCHES, "src_hw": SRC_HW,
           "preprocess_max_abs_diff_vs_cpu": d.max().item(),
           "preprocess_mismatches_vs_cpu": int((d > 0).sum()),
-          "preprocess_elements": d.numel(), "launches": launches,
+          "preprocess_elements": d.numel(), "launches": launches, "graphs": GRAPH_RUNS["e2e_uint8"],
           "stage_int8_mismatches_vs_plain": stages, "prob_max_abs_diff_vs_plain": pdiff,
           "img_s_uint8": rates["uint8"], "img_s_s2d": rates["s2d"],
           "img_s_order": "s2d, uint8, uint8, s2d", "card": smi})
@@ -816,6 +942,7 @@ def http_phase(dev, smi, calib):
     from tumblr_emotions_torch.ops.serving import build_forward
     from tumblr_emotions_torch.server import BatchedPredictor, EmotionHTTPServer
     from tumblr_emotions_torch.train.predict import Predictor
+    from tumblr_emotions_torch.utils.compile_opts import capture
 
     # ---- the fixtures decode and resize here as the reference does ----
     root = Path(__file__).resolve().parent / FIXTURES
@@ -857,6 +984,8 @@ def http_phase(dev, smi, calib):
     captions = [" ".join(rng.choice(words + list(EMOTIONS) + ["#love", "http://t.co/x"],
                                     rng.randint(0, 60)))
                 for _ in range(n_posts)]
+    # counted from the runner's first call: the warm-up, which captures it
+    reset_all_launches()
     warm = np.zeros((BATCH, HOST_SIZE, HOST_SIZE, 3), np.uint8)
     runner(warm, *vocab.encode_batch(captions[:BATCH], cfg.text.max_len))
     torch.cuda.synchronize()
@@ -928,7 +1057,6 @@ def http_phase(dev, smi, calib):
         # taken by 64 threads at once, stalls some of them for ~2 s (the
         # client's cost, not the server's): /healthz pays it first.
         health = get("/healthz")
-        reset_all_launches()
         t = time.perf_counter()
         wave([(i, bodies[pick[i]], captions[i]) for i in range(n_posts)])
         wall = time.perf_counter() - t
@@ -939,12 +1067,19 @@ def http_phase(dev, smi, calib):
         wave(extra)
         torch.cuda.synchronize()
         launches = all_launches()
+        graph_nodes = runner.program.kernel_nodes()
         stats2 = get("/stats")
     finally:
         server.close()
         jpeg.decode_resize_batch = decode_resize
     forwards = stats2["batches"]
-    check_int8_launches("e2e_http", launches, forwards=forwards)
+    # the warm-up and the served batches, one graph (the batcher pads to
+    # one signature)
+    captured = served_launches("e2e_http", launches, graph_nodes, forwards + 1,
+                               INT8_PER_FORWARD)
+    if captured["graphs"] != 1:
+        fail(f"e2e_http: the runner served {forwards} device batches with graphs {captured}")
+    GRAPH_RUNS["e2e_http"] = captured
     if health.get("platform") != "cuda" or health.get("devices", 0) < 1:
         fail(f"e2e_http: /healthz {health}")
     if stats["batches"] < 3 or stats["errors"] or stats["responses"] != n_posts:
@@ -993,6 +1128,33 @@ def http_phase(dev, smi, calib):
         pdiff = max(pdiff, max(abs(got[e] - float(want[k])) for k, e in enumerate(EMOTIONS)))
     if pdiff > PREDICT_TOL:
         fail(f"e2e_http: Predictor {pdiff} from the parity runner > {PREDICT_TOL}")
+
+    # ---- the Predictor's program, eager as it serves it, against the same
+    # program captured (a graph per image size): ms of the first and a
+    # repeated call on each of two fixture sizes, peak memory, alternating ----
+    inputs = []
+    for name, text in (("baseline_420_403x301.jpg", captions[0]),
+                       ("progressive_420_161x97.jpg", captions[1])):
+        tok, lens = vocab.encode_batch([text], cfg.text.max_len)
+        inputs.append((jpeg.decode((root / name).read_bytes())[None], tok, lens))
+    predictor_cost = {"eager": [], "captured": []}
+    for mode in ("eager", "captured", "eager", "captured"):
+        prog = predictor.program if mode == "eager" else capture(predictor.program.fn,
+                                                                 device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = []
+        for x in inputs:
+            for _ in range(2):
+                t = time.perf_counter()
+                prog(*x)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+        predictor_cost[mode].append({"ms_first_repeat_first_repeat": ms,
+                                     "peak_mb": (torch.cuda.max_memory_allocated() - base)
+                                     / 2**20})
+        del prog
     del predictor, parity
 
     # ---- the host's decode + resize rate, 8 threads ----
@@ -1021,10 +1183,11 @@ def http_phase(dev, smi, calib):
           "batcher_s": {k: sum(v) for k, v in spans.items()},
           "batcher_ms_per_batch": {k: 1e3 * sum(v) / max(len(v), 1) for k, v in spans.items()},
           "stats_after_corrupt": stats2, "healthz": health, "device_batches": forwards,
-          "launches": launches, "answers_checked": agree,
+          "launches": launches, "captured_program": captured, "answers_checked": agree,
           "prob_max_abs_diff_vs_in_process": worst, "prob_tol": HTTP_PROB_TOL,
           "corrupt_body_status": results[n_posts][0],
           "predictor_max_abs_diff_vs_parity": pdiff, "predictor_tol": PREDICT_TOL,
+          "predictor_cost": predictor_cost,
           "host_decode_resize_img_s_8_threads": rates,
           "host_has_pil": importlib.util.find_spec("PIL") is not None,
           "host_has_jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
@@ -1240,7 +1403,9 @@ def train_phases(dev, smi):
     probs = [jrun(b["image"], b["tokens"]) for b in ev_batches]
     torch.cuda.synchronize()
     int8_launches = all_launches()
-    check_int8_launches("train_joint_int8", int8_launches, forwards=len(ev_batches))
+    GRAPH_RUNS["train_joint_int8"] = served_launches(
+        "train_joint_int8", int8_launches, jrun.program.kernel_nodes(), len(ev_batches),
+        INT8_PER_FORWARD)
     agree = sum(int((p.argmax(-1) == parity(b["image"], b["tokens"]).argmax(-1)).sum())
                 for p, b in zip(probs, ev_batches))
     del jrun, parity
@@ -1893,7 +2058,7 @@ def cli_phase(dev, smi, held):
     import numpy as np
     import torch
 
-    from tumblr_emotions_torch import EMOTIONS, cli, convert
+    from tumblr_emotions_torch import EMOTIONS, analysis, cli, convert
     from tumblr_emotions_torch.data import jpeg, pipeline
     from tumblr_emotions_torch.data.vocab import Vocabulary
     from tumblr_emotions_torch.models import build_model
@@ -2082,6 +2247,10 @@ def cli_phase(dev, smi, held):
         cpu_state = cpu_tr.restore_latest(cpu_tr.init_state(state0))
         val_batches = list(cli._make_batches(args, cfg, vocab, train=False))
         ev_cpu = cpu_tr.evaluate(cpu_state, val_batches)
+        # the probabilities analyze collects, on the CPU (real rows only)
+        cpu_probs = np.concatenate([cpu_tr.predict_step(cpu_state, b).numpy()[b["weight"] == 1]
+                                    for b in val_batches])
+        cpu_labels = np.concatenate([b["label"][b["weight"] == 1] for b in val_batches])
         times["eval"] = eval_job()[1]
         pred_out = predict_job()[0]
         ev = _json.loads((tmp / "eval.json").read_text().splitlines()[-1])
@@ -2109,18 +2278,31 @@ def cli_phase(dev, smi, held):
 
         # ---- infer --engine int8 --front s2d, in process, over the train
         # split (6 device batches; images/s counts only real rows) ----
+        # (the runner the command builds is kept, to read its graphs)
+        from tumblr_emotions_torch.ops import serving
+
+        made, build = [], serving.build_forward
+        serving.build_forward = lambda *a, **k: made.append(build(*a, **k)) or made[-1]
         t0 = time.perf_counter()
         reset_all_launches()
         out = io.StringIO()
-        with redirect_stdout(out):
-            cli.main(["infer", *common, "--records", train_glob, "--checkpoint-dir",
-                      str(tmp / "A"), "--engine", "int8", "--front", "s2d",
-                      "--probs-out", str(tmp / "probs.npy")])
+        try:
+            with redirect_stdout(out):
+                cli.main(["infer", *common, "--records", train_glob, "--checkpoint-dir",
+                          str(tmp / "A"), "--engine", "int8", "--front", "s2d",
+                          "--probs-out", str(tmp / "probs.npy")])
+        finally:
+            serving.build_forward = build
         torch.cuda.synchronize()
         infer_launches = all_launches()
         times["infer"] = time.perf_counter() - t0
         inf = _json.loads(out.getvalue().splitlines()[-1])
-        check_int8_launches("cli_infer", infer_launches, forwards=inf["forwards"])
+        if len(made) != 1:
+            fail(f"cli: infer built {len(made)} runners")
+        GRAPH_RUNS["cli_infer"] = served_launches(
+            "cli_infer", infer_launches, made[0].program.kernel_nodes(), inf["forwards"],
+            INT8_PER_FORWARD)
+        del made
         got = np.load(tmp / "probs.npy")
         # the plain int8 engine from the same checkpoint and calibration batch
         infer_batches = list(cli._make_batches(
@@ -2148,8 +2330,11 @@ def cli_phase(dev, smi, held):
                  f"{INT8_PROB_TOL}")
         del kern, plain, plain_srv, model, infer_batches
 
-        # ---- serve --engine int8 --port 0, in process through cli.build_server ----
+        # ---- serve --engine int8 --port 0, in process through cli.build_server,
+        # counted from the server's start (its warm-up, which captures the
+        # runner) ----
         t0 = time.perf_counter()
+        reset_all_launches()
         sargs = cli.parser().parse_args(
             ["serve", *common, "--records", val_glob, "--checkpoint-dir", str(tmp / "A"),
              "--engine", "int8", "--host", "127.0.0.1", "--port", "0",
@@ -2172,7 +2357,6 @@ def cli_phase(dev, smi, held):
             with urllib.request.urlopen(f"http://127.0.0.1:{info['port']}/healthz",
                                         timeout=60) as r:
                 r.read()
-            reset_all_launches()
             threads = [threading.Thread(target=post, args=(i,))
                        for i in range(CLI_SERVE_POSTS)]
             for th in threads:
@@ -2181,13 +2365,16 @@ def cli_phase(dev, smi, held):
                 th.join(timeout=600)
             torch.cuda.synchronize()
             serve_launches = all_launches()
+            serve_graphs = runner.program.kernel_nodes()
             stats = httpd.predictor.stats.snapshot(httpd.predictor.batch_size)
         finally:
             httpd.close()
         times["serve"] = time.perf_counter() - t0
         if len(answers) != CLI_SERVE_POSTS or stats["errors"]:
             fail(f"cli: serve answered {len(answers)} of {CLI_SERVE_POSTS} posts, {stats}")
-        check_int8_launches("cli_serve", serve_launches, forwards=stats["batches"])
+        # the warm-up and the served batches
+        GRAPH_RUNS["cli_serve"] = served_launches("cli_serve", serve_launches, serve_graphs,
+                                                  stats["batches"] + 1, INT8_PER_FORWARD)
         imgs = np.empty((CLI_SERVE_POSTS, sargs.host_size, sargs.host_size, 3), np.uint8)
         if any(jpeg.decode_resize_batch([b.read_bytes() for b, _ in pick], sargs.host_size,
                                         imgs)):
@@ -2208,6 +2395,29 @@ def cli_phase(dev, smi, held):
         if next(iter(got_p)) != next(iter(want_p)) or predict_diff > PREDICT_TOL:
             fail(f"cli: predict {predict_diff} from the Predictor (top {next(iter(got_p))} vs "
                  f"{next(iter(want_p))})")
+
+        # ---- analyze (in process) on run A's checkpoint, with --examples,
+        # against the circumplex of the CPU's probabilities ----
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with redirect_stdout(out):
+            cli.main(["analyze", *common, "--records", val_glob, "--checkpoint-dir",
+                      str(tmp / "A"), "--examples", str(tmp / "examples.md"), "--top-k", "3"])
+        times["analyze"] = time.perf_counter() - t0
+        report = (tmp / "examples.md").read_text()
+        lines = out.getvalue().splitlines()
+        coords = {ln.split()[0]: [float(v) for v in ln.split()[1:3]]
+                  for ln in lines[2:2 + len(EMOTIONS)]}
+        want_c = analysis.circumplex(cpu_probs, cpu_labels, emotions=EMOTIONS)["coords"]
+        analyze_diff = max(abs(a - b) for e in EMOTIONS for a, b in zip(coords[e], want_c[e]))
+        if sorted(coords) != sorted(EMOTIONS) or analyze_diff > ANALYZE_TOL or \
+                any(f"## {e}" not in report for e in EMOTIONS) or "Confusion pairs" not in report:
+            fail(f"analyze: circumplex {analyze_diff} from the CPU's, or a section missing "
+                 f"from the report:\n{out.getvalue()[-2000:]}")
+        emit({"phase": "analyze", "config": "joint_finetune", "depth": DEPTH,
+              "posts": int(len(cpu_labels)), "explained_variance": lines[0],
+              "coords_max_abs_diff_vs_cpu": analyze_diff, "tol": ANALYZE_TOL,
+              "report_bytes": len(report), "seconds": times["analyze"], "card": smi})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit({"phase": "cli", "config": "joint_finetune", "depth": DEPTH, "batch": CLI_BATCH,
@@ -2225,16 +2435,395 @@ def cli_phase(dev, smi, held):
                    "equal_to_cpu": True},
           "exported_tower_tensors": len(tower_names),
           "infer": {k: inf[k] for k in ("examples", "accuracy", "images_per_sec", "forwards")},
-          "infer_launches": infer_launches, "infer_prob_max_abs_diff_vs_plain": infer_diff,
+          "infer_launches": infer_launches, "infer_graphs": GRAPH_RUNS["cli_infer"],
+          "infer_prob_max_abs_diff_vs_plain": infer_diff,
           "serve": {"posts": CLI_SERVE_POSTS, "device_batches": stats["batches"],
                     "latency_ms": stats["latency_ms"]},
-          "serve_launches": serve_launches, "serve_prob_max_abs_diff_vs_in_process": serve_diff,
+          "serve_launches": serve_launches, "serve_graphs": GRAPH_RUNS["cli_serve"],
+          "serve_prob_max_abs_diff_vs_in_process": serve_diff,
           "predict_max_abs_diff_vs_predictor": predict_diff,
           "seconds": times,
           "seconds_note": "eval: the subprocess's wall, run beside the predict subprocess and "
                           "the CPU's evaluate",
           "card": smi})
     return {"cli_infer": infer_launches, "cli_serve": serve_launches}
+
+
+def captured_phase(dev, smi, state, batches, calib):
+    """Phase captured: every served runner (int8 s2d, int8 uint8, int8
+    float, bf16 cuDNN, bf16 with the block kernels, joint int8, text rnn) at
+    full width as one CUDA graph per batch (``utils.compile_opts.capture``)
+    against the same program launched op by op: bit for bit on the 3
+    batches; the kernels' launches per batch, eager (the wrappers' counts)
+    and captured (the graph's kernel nodes, read by name; the graph launches
+    per batch from the runner); img/s of each, interleaved; the
+    device idle share and kernels per batch from a trace; peak memory.
+    Returns {path: launches} of the captured runs."""
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, joint_model, text_model
+    from tumblr_emotions_torch.ops.inference import FusedInceptionV3
+    from tumblr_emotions_torch.ops.serving import build_forward, image_server
+    from tumblr_emotions_torch.profile_serving import profile_engine
+    from tumblr_emotions_torch.utils.compile_opts import capture
+
+    img = get_preset("fused_inference")
+    img = img.replace(image=img.image.replace(depth_multiplier=DEPTH))
+    joint = get_preset("joint_finetune")
+    joint = joint.replace(image=joint.image.replace(depth_multiplier=DEPTH))
+    text = get_preset("text_only")
+    text = text.replace(text=text.text.replace(aggregator="rnn"))
+    rng = np.random.RandomState(SEED + 7)
+    tokens = [torch.from_numpy(synthetic_ids(rng, BATCH, TEXT_T, joint.text.vocab_size))
+              .to(dev) for _ in batches]
+
+    def image_args(i):
+        return (batches[i],)
+
+    def make(kind):
+        """(program, its arguments for batch i, its probabilities)."""
+        if kind == "bf16_kernels":
+            srv = image_server(FusedInceptionV3(state, use_kernels=True, device=dev), device=dev)
+            return srv.program, image_args, lambda out: out[0]
+        if kind in ("joint_int8", "text_rnn"):
+            cfg = joint if kind == "joint_int8" else text
+            init = joint_model.init_state if kind == "joint_int8" else text_model.init_state
+            r = build_forward(cfg, init(build_model(cfg, device="meta"), SEED),
+                              engine="int8" if kind == "joint_int8" else "parity",
+                              calib_images=calib, device=dev)
+            if kind == "joint_int8":
+                return r.program, lambda i: (batches[i], tokens[i], None), lambda out: out
+            return r.program, lambda i: (None, tokens[i], None), lambda out: out
+        engine, front = kind.split("_") if kind.startswith("int8") else ("bf16", "s2d")
+        r = build_forward(img, state, engine=engine, front=front, calib_images=calib,
+                          device=dev)
+        return r.program, image_args, lambda out: out[0]
+
+    results, paths = {}, {}
+    for kind in ("int8_s2d", "int8_uint8", "int8_float", "bf16_cudnn", "bf16_kernels",
+                 "joint_int8", "text_rnn"):
+        t_kind = time.perf_counter()
+        prog, args, probs_of = make(kind)
+        if not prog.graphed:
+            fail(f"captured: the {kind} runner is not captured (options {prog.options})")
+        eager = capture(prog.fn, options=EAGER, device=dev)
+        per_forward = (INT8_PER_FORWARD if kind.startswith("int8") or kind == "joint_int8"
+                       else BF16_PER_FORWARD if kind == "bf16_kernels" else {})
+        # the stem over 3 channels (uint8 and float fronts) takes the conv's
+        # byte-load path
+        byte_path = 1 if kind in ("int8_uint8", "int8_float") else 0
+
+        def serve(p, i):
+            return probs_of(p(*args(i)))
+
+        # the path: each program on the 3 batches from its first call (the
+        # captured program's warm-up and capture, then two replays), counts
+        # from 0
+        mem, runs, counted = {}, {}, {}
+        for name, p in (("eager", eager), ("captured", prog)):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+            reset_all_launches()
+            runs[name] = [serve(p, i) for i in range(N_BATCHES)]
+            torch.cuda.synchronize()
+            launches = all_launches()
+            counted[name] = served_launches(
+                f"captured {kind} ({name})", launches,
+                p.kernel_nodes() if name == "captured" else None, N_BATCHES, per_forward,
+                byte_path)
+            counted[name]["launches"] = launches
+            # peak: above what was allocated before the pass (the capture's
+            # allocations included); held: what the pass left allocated (the
+            # graph's static inputs and outputs); reserved: what the
+            # allocator took from the card over the pass, from an empty cache
+            # (the graph's private pool included)
+            mem[name] = {"peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20,
+                         "held_mb": (torch.cuda.memory_allocated() - base) / 2**20,
+                         "reserved_growth_mb": (torch.cuda.memory_reserved() - reserved) / 2**20}
+        paths[f"captured_{kind}"] = counted["captured"]["launches"]
+        GRAPH_RUNS[f"captured_{kind}"] = counted["captured"]
+        # three replays: one graph launch each, nothing launched from Python
+        reset_all_launches()
+        r0 = prog.replays
+        got = [serve(prog, i) for i in range(N_BATCHES)]
+        torch.cuda.synchronize()
+        graphs = prog.replays - r0
+        if graphs != N_BATCHES or prog._cache_size() != 1 or any(all_launches().values()):
+            fail(f"captured: {kind} launched {graphs} graphs for {N_BATCHES} batches "
+                 f"({prog._cache_size()} captured), kernels from Python {all_launches()}")
+        want = runs["eager"]
+        for i, (a, b) in enumerate(zip(got + runs["captured"], want + want)):
+            if a.shape != b.shape or not torch.equal(a, b):
+                fail(f"captured: {kind} batch {i % N_BATCHES} differs from the eager program by "
+                     f"{(a.float() - b.float()).abs().max().item()}")
+            if not torch.isfinite(a).all() or (a.sum(-1) - 1).abs().max().item() > 1e-3:
+                fail(f"captured: {kind} batch {i} is not a probability distribution")
+        rates = {"eager": [], "captured": []}
+        for _ in range(CAPTURED_WINDOWS):
+            for name, p in (("eager", eager), ("captured", prog)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(CAPTURED_PASSES):
+                    for i in range(N_BATCHES):
+                        serve(p, i)
+                torch.cuda.synchronize()
+                rates[name].append(CAPTURED_PASSES * N_BATCHES * BATCH
+                                   / (time.perf_counter() - t))
+        # the trace over 3 passes of the batches (a few ms of profiler
+        # start-up weigh on a shorter window); idle_share_windows: the
+        # trace's busy ms against the ms per batch of the img/s windows
+        n_trace = CAPTURED_TRACE_PASSES * N_BATCHES
+        trace = {name: profile_engine(lambda i, p=p: serve(p, i % N_BATCHES), n_trace)
+                 for name, p in (("eager", eager), ("captured", prog))}
+        for name, t in trace.items():
+            ms_per_batch = 1e3 * BATCH / float(np.median(rates[name]))
+            t["idle_share_windows"] = 1.0 - t["device_busy_ms_per_batch"] / ms_per_batch
+        results[kind] = {
+            "bit_equal_batches": N_BATCHES,
+            "graph_launches_per_batch": graphs / N_BATCHES,
+            # per batch of the eager program, from the wrappers; in the
+            # graph, its kernel nodes read by name
+            "kernel_launches_per_batch": {
+                "eager": {k: v / N_BATCHES for k, v in counted["eager"]["launches"].items()},
+                "captured_graph_nodes": counted["captured"]["kernel_nodes_per_graph"][0]},
+            "first_pass_launches": {k: {f: v[f] for f in ("launches", "graphs", "replays",
+                                                          "device_launches")}
+                                    for k, v in counted.items()},
+            "img_s": rates, "img_s_median": {k: float(np.median(v)) for k, v in rates.items()},
+            "trace": {k: {f: v[f] for f in ("wall_ms_per_batch", "device_busy_ms_per_batch",
+                                             "idle_share", "idle_share_windows",
+                                             "kernels_per_batch", "host_launches_per_batch")}
+                      for k, v in trace.items()},
+            "memory": mem, "seconds": time.perf_counter() - t_kind}
+        emit({"phase": "captured", "runner": kind, "batch": BATCH, "src_hw": SRC_HW,
+              **results[kind], "card": smi})
+        del prog, eager, got, want
+    return paths
+
+
+def tune_phase(dev, smi):
+    """Phase tune: ``cli tune --engine int8 --batch-size 64`` at full width
+    on the card, then again from its cache."""
+    import io
+    import json as _json
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+    from pathlib import Path
+
+    from tumblr_emotions_torch import cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="tet_tune_"))
+    try:
+        argv = ["tune", "--engine", "int8", "--batch-size", str(BATCH), "--image-size",
+                str(SRC_HW), "--cache", str(tmp / "tune.json"), "--device", DEVICE]
+        if DEPTH != 1.0:
+            argv += ["--depth-multiplier", str(DEPTH)]
+        runs = []
+        for _ in range(2):
+            t = time.perf_counter()
+            out = io.StringIO()
+            with redirect_stdout(out):
+                cli.main(argv)
+            runs.append((_json.loads(out.getvalue().splitlines()[-1]), time.perf_counter() - t))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (first, s1), (second, s2) = runs
+    if first["from_cache"] or first["candidates_measured"] != 2 or not second["from_cache"] \
+            or second["best_options"] != first["best_options"]:
+        fail(f"tune: first {first}, second {second}")
+    emit({"phase": "tune", **first, "second_from_cache": second["from_cache"],
+          "seconds": [s1, s2], "card": smi})
+
+
+def parity_phase(dev, smi):
+    """Phase parity: ``cli parity`` on a full-width slim checkpoint (1001
+    classes, aux head, seeded weights): goldens saved on the CPU, the gate
+    on the card at the reference's 1e-4; goldens moved by 0.01 fail it."""
+    import io
+    import json as _json
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+    from pathlib import Path
+
+    import numpy as np
+
+    from tumblr_emotions_torch import cli
+    from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
+    from tumblr_emotions_torch.utils.checkpoint import save_as_slim_checkpoint
+
+    tmp = Path(tempfile.mkdtemp(prefix="tet_parity_"))
+    try:
+        t0 = time.perf_counter()
+        model = InceptionV3(num_classes=1001, depth_multiplier=DEPTH, create_aux_logits=True,
+                            device="meta")
+        ckpt = save_as_slim_checkpoint(init_state(model, SEED + 9), str(tmp / "slim.ckpt"))
+        np.savez(tmp / "imgs.npz", raw=np.random.RandomState(SEED + 9).randint(
+            0, 256, (PARITY_N, SRC_HW, SRC_HW, 3)).astype(np.uint8))
+        width = [] if DEPTH == 1.0 else ["--depth-multiplier", str(DEPTH)]
+
+        def parity(*argv, device, rc=0):
+            out = io.StringIO()
+            with redirect_stdout(out):
+                got = cli.main(["parity", "--warmstart", ckpt, *argv, *width, "--device", device])
+            if got != rc:
+                fail(f"parity: {argv} on {device} exited {got}, expected {rc}: {out.getvalue()}")
+            return out.getvalue().splitlines()[-1]
+
+        parity("--images", str(tmp / "imgs.npz"), "--save-goldens", str(tmp / "g.npz"),
+               device="cpu")
+        t1 = time.perf_counter()
+        report = _json.loads(parity("--goldens", str(tmp / "g.npz"), device=DEVICE))
+        t2 = time.perf_counter()
+        data = dict(np.load(tmp / "g.npz"))
+        data["logits"] = data["logits"] + 0.01
+        np.savez(tmp / "bad.npz", **data)
+        bad = _json.loads(parity("--goldens", str(tmp / "bad.npz"), device=DEVICE, rc=1))
+        logit_max = float(np.abs(data["logits"] - 0.01).max())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not report["pass"] or report["num_classes"] != 1001 or \
+            report["max_abs_diff"] > PARITY_TOL or bad["pass"]:
+        fail(f"parity: {report}, bad goldens {bad}")
+    emit({"phase": "parity", **report, "logit_max_abs": logit_max,
+          "bad_goldens": {k: bad[k] for k in ("max_abs_diff", "pass")},
+          "seconds": {"checkpoint_and_cpu_goldens": t1 - t0, "card_gate": t2 - t1},
+          "card": smi})
+
+
+def train_embeddings_phase(dev, smi):
+    """Phase train_embeddings: SGNS word2vec at the width ``cli
+    train-embeddings`` runs, on a seeded Zipf corpus over a 50,000-word
+    vocabulary, at its learning rate: steps/s and the host sampler's share of
+    a step; the first steps against the CPU on the same batches, at a rate
+    whose update stands well above the tolerance."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch.data import word2vec as w2v
+    from tumblr_emotions_torch.data.vocab import OOV_TOKEN, PAD_TOKEN, Vocabulary
+
+    t0 = time.perf_counter()
+    words = [f"w{i}" for i in range(W2V_VOCAB - 2)]
+    toks = [PAD_TOKEN, OOV_TOKEN] + words
+    vocab = Vocabulary({t: i for i, t in enumerate(toks)}, toks)
+    rng = np.random.RandomState(SEED + 11)
+    p = 1.0 / np.arange(1, len(words) + 1)
+    ids = rng.choice(len(words), size=W2V_POSTS * W2V_WORDS, p=p / p.sum())
+    texts = [" ".join(words[j] for j in ids[k:k + W2V_WORDS])
+             for k in range(0, len(ids), W2V_WORDS)]
+    cfg = w2v.Word2VecConfig(embed_dim=W2V_DIM, batch_size=W2V_BATCH, num_negatives=W2V_NEG,
+                             num_steps=W2V_STEPS, seed=SEED)
+    t1 = time.perf_counter()
+    sentences = w2v.corpus_ids(texts, vocab)
+    sampler = w2v.PairSampler(sentences, vocab.size, cfg)
+    setup_s = time.perf_counter() - t1
+    it = sampler.batches()
+    t = time.perf_counter()
+    for _ in range(W2V_STEPS):
+        next(it)
+    sampler_s = time.perf_counter() - t
+    losses = []
+    t = time.perf_counter()
+    matrix = w2v.train_word2vec(texts, vocab, cfg, device=dev,
+                                on_step=lambda i, loss: losses.append(loss))
+    train_s = time.perf_counter() - t - setup_s
+    losses = torch.stack(losses).cpu().numpy()
+    if matrix.shape != (W2V_VOCAB, W2V_DIM) or not np.isfinite(matrix).all() or \
+            not np.isfinite(losses).all():
+        fail(f"train_embeddings: matrix {matrix.shape}, losses finite "
+             f"{np.isfinite(losses).all()}")
+    first, last = float(losses[:20].mean()), float(losses[-20:].mean())
+    short = dataclasses.replace(cfg, num_steps=W2V_CHECK_STEPS, learning_rate=W2V_CHECK_LR)
+    card = w2v.train_word2vec(texts, vocab, short, device=dev)
+    cpu = w2v.train_word2vec(texts, vocab, short, device="cpu")
+    diff = float(np.abs(card - cpu).max())
+    init = (np.random.RandomState(SEED).rand(W2V_VOCAB, W2V_DIM) - 0.5) / W2V_DIM
+    init[0] = 0.0
+    update = float(np.abs(cpu - init).max())
+    if diff > W2V_TOL or update < W2V_UPDATE_FACTOR * W2V_TOL:
+        fail(f"train_embeddings: {W2V_CHECK_STEPS} steps on the card {diff} from the CPU "
+             f"(tolerance {W2V_TOL}), the update {update} (at least "
+             f"{W2V_UPDATE_FACTOR * W2V_TOL})")
+    emit({"phase": "train_embeddings", "vocab": W2V_VOCAB, "dim": W2V_DIM, "batch": W2V_BATCH,
+          "negatives": W2V_NEG, "corpus_tokens": int(ids.size), "steps": W2V_STEPS,
+          "learning_rate": cfg.learning_rate,
+          "steps_per_s": W2V_STEPS / train_s, "sampler_s": sampler_s, "train_s": train_s,
+          "sampler_host_share": sampler_s / train_s, "corpus_setup_s": setup_s,
+          "loss_first_20": first, "loss_last_20": last,
+          "first_steps_vs_cpu": {"steps": W2V_CHECK_STEPS, "learning_rate": W2V_CHECK_LR,
+                                 "max_abs_diff": diff,
+                                 "matrix_max_abs": float(np.abs(cpu).max()),
+                                 "update_max_abs": update, "tol": W2V_TOL,
+                                 "update_at_least": W2V_UPDATE_FACTOR * W2V_TOL},
+          "seconds": time.perf_counter() - t0, "card": smi})
+
+
+def hue_sectors(images, d, height, width):
+    """The sector ``int(((h + delta) % 1) * 6)`` the hue step of each
+    image's colour chain puts each pixel in, [N, height, width], from the
+    resized image the chain starts from."""
+    import torch
+
+    from tumblr_emotions_torch.data import preprocessing as pp
+
+    x = pp._crop_resize_batch(images, d, height, width, "tf1", 1.0 / 255.0)
+    delta, sat_f = d.delta[:, None, None, None], d.factor[:, None, None, None]
+    con_f = d.contrast[:, None, None, None]
+    inputs = [pp._saturate(x + delta, sat_f),                       # con(hue(sat(bright)))
+              pp._contrast(pp._saturate(x, sat_f) + delta, con_f),  # hue(con(bright(sat)))
+              x, x]                                                  # ...(con(hue(x)))
+    case = d.chain[:, None, None, None]
+    h_in = inputs[3]
+    for k in reversed(range(3)):
+        h_in = torch.where(case == k, inputs[k], h_in)
+    h = pp.rgb_to_hsv(h_in.clamp(0.0, 1.0))[..., 0]
+    return (pp._floor_mod(h + d.hue[:, None, None], 1.0) * 6.0).to(torch.int32) % 6
+
+
+def full_mode_phase(dev, smi):
+    """Phase full_mode: slim's full-mode train distortions (a resize of four
+    per image, brightness, saturation, hue and contrast in one of four
+    orders) on uint8 [32,347,347,3] on the card against the CPU on the same
+    draws; pixels whose hue sector differs between the two are counted, the
+    rest held to PERF_IMAGE_ATOL; ms against fast mode."""
+    import torch
+
+    from tumblr_emotions_torch.data import preprocessing as pp
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    raw = torch.randint(0, 256, (FULL_BATCH, SRC_HW, SRC_HW, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    d = pp.draw_train(torch.Generator().manual_seed(SEED + 12), FULL_BATCH, (SRC_HW, SRC_HW),
+                      fast_mode=False)
+    dd = d.to(dev)
+    got = pp.apply_train(raw, dd, 299, 299, fast_mode=False)
+    want = pp.apply_train(raw.cpu(), d, 299, 299, fast_mode=False)
+    crossed = (hue_sectors(raw, dd, 299, 299).cpu() != hue_sectors(raw.cpu(), d, 299, 299))
+    diff = (got.cpu() - want).abs().amax(-1)
+    rest = float(diff[~crossed].max())
+    if not torch.isfinite(got).all() or rest > PERF_IMAGE_ATOL:
+        fail(f"full_mode: {rest} from the CPU away from hue-sector crossings > "
+             f"{PERF_IMAGE_ATOL}")
+    ms_full = cuda_ms(lambda: pp.apply_train(raw, dd, 299, 299, fast_mode=False), iters=5,
+                      warmup=1)
+    ms_fast = cuda_ms(lambda: pp.apply_train(raw, dd, 299, 299), iters=5, warmup=1)
+    emit({"phase": "full_mode", "batch": FULL_BATCH, "src_hw": SRC_HW, "size": 299,
+          "resize_cases": sorted(set(d.resize.tolist())),
+          "chains": sorted(set(d.chain.tolist())),
+          "hue_sector_crossings": int(crossed.sum()), "pixels": crossed.numel(),
+          "max_abs_diff_rest": rest, "tol": PERF_IMAGE_ATOL,
+          "max_abs_diff_crossings": float(diff[crossed].max()) if crossed.any() else None,
+          "ms_full": ms_full, "ms_fast": ms_fast,
+          "timing": "5 calls launched from Python between CUDA events", "card": smi})
 
 
 def _wrappers():
@@ -2466,10 +3055,11 @@ def main() -> int:
     batches = [make_batch() for _ in range(N_BATCHES)]
     server = image_server(eng_k, device=dev)
     reset_all_launches()
-    outs = [server(raw) for raw in batches]
+    outs = [server(raw) for raw in batches]   # the first call captures
     torch.cuda.synchronize()
     launches = all_launches()
-    check_launches(launches)
+    GRAPH_RUNS["e2e"] = served_launches("e2e", launches, server.program.kernel_nodes(),
+                                        N_BATCHES, BF16_PER_FORWARD)
     n_feat = eng_k.logits_w[0].shape[0]
     for probs, feature in outs:
         if probs.shape != (BATCH, 15) or feature.shape != (BATCH, n_feat):
@@ -2518,7 +3108,8 @@ def main() -> int:
         return serve_rate(lambda i: srv(batches[i]))
 
     emit({"phase": "e2e", "batch": BATCH, "batches": N_BATCHES, "src_hw": SRC_HW,
-          "launches": launches, "logit_max_abs_diff": dmax, "logit_max_abs": lmax,
+          "launches": launches, "graphs": GRAPH_RUNS["e2e"],
+          "logit_max_abs_diff": dmax, "logit_max_abs": lmax,
           "logit_rel_diff": dmax / lmax, "logit_tol": LOGIT_TOL,
           "top1_agree": agree / n_img, "top1_min_share": TOP1_MIN_SHARE,
           "top1_clear_margin_images": decided,
@@ -2537,7 +3128,11 @@ def main() -> int:
     paths["e2e_int8"] = int8_launches
     del runner
 
-    # ---- 12. e2e_http: posts over HTTP, the main path ----
+    # ---- captured: every runner as one CUDA graph per batch (this slice's
+    # main path) ----
+    paths.update(captured_phase(dev, smi, state, batches, calib))
+
+    # ---- 12. e2e_http: posts over HTTP, on the captured program ----
     paths["e2e_http"] = http_phase(dev, smi, calib)
 
     # ---- 13-15. training on the card, the main path ----
@@ -2552,27 +3147,34 @@ def main() -> int:
     paths.update(train_perf_phase(dev, smi))
     train_dp_phase(dev, smi)
 
+    # ---- the CLI's last commands and slim's full-mode distortions ----
+    tune_phase(dev, smi)
+    parity_phase(dev, smi)
+    train_embeddings_phase(dev, smi)
+    full_mode_phase(dev, smi)
+
     # ---- 19. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"
-    info = {  # name -> (source, replaces, launches in its path's run)
-        "fused_inception_a": (src, f"{REPLACES}:230", launches),
-        "fused_inception_b": (src, f"{REPLACES}:283", launches),
-        "conv_same_bias_relu": (src, f"{REPLACES}:127", launches),
-        POOLED: (src, f"{REPLACES}:147", launches),
+    paths["e2e"] = launches
+    info = {  # name -> (source, replaces, the path whose run gives its launches)
+        "fused_inception_a": (src, f"{REPLACES}:230", "e2e"),
+        "fused_inception_b": (src, f"{REPLACES}:283", "e2e"),
+        "conv_same_bias_relu": (src, f"{REPLACES}:127", "e2e"),
+        POOLED: (src, f"{REPLACES}:147", "e2e"),
         "conv_int8": ("tumblr_emotions_torch/csrc/int8_conv.cu",
-                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", paths["cli_serve"]),
+                      "tumblr_emotions_tpu/ops/pallas_conv.py:105", "cli_serve"),
         "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
-                              "experiments/pallas_pool.py:53", paths["cli_serve"]),
+                              "experiments/pallas_pool.py:53", "cli_serve"),
     }
     kernels = []
-    for name, (source, replaces, counts) in info.items():
+    for name, (source, replaces, path) in info.items():
         checked = rows[name]
         rs = [r for r in checked if r.get("first_of_form", True)]
         t_ops, t_bytes = sum(r["ops_ms"] for r in rs), sum(r["bytes_ms"] for r in rs)
         libs = [r["library_ms"] for r in rs]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[name],
+            "launches": paths[path][name], "launches_path": path,
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
@@ -2581,10 +3183,18 @@ def main() -> int:
             # the same function at every shape (int8 conv with its epilogue).
             "library_ms": sum(libs) if all(v is not None for v in libs) else None,
             "shapes": len(rs)}
-        if name in ("conv_int8", "maxpool3x3s2_int8"):
-            # launches: the CLI serve run (this slice's main path); the
-            # other int8 paths' runs beside it.
-            entry["launches_by_path"] = {p: c[name] for p, c in paths.items()}
+        # launches: e2e's run for the block kernels, the CLI serve run for
+        # the int8 kernels; every other path's run beside it (captured_*:
+        # this slice's main path).  Each counts the launches its wrapper
+        # made from Python, which on a captured program are the first
+        # call's (the warm-up); device_launches_by_path adds the kernel's
+        # nodes in the program's CUDA graphs, read from each graph by name,
+        # times the graph's replays in that run.
+        entry["launches_by_path"] = {p: c[name] for p, c in paths.items() if name in c}
+        if name in GRAPH_KERNELS:
+            entry["device_launches_by_path"] = {
+                p: g["device_launches"][name] for p, g in GRAPH_RUNS.items()}
+            entry["graph_replays_by_path"] = {p: g["replays"] for p, g in GRAPH_RUNS.items()}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
             # graph_ms: device time in CUDA graphs over the 5 shapes; *_served:

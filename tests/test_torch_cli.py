@@ -1,6 +1,7 @@
 """The port's CLI (``python -m tumblr_emotions_torch.cli``) on the CPU,
 against the JAX package's CLI on the same state: train and resume, eval,
-infer, serve, predict, export, and the refused commands and flags."""
+infer, serve, predict, export, and the refused flags (the tooling commands:
+``tests/test_torch_tooling.py``)."""
 
 import contextlib
 import csv
@@ -259,11 +260,7 @@ def test_joint_infer_int8_serve_predict_and_export_on_the_cpu(joint_run):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["analyze", "--records", "x"], "6\\(i\\)"),
-    (["parity", "--warmstart", "x"], "6\\(i\\)"),
-    (["tune"], "6\\(i\\)"),
-    (["train-embeddings", "--csv", "x"], "6\\(g\\)"),
-    (["scrape", "--consumer-key", "k"], "6\\(i\\)"),
+    (["tune", "--step", "train", "--device", "cpu"], "6\\(k\\)"),
     (["infer", "--dp", "--device", "cpu"], "6\\(h\\)"),
     (["serve", "--dp", "--device", "cpu"], "6\\(h\\)"),
 ])

@@ -293,6 +293,15 @@ def _segment(kind, n, rng):
     return (kind, n, None, None)
 
 
+def _graph_int8(program):
+    """(conv_int8 nodes, maxpool3x3s2_int8 nodes, replays) of each CUDA
+    graph of a captured program, the nodes read from the graph by kernel
+    name."""
+    return [(sum(n for k, n in g["kernels"].items() if "conv_int8_" in k),
+             sum(n for k, n in g["kernels"].items() if "maxpool_" in k), g["replays"])
+            for g in program.kernel_nodes()]
+
+
 def _same(got, want):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -565,8 +574,9 @@ def test_int8_pool_mode_matches_plain(dev, int8_engines):
 
 def test_joint_runner_matches_plain_engine(dev, int8_engines):
     """build_forward's joint program (int8 tower, s2d front, mean text
-    branch, fusion head) on the card: 66 + 4 kernel launches per forward and
-    the probabilities of the same runner on the plain int8 engine."""
+    branch, fusion head) on the card: 66 + 4 kernel launches per forward
+    (the first call's from Python, a replay's in its graph) and the
+    probabilities of the same runner on the plain int8 engine."""
     from tumblr_emotions_torch import get_preset
     from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
     from tumblr_emotions_torch.data.vocab import synthetic_ids
@@ -582,10 +592,12 @@ def test_joint_runner_matches_plain_engine(dev, int8_engines):
     calib = preprocess_for_eval(raw)
     runner = build_forward(cfg, state, calib_images=calib, device=dev)
     tok = torch.from_numpy(synthetic_ids(np.random.RandomState(0), raw.shape[0], 50, 1000))
-    runner(raw, tok)
     c0, p0 = ic.conv_int8.launches, ip.maxpool3x3s2_int8.launches
-    got = runner(raw, tok)
+    runner(raw, tok)                           # eager warm-up, then the capture
     assert (ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0) == (66, 4)
+    got = runner(raw, tok)                     # a replay: nothing from Python
+    assert (ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0) == (66, 4)
+    assert _graph_int8(runner.program) == [(66, 4, 1)]
     model = build_model(cfg, device=dev)
     model.load_state_dict(state)
     plain = QuantizedInceptionV3(joint_model.tower_state(state), calib, stem_s2d="pre",
@@ -622,7 +634,8 @@ def test_http_path_on_the_card(dev, int8_engines):
     """EmotionHTTPServer over build_forward's joint int8 program on the
     card: every answer is the in-process runner's on the same decoded,
     resized image and caption (to the responses' 5 decimals), each device
-    batch launches 66 conv_int8 and 4 maxpool3x3s2_int8, /healthz says cuda,
+    batch replays a graph of 66 conv_int8 and 4 maxpool3x3s2_int8 (nothing
+    launched from Python), /healthz says cuda,
     and a corrupt body gets a 400 while its batch is answered."""
     import json
     import threading
@@ -664,7 +677,9 @@ def test_http_path_on_the_card(dev, int8_engines):
             results[i] = (e.code, json.loads(e.read()))
 
     try:
-        runner(np.zeros((4, 347, 347, 3), np.uint8), np.zeros((4, 50), np.int32))
+        # the batcher's signature (host images, tokens and lengths): captured here
+        runner(np.zeros((4, 347, 347, 3), np.uint8), np.zeros((4, 50), np.int32),
+               np.ones(4, np.int32))
         c0, p0 = ic.conv_int8.launches, ip.maxpool3x3s2_int8.launches
         posts = list(zip(bodies, captions)) + [(b"\xff\xd8 corrupt", "happy")]
         threads = [threading.Thread(target=post, args=(i, b, t)) for i, (b, t) in enumerate(posts)]
@@ -680,8 +695,8 @@ def test_http_path_on_the_card(dev, int8_engines):
         srv.close()
     convs, pools = ic.conv_int8.launches - c0, ip.maxpool3x3s2_int8.launches - p0
     assert health["platform"] == "cuda" and health["devices"] >= 1
-    assert stats["batches"] >= 2 and convs == 66 * stats["batches"] \
-        and pools == 4 * stats["batches"]
+    assert stats["batches"] >= 2 and (convs, pools) == (0, 0)
+    assert _graph_int8(runner.program) == [(66, 4, stats["batches"])]
     assert results[len(bodies)][0] == 400
     imgs = np.stack([jpeg.resize_bilinear(jpeg.decode(b), 347, 347) for b in bodies])
     tok, lens = vocab.encode_batch(captions, 50)
@@ -1192,3 +1207,144 @@ def test_two_ranks_share_one_card(dev, tmp_path):
     for k, v in ts.state.items():
         torch.testing.assert_close(got[0]["state"][k], v.detach().cpu(), rtol=1e-5, atol=1e-6)
         assert torch.equal(got[0]["state"][k], got[1]["state"][k])
+
+
+# ---------------------------------------------------------------------------
+# Captured programs (utils/compile_opts.capture): every served runner as one
+# CUDA graph per input signature, bit-equal to the same program launched op
+# by op.
+# ---------------------------------------------------------------------------
+
+EAGER = {"cuda_graph": "false"}
+
+
+def _captured_runners(dev, raw):
+    """name -> (captured runner, the same program eager, needs tokens)."""
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.models import build_model, joint_model, text_model
+    from tumblr_emotions_torch.ops.serving import build_forward, image_server
+    from tumblr_emotions_torch.utils.compile_opts import capture
+
+    img = get_preset("fused_inference")
+    img = img.replace(image=img.image.replace(depth_multiplier=0.5))
+    state = init_state(InceptionV3(depth_multiplier=0.5, device="meta"), seed=0)
+    calib = preprocess_for_eval(raw)
+    joint = get_preset("joint_finetune")
+    joint = joint.replace(image=joint.image.replace(depth_multiplier=0.5),
+                          text=joint.text.replace(vocab_size=1000, embed_dim=32))
+    jstate = joint_model.init_state(build_model(joint, device="meta"), 0)
+    text = get_preset("text_only")
+    text = text.replace(text=text.text.replace(vocab_size=1000, embed_dim=32,
+                                               aggregator="rnn", rnn_hidden=64, max_len=50))
+    tstate = text_model.init_state(build_model(text, device="meta"), 0)
+    runners = {}
+    for name, cfg, st, kw in [
+            ("int8_s2d", img, state, dict(engine="int8", front="s2d")),
+            ("int8_uint8", img, state, dict(engine="int8", front="uint8")),
+            ("int8_float", img, state, dict(engine="int8", front="float")),
+            ("bf16_cudnn", img, state, dict(engine="bf16")),
+            ("parity", img, state, dict(engine="parity")),
+            ("joint_int8", joint, jstate, dict(engine="int8")),
+            ("text_rnn", text, tstate, dict(engine="parity"))]:
+        r = build_forward(cfg, st, calib_images=calib, device=dev, **kw)
+        runners[name] = (r, capture(r.program.fn, options=EAGER, device=dev),
+                         cfg.model != "image")
+    srv = image_server(FusedInceptionV3(state, use_kernels=True, device=dev), device=dev)
+    runners["bf16_kernels"] = (lambda image, tokens=None, lengths=None: srv(image)[0],
+                               capture(srv.program.fn, options=EAGER, device=dev), False)
+    runners["bf16_kernels"][0].program = srv.program
+    return runners
+
+
+def _batch(dev, n, seed):
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randint(0, 256, (n, 347, 347, 3), generator=g, device=dev, dtype=torch.uint8)
+    return raw, synthetic_ids(np.random.RandomState(seed), n, 50, 1000)
+
+
+def test_every_captured_runner_is_bit_equal_to_eager(dev, int8_engines):
+    """Each build_forward runner (int8 s2d / uint8 / float, bf16 cuDNN,
+    parity, joint, text) and the bf16 kernel engine, served as CUDA graphs,
+    against the same program launched op by op: equal bit for bit over
+    three batches (two replays), a second batch size (a second graph in the
+    runner's pool) and the first size again; numpy inputs take the pinned
+    path."""
+    runners = _captured_runners(dev, int8_engines[2])
+    # (batch, seed, images from host memory): the signatures (4, card),
+    # (4, host) and (2, card) for the image runners; the text runner sees
+    # its host token batches only, (4, host) and (2, host).
+    plan = [(4, 1, False), (4, 2, False), (4, 3, True), (4, 4, True), (2, 5, False),
+            (4, 6, False)]
+    for name, (runner, eager, text) in runners.items():
+        for i, (n, seed, host) in enumerate(plan):
+            raw, tok = _batch(dev, n, seed)
+            image = raw.cpu().numpy() if host else raw
+            got = runner(image, tok) if text else runner(image)
+            if text:
+                want = eager(raw, torch.from_numpy(tok).to(dev), None)
+            else:   # the parity body takes (image, tokens, lengths)
+                want = eager(raw, None, None) if name == "parity" else eager(raw)[0]
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, i, (got - want).abs().max().item())
+        graphs, replays = (2, 4) if name == "text_rnn" else (3, 3)
+        assert (runner.program._cache_size(), runner.program.replays) == (graphs, replays), name
+        if name.startswith("int8") or name == "joint_int8":   # one forward per graph
+            assert [g[:2] for g in _graph_int8(runner.program)] == [(66, 4)] * graphs, name
+
+
+def test_captured_answers_survive_the_next_replay(dev, int8_engines):
+    """The batcher hands out rows of one answer while the next batch runs:
+    the runner returns copies, so a later replay leaves an earlier answer
+    as it was."""
+    runner, eager, _ = _captured_runners(dev, int8_engines[2])["int8_s2d"]
+    (x0, _), (x1, _), (x2, _) = (_batch(dev, 4, s) for s in (6, 7, 8))
+    runner(x0)                                  # capture
+    a = runner(x1)
+    a_copy = a.clone()
+    b = runner(x2)
+    torch.cuda.synchronize()
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, a_copy)
+    assert torch.equal(a, eager(x1)[0]) and not torch.equal(a, b)
+
+
+def test_a_rebuilt_runner_does_not_replay_an_old_graph(dev, int8_engines):
+    """Graphs bake in their weights' addresses and tensor maps: a runner
+    rebuilt on other weights captures its own graphs and answers from them."""
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.ops.serving import build_forward
+
+    cfg = get_preset("fused_inference")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=0.5))
+    raw = int8_engines[2]
+    calib = preprocess_for_eval(raw)
+    x, _ = _batch(dev, 4, 9)
+    outs = []
+    for seed in (0, 1):
+        state = init_state(InceptionV3(depth_multiplier=0.5, device="meta"), seed=seed)
+        for engine in ("int8", "bf16"):
+            r = build_forward(cfg, state, engine=engine, calib_images=calib, device=dev)
+            r(x)
+            got = r(x)                            # a replay
+            torch.cuda.synchronize()
+            assert torch.equal(got, r.program.fn(x)[0]) and r.program.replays == 1
+            outs.append(got)
+    assert not torch.equal(outs[0], outs[2]) and not torch.equal(outs[1], outs[3])
+
+
+def test_full_mode_distortions_on_the_card_match_the_cpu(dev):
+    """Full-mode train distortions (four resizes, hue and contrast chains)
+    on the card against the CPU on the same draws, within the 1e-4 the
+    repo holds two f32 programs of the distortions to."""
+    from tumblr_emotions_torch.data import preprocessing as pp
+
+    g = torch.Generator().manual_seed(0)
+    raw = torch.randint(0, 256, (16, 173, 190, 3), generator=g, dtype=torch.uint8)
+    d = pp.draw_train(torch.Generator().manual_seed(1), 16, (173, 190), fast_mode=False)
+    assert set(d.resize.tolist()) == {0, 1, 2, 3} == set(d.chain.tolist())
+    want = pp.apply_train(raw, d, 139, 139, fast_mode=False)
+    got = pp.apply_train(raw.to(dev), d.to(dev), 139, 139, fast_mode=False)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4

@@ -153,6 +153,8 @@ def test_port_imports_with_jax_blocked():
             "import tumblr_emotions_torch.parallel.mesh, tumblr_emotions_torch.parallel.distributed\n"
             "import tumblr_emotions_torch.utils.summaries, tumblr_emotions_torch.perf_noise\n"
             "import tumblr_emotions_torch.train.noise_floor\n"
+            "import tumblr_emotions_torch.utils.compile_opts, tumblr_emotions_torch.analysis\n"
+            "import tumblr_emotions_torch.data.word2vec, tumblr_emotions_torch.data.scraper\n"
             "print('ok')\n" % (FORBIDDEN,))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)

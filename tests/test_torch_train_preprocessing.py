@@ -34,24 +34,35 @@ KS_LEVEL = 1e-3
 KS_DRAWS = 4096
 
 
-def jax_train_draws(rng_pp, n, image_hw) -> tpp.TrainDraws:
-    """The draws ``jpp.preprocess_for_train(rng_pp, images)`` makes in fast
-    mode for ``n`` images of ``image_hw``, re-derived from its key splits
-    (``preprocessing.py:463-468, 522-527``)."""
-    r_crop, _, r_flip, r_color = jax.random.split(rng_pp, 4)
+def jax_train_draws(rng_pp, n, image_hw, fast_mode=True) -> tpp.TrainDraws:
+    """The draws ``jpp.preprocess_for_train(rng_pp, images, fast_mode=...)``
+    makes for ``n`` images of ``image_hw``, re-derived from its key splits
+    (``preprocessing.py:463-468, 486, 522-527, 567-577``)."""
+    r_crop, r_resize, r_flip, r_color = jax.random.split(rng_pp, 4)
     oy, ox, ch, cw = jax.vmap(lambda k: jpp.distorted_bounding_box_crop(k, image_hw))(
         jax.random.split(r_crop, n))
     flip = jax.random.bernoulli(r_flip, shape=(n,))
-    r_b, r_s, r_o = jax.random.split(r_color, 3)
-    delta = jax.random.uniform(r_b, (n, 1, 1, 1), minval=-32.0 / 255.0, maxval=32.0 / 255.0)
-    factor = jax.random.uniform(r_s, (n, 1, 1, 1), minval=0.5, maxval=1.5)
-    order = jax.random.bernoulli(r_o, shape=(n, 1, 1, 1))
 
     def t(a, dtype=None):
         return torch.from_numpy(np.array(a).reshape(n)).to(dtype)
 
-    return tpp.TrainDraws(t(oy, torch.long), t(ox, torch.long), t(ch, torch.long),
-                          t(cw, torch.long), t(flip), t(delta), t(factor), t(order))
+    crop = (t(oy, torch.long), t(ox, torch.long), t(ch, torch.long), t(cw, torch.long),
+            t(flip))
+    if fast_mode:
+        r_b, r_s, r_o = jax.random.split(r_color, 3)
+    else:
+        r_b, r_s, r_h, r_c, r_o = jax.random.split(r_color, 5)
+    delta = jax.random.uniform(r_b, (n, 1, 1, 1), minval=-32.0 / 255.0, maxval=32.0 / 255.0)
+    factor = jax.random.uniform(r_s, (n, 1, 1, 1), minval=0.5, maxval=1.5)
+    if fast_mode:
+        order = jax.random.bernoulli(r_o, shape=(n, 1, 1, 1))
+        return tpp.TrainDraws(*crop, t(delta), t(factor), t(order))
+    return tpp.TrainDraws(
+        *crop, t(delta), t(factor), torch.zeros(n, dtype=torch.bool),
+        resize=t(jax.random.randint(r_resize, (n,), 0, 4), torch.long),
+        hue=t(jax.random.uniform(r_h, (n, 1, 1), minval=-0.2, maxval=0.2)),
+        contrast=t(jax.random.uniform(r_c, (n, 1, 1, 1), minval=0.5, maxval=1.5)),
+        chain=t(jax.random.randint(r_o, (n, 1, 1, 1), 0, 4), torch.long))
 
 
 def _images(seed, shape, dtype=np.uint8):
@@ -124,8 +135,12 @@ def test_preprocess_for_train_draws_from_the_generator():
     assert a.shape == (3, 47, 47, 3) and a.min() >= -1 and a.max() <= 1
     torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert not torch.equal(a, c)
-    with pytest.raises(NotImplementedError):
-        tpp.preprocess_for_train(torch.Generator(), raw, 47, 47, fast_mode=False)
+    # Full mode draws from the generator too, and distorts otherwise.
+    f = tpp.preprocess_for_train(torch.Generator().manual_seed(5), raw, 47, 47, fast_mode=False)
+    g = tpp.preprocess_for_train(torch.Generator().manual_seed(5), raw, 47, 47, fast_mode=False)
+    assert f.shape == a.shape and f.min() >= -1 and f.max() <= 1
+    torch.testing.assert_close(f, g, rtol=0, atol=0)
+    assert not torch.equal(f, a)
 
 
 # ---------------------------------------------------------------------------

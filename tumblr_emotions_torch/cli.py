@@ -1,6 +1,6 @@
-"""Command-line entry points of the port: train / eval / predict / infer /
-serve plus the dataset tooling (convert-dataset, build-vocab,
-export-checkpoint).
+"""Command-line entry points of the port: train / eval / predict / analyze /
+infer / serve / parity / tune plus the dataset tooling (convert-dataset,
+build-vocab, export-checkpoint, train-embeddings, scrape).
 
 Port of ``tumblr_emotions_tpu/cli.py`` over the port's modules, with the
 reference's commands, flags and output:
@@ -13,8 +13,14 @@ reference's commands, flags and output:
   python -m tumblr_emotions_torch.cli eval --preset joint_finetune \\
       --records 'data/validation-*.tfrecord' --vocab data/vocab.txt \\
       --checkpoint-dir ckpt/ [--follow]
-  python -m tumblr_emotions_torch.cli infer|serve|predict ...
+  python -m tumblr_emotions_torch.cli infer|serve|predict|analyze ...
   python -m tumblr_emotions_torch.cli export-checkpoint --out slim/model.ckpt ...
+  python -m tumblr_emotions_torch.cli parity --warmstart slim/model.ckpt \\
+      --goldens goldens.npz
+  python -m tumblr_emotions_torch.cli tune --engine int8 --batch-size 64
+  python -m tumblr_emotions_torch.cli train-embeddings --csv posts.csv \\
+      --vocab data/vocab.txt --out w2v.npy
+  python -m tumblr_emotions_torch.cli scrape --consumer-key KEY --out scraped/
 
 Every command that runs a model takes ``--device`` (default ``cuda``, which
 raises without a card; ``--device cpu`` runs on the CPU).  ``train``
@@ -22,9 +28,11 @@ resumes from the latest checkpoint in ``--checkpoint-dir`` at the exact
 input record.  ``train`` and ``eval`` run as several processes, one card
 each (data parallel, ``parallel/``): started with ``--coordinator-address
 host:port --num-processes N --process-id i`` each, or by torchrun (its
-environment); each process reads its shard of the records.  Commands and
-flags the port does not have yet are refused with the ROADMAP item that
-brings them.
+environment); each process reads its shard of the records.  Every served
+program runs as one captured CUDA graph per batch shape
+(``utils/compile_opts.py``; ``TET_TORCH_COMPILER_OPTIONS`` overrides the
+options, ``tune`` measures them).  Commands and flags the port does not
+have yet are refused with the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -43,11 +51,8 @@ log = logging.getLogger("tumblr_emotions_torch")
 
 # Refused commands and flags -> the ROADMAP (Queue 1) item that brings them.
 LEFT = {
-    "analyze": "6(i) (analysis.py's circumplex analysis)",
-    "parity": "6(i) (the one-shot logit-parity gate)",
-    "tune": "6(i) (compiler-option tuning, utils/compile_opts.py's role)",
-    "train-embeddings": "6(g) (word2vec)",
-    "scrape": "6(i) (data/scraper.py)",
+    "tune --step train": "6(k) (a captured train and eval step, tpu_jit's role in the "
+                         "trainer)",
     "--dp": "6(j) (serving one batch over several cards, what is left of 6(h))",
     "multi-process": "6(j) (serving one batch over several cards, what is left of 6(h))",
 }
@@ -412,6 +417,76 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_analyze(args) -> int:
+    """Emotion-circumplex analysis (the paper's notebook analysis): collect
+    the trained model's probabilities over a split with the trainer's eval
+    forward on the device, PCA the per-emotion means, print coordinates and
+    angular order; with --examples, the qualitative report."""
+    from tumblr_emotions_torch import analysis
+
+    cfg = _build_config(args)
+    emotions = _load_emotions(args)
+    vocab = _load_vocab(args, cfg) if cfg.model in ("text", "joint") else None
+    batches = list(_make_batches(args, cfg, vocab, train=False))
+    trainer, state, cfg = _init_trainer_state(args, cfg, vocab, batches[0])
+    restored = trainer.restore_latest(state)
+    if restored is not None:
+        state = restored
+    if trainer.preprocess is not None:
+        trainer.preprocess = "eval"
+    all_probs, all_labels = [], []
+    for b in batches:
+        p = trainer.predict_step(state, b).float().cpu().numpy()
+        w = np.asarray(b.get("weight", np.ones(len(p), np.int32))) == 1
+        all_probs.append(p[w])
+        all_labels.append(np.asarray(b["label"])[w])
+    probs = np.concatenate(all_probs)
+    labels = np.concatenate(all_labels)
+    result = analysis.circumplex(probs, labels, emotions=emotions)
+    print(analysis.format_circumplex(result))
+    if args.plot:
+        print(f"wrote {analysis.plot_circumplex(result, args.plot)}")
+    if args.examples:
+        # The split is read unshuffled (train=False), so row i of the
+        # collected probabilities is record / post i of the split.
+        ex = analysis.qualitative_examples(probs, labels, emotions=emotions, k=args.top_k)
+        lookup = _post_lookup(args, ex)
+        print()
+        print(analysis.format_examples(ex, lookup=lookup))
+        print(f"wrote {analysis.write_examples_report(ex, args.examples, lookup=lookup)}")
+    return 0
+
+
+def _post_lookup(args, result):
+    """index -> "[id] text-snippet" for the qualitative report, reading only
+    the records it names (random access through the offset index)."""
+    needed = set()
+    for block in result["per_emotion"].values():
+        needed.update(e["index"] for e in block["correct"])
+        needed.update(e["index"] for e in block["misclassified"])
+    for c in result["confusions"]:
+        needed.update(c["examples"])
+    cache: Dict[int, str] = {}
+    if args.records:
+        from tumblr_emotions_torch.data import pipeline, records
+
+        idx = pipeline.TFRecordIndex(args.records)
+        for i in needed:
+            if 0 <= i < len(idx):
+                post = records.example_to_post(idx[i])
+                text = " ".join(str(post.get("text", "")).split())[:80]
+                cache[i] = f"[{post.get('id', i)}] {text}"
+    elif args.csv:
+        from tumblr_emotions_torch.data.csv_dataset import load_posts_csv
+
+        posts = load_posts_csv(args.csv, emotions=_load_emotions(args))
+        for i in needed:
+            if 0 <= i < len(posts):
+                text = " ".join(posts[i].text.split())[:80]
+                cache[i] = f"[{posts[i].post_id or i}] {text}"
+    return lambda i: cache.get(i, f"#{i}")
+
+
 def _calibration(cfg, images, device):
     """The int8 engine's calibration batch: the first 64 images with the
     eval preprocessing the engine serves with."""
@@ -567,6 +642,173 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_parity(args) -> int:
+    """One-shot parity gate: the f32 slim tower (TF32 off) on ``--warmstart``
+    against golden logits within ``--tolerance`` (the 1e-4 contract).
+
+    ``--goldens`` is an .npz with ``raw`` (uint8 [N,H,W,3], run through the
+    eval preprocessing) or ``images`` (float32 [N,S,S,3], preprocessed),
+    plus ``logits`` (float32 [N,num_classes]); the reference's format, so
+    either package's goldens check the other.  With ``--save-goldens`` the
+    command writes such a file from this forward instead.  num_classes and
+    the aux head are read from the checkpoint.  Prints one JSON line; exits
+    0 on a pass, 1 otherwise."""
+    import torch
+
+    from tumblr_emotions_torch._device import full_f32, resolve_device
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.models.inception_v3 import InceptionV3, init_state
+    from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
+
+    if not args.warmstart:
+        raise SystemExit("parity needs --warmstart <slim.ckpt>")
+    pretrained = ckpt_lib.load_slim_checkpoint(args.warmstart, exclude_scopes=())
+    logits_w = pretrained["params"].get("Logits/Conv2d_1c_1x1/weights")
+    if logits_w is None:
+        raise SystemExit("checkpoint has no Logits/Conv2d_1c_1x1 -- cannot run the "
+                         "logit-parity gate against it")
+    num_classes = int(logits_w.shape[0])          # OIHW
+    has_aux = any(k.startswith("AuxLogits/") for k in pretrained["params"])
+    if args.save_goldens:
+        if not args.images:
+            raise SystemExit("--save-goldens needs --images <npz>")
+        data = np.load(args.images)
+    elif args.goldens:
+        data = np.load(args.goldens)
+    else:
+        raise SystemExit("need --goldens (check) or --images + --save-goldens (generate)")
+    dev = resolve_device(args.device)
+    if "images" in data:
+        images = torch.from_numpy(np.asarray(data["images"], np.float32)).to(dev)
+    elif "raw" in data:
+        images = preprocess_for_eval(torch.from_numpy(np.asarray(data["raw"])).to(dev),
+                                     dtype=torch.float32)
+    else:
+        raise SystemExit("npz must contain 'images' (preprocessed f32) or 'raw' (uint8)")
+
+    model = InceptionV3(num_classes=num_classes, create_aux_logits=has_aux,
+                        depth_multiplier=args.depth_multiplier, min_depth=args.min_depth,
+                        image_size=images.shape[1], device=dev)
+    state = ckpt_lib.merge_pretrained(init_state(model, 0), pretrained)
+    model.load_state_dict(state)
+    with torch.inference_mode(), full_f32():
+        logits = model(images)[0].float().cpu().numpy()
+
+    if args.save_goldens:
+        key = "images" if "images" in data else "raw"
+        np.savez(args.save_goldens, logits=logits, **{key: np.asarray(data[key])})
+        print(f"wrote goldens for {len(logits)} examples to {args.save_goldens}")
+        return 0
+    want = np.asarray(data["logits"], np.float32)
+    if want.shape != logits.shape:
+        raise SystemExit(f"golden logits {want.shape} != model {logits.shape}")
+    max_abs = float(np.max(np.abs(want - logits)))
+    ok = max_abs <= args.tolerance
+    print(json.dumps({"max_abs_diff": max_abs, "tolerance": args.tolerance,
+                      "num_examples": int(len(logits)), "num_classes": num_classes,
+                      "pass": ok}))
+    return 0 if ok else 1
+
+
+def cmd_tune(args) -> int:
+    """Time the served program's options (``utils/compile_opts.autotune``:
+    the eager program against one CUDA graph per batch) and keep the winner
+    in a JSON cache.  The program is the one ``build_forward`` serves (int8:
+    the s2d front; bf16: the engine with the block kernels, as the
+    reference's ``tune`` builds it) at ``--depth-multiplier`` on seeded
+    weights, over a seeded uint8 batch made on the card.  Export the
+    printed options as ``TET_TORCH_COMPILER_OPTIONS`` to apply them."""
+    import torch
+
+    from tumblr_emotions_torch._device import resolve_device
+    from tumblr_emotions_torch.config import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.models import build_model, inception_v3
+    from tumblr_emotions_torch.ops import serving as serving_lib
+    from tumblr_emotions_torch.ops.inference import FusedInceptionV3
+    from tumblr_emotions_torch.utils import compile_opts
+
+    candidates = None
+    if args.candidates:
+        with open(args.candidates) as f:
+            candidates = json.load(f)
+        if not isinstance(candidates, list) or not all(isinstance(c, dict)
+                                                       for c in candidates):
+            raise SystemExit(f"--candidates {args.candidates} must hold a JSON list of "
+                             "option->value objects")
+    if args.step == "train":
+        raise _left("tune --step train")
+    dev = resolve_device(args.device)
+    cfg = get_preset("fused_inference")
+    if args.depth_multiplier != 1.0:
+        cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=args.depth_multiplier))
+    state = inception_v3.init_state(build_model(cfg, device="meta"), 0)
+    state = {k: v.to(dev) for k, v in state.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    src = args.image_size   # the decoded-image size fed to the 0.875 crop
+    raw = torch.randint(0, 256, (args.batch_size, src, src, 3), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    # autotune serves the eager program (``program.fn``) with each candidate
+    if args.engine == "int8":
+        calib = preprocess_for_eval(raw[:64], dtype=torch.float32)
+        program = serving_lib.build_forward(cfg, state, engine="int8", device=dev,
+                                            calib_images=calib, front="s2d").program
+    else:
+        engine = FusedInceptionV3(state, dtype=torch.bfloat16, use_kernels=True, device=dev)
+        program = serving_lib.image_server(engine, device=dev).program
+
+    def serving_program(raw_u8):
+        return program.fn(raw_u8)[0]
+
+    results = []
+
+    def _record(opts, seconds):
+        ips = args.batch_size * args.steps / seconds
+        results.append({"options": opts, "images_per_sec": round(ips, 1)})
+        log.info("candidate %s: %.1f img/s", json.dumps(opts), ips)
+
+    best = compile_opts.autotune(
+        serving_program, (raw,), candidates=candidates, steps=args.steps,
+        repeats=args.repeats, cache_path=args.cache or None,
+        key=f"serving/{args.engine}/b{args.batch_size}", on_result=_record, device=dev)
+    print(json.dumps({
+        "engine": args.engine, "batch_size": args.batch_size, "best_options": best,
+        # A run served from the cache measures nothing.
+        "best_images_per_sec": (max(r["images_per_sec"] for r in results)
+                                if results else None),
+        "candidates_measured": len(results),
+        "from_cache": not results,
+        "apply_hint": f"export {compile_opts.ENV_VAR}='{json.dumps(best)}'",
+        "results": results,
+    }))
+    return 0
+
+
+def cmd_train_embeddings(args) -> int:
+    """Train SGNS word2vec on the post captions (the alternative to public
+    GloVe vectors) on the device; writes a .npy matrix for --embeddings."""
+    from tumblr_emotions_torch.data.csv_dataset import load_posts_csv
+    from tumblr_emotions_torch.data.vocab import Vocabulary
+    from tumblr_emotions_torch.data.word2vec import Word2VecConfig, train_word2vec
+
+    posts = load_posts_csv(args.csv)
+    v = Vocabulary.load(args.vocab)
+    cfg = Word2VecConfig(embed_dim=args.embed_dim, num_steps=args.steps)
+    matrix = train_word2vec([p.text for p in posts], v, cfg, device=args.device)
+    np.save(args.out, matrix)
+    print(f"wrote {matrix.shape} embeddings to {args.out}")
+    return 0
+
+
+def cmd_scrape(args) -> int:
+    from tumblr_emotions_torch.data.scraper import make_pytumblr_client, scrape_all
+
+    client = make_pytumblr_client(args.consumer_key, args.consumer_secret)
+    csv_path = scrape_all(client, max_posts_per_emotion=args.max_posts, out_dir=args.out)
+    print(f"wrote {csv_path}")
+    return 0
+
+
 def cmd_convert_dataset(args) -> int:
     from tumblr_emotions_torch.data.convert import convert
 
@@ -611,20 +853,26 @@ def cmd_export_checkpoint(args) -> int:
     return 0
 
 
-REFUSED = ("analyze", "parity", "tune", "train-embeddings", "scrape")
-
-
 def parser() -> argparse.ArgumentParser:
     """The CLI's argument parser (each command's namespace has ``fn``)."""
     parser = argparse.ArgumentParser(prog="tumblr_emotions_torch")
     sub = parser.add_subparsers(dest="command", required=True)
 
-    for name, fn in [("train", cmd_train), ("eval", cmd_eval), ("predict", cmd_predict)]:
+    for name, fn in [("train", cmd_train), ("eval", cmd_eval), ("predict", cmd_predict),
+                     ("analyze", cmd_analyze)]:
         p = sub.add_parser(name)
         _add_common(p)
         if name == "predict":
             p.add_argument("--image", default="")
             p.add_argument("--text", default="")
+        if name == "analyze":
+            p.add_argument("--plot", default="",
+                           help="write the circumplex figure (PNG/SVG) here (needs matplotlib)")
+            p.add_argument("--examples", default="",
+                           help="write the qualitative-examples markdown report (per-emotion "
+                                "top-k hits/misses + confusion pairs) here")
+            p.add_argument("--top-k", type=int, default=5,
+                           help="examples per emotion in the report")
         if name == "train":
             p.add_argument("--eval-records", default="",
                            help="eval-split TFRecord glob: evaluate at every checkpoint "
@@ -700,15 +948,59 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--out", required=True, help="output slim .ckpt path prefix")
     p.set_defaults(fn=cmd_export_checkpoint)
 
-    for name in REFUSED:
-        sub.add_parser(name, help=f"not ported yet (ROADMAP {LEFT[name]})")
+    p = sub.add_parser("parity")
+    p.add_argument("--warmstart", required=True,
+                   help="slim .ckpt with a Logits head (e.g. an ImageNet checkpoint)")
+    p.add_argument("--goldens", default="", help=".npz with raw/images + reference logits")
+    p.add_argument("--images", default="", help=".npz with raw/images (for --save-goldens)")
+    p.add_argument("--save-goldens", default="",
+                   help="write goldens from this package's forward")
+    p.add_argument("--tolerance", type=float, default=1e-4)
+    p.add_argument("--depth-multiplier", type=float, default=1.0,
+                   help="match a reduced-width checkpoint (tests)")
+    p.add_argument("--min-depth", type=int, default=16)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_parity)
+
+    p = sub.add_parser("train-embeddings")
+    p.add_argument("--csv", required=True)
+    p.add_argument("--vocab", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--embed-dim", type=int, default=200)
+    p.add_argument("--steps", type=int, default=20_000)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_train_embeddings)
+
+    p = sub.add_parser("tune")
+    p.add_argument("--step", choices=["serving", "train"], default="serving",
+                   help=f"train: refused, ROADMAP {LEFT['tune --step train']}")
+    p.add_argument("--engine", choices=["int8", "bf16"], default="int8")
+    p.add_argument("--batch-size", type=int, default=768)
+    p.add_argument("--image-size", type=int, default=347,
+                   help="decoded-JPEG size fed to the 0.875 crop")
+    p.add_argument("--steps", type=int, default=8)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--cache", default=".tet_torch_tune.json",
+                   help="JSON cache path ('' to disable)")
+    p.add_argument("--candidates", default="",
+                   help="JSON file with a list of option->value objects (default: the "
+                        "built-in ladder, cuda_graph false and true)")
+    p.add_argument("--depth-multiplier", type=float, default=1.0,
+                   help="tune a reduced-width tower (tests)")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_tune)
+
+    p = sub.add_parser("scrape")
+    p.add_argument("--consumer-key", required=True)
+    p.add_argument("--consumer-secret", default="")
+    p.add_argument("--max-posts", type=int, default=1000)
+    p.add_argument("--out", default="scraped")
+    p.set_defaults(fn=cmd_scrape)
     return parser
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in REFUSED:
-        raise _left(argv[0])
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     args = parser().parse_args(argv)
     try:

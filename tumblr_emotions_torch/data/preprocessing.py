@@ -5,7 +5,10 @@ in PyTorch (port of ``tumblr_emotions_tpu/data/preprocessing.py``):
            299, align_corners=False, half_pixel_centers=False) -> x*2 - 1
     train: distorted bounding-box crop -> bilinear resize -> random
            horizontal flip -> brightness and saturation in a random order
-           -> x*2 - 1 (slim's fast mode, the one the trainer runs)
+           -> x*2 - 1 (slim's fast mode, the one the trainer runs); full
+           mode picks the resize per image among bilinear, nearest,
+           bicubic and area, and chains brightness, saturation, hue and
+           contrast in one of four orders
 
 The resizes are two separable 1-D interpolations, each a dense [out, in]
 matrix product (per image for the train crop).  In float32 they run in
@@ -16,16 +19,16 @@ engine's stem straight from the two resize products.
 The train distortions are split into their random draws
 (:func:`draw_train`, from a ``torch.Generator``) and a pure
 :func:`apply_train` of those draws: random streams cannot match across
-frameworks, so the tests feed the JAX package's draws to ``apply_train``.
-Slim's full mode (the nearest / bicubic / area resizes and the hue and
-contrast chains) is reached by no entry point and is not ported yet.
+frameworks, so the tests feed the JAX package's draws to ``apply_train``.  Slim's
+full mode (``fast_mode=False``) is reached by no trainer entry point, in
+either package.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,7 +179,7 @@ def preprocess_for_eval_s2d(images: torch.Tensor, height: int = 299, width: int 
 
 
 # ---------------------------------------------------------------------------
-# Training-time distortions (slim preprocess_for_train, fast mode).
+# Training-time distortions (slim preprocess_for_train).
 # ---------------------------------------------------------------------------
 
 CROP_ATTEMPTS = 100
@@ -253,12 +256,18 @@ def distorted_bounding_box_crop(generator: torch.Generator, n: int, image_hw: Tu
     return (pick(oy, 0), pick(ox, 0), pick(ch.clamp(1, h), h), pick(cw.clamp(1, w), w))
 
 
+FULL_RESIZES = ("nearest", "bicubic", "area")   # full mode's cases after the configured one
+
+
 @dataclasses.dataclass
 class TrainDraws:
     """The random draws of one batch's train distortions, each ``[N]``: the
     crop window (``oy``, ``ox``, ``ch``, ``cw``), the horizontal flip, the
-    brightness ``delta``, the saturation ``factor`` and the colour order
-    (``order``: brightness first)."""
+    brightness ``delta``, the saturation ``factor`` and the fast mode's
+    colour order (``order``: brightness first).  Full mode adds the resize
+    case (``resize``: 0 the configured method, then ``FULL_RESIZES``), the
+    ``hue`` delta, the ``contrast`` factor and the colour chain (``chain``,
+    one of four orders); they are None for a fast-mode batch."""
 
     oy: torch.Tensor
     ox: torch.Tensor
@@ -268,57 +277,136 @@ class TrainDraws:
     delta: torch.Tensor
     factor: torch.Tensor
     order: torch.Tensor
+    resize: Optional[torch.Tensor] = None
+    hue: Optional[torch.Tensor] = None
+    contrast: Optional[torch.Tensor] = None
+    chain: Optional[torch.Tensor] = None
+
+    def _map(self, fn) -> "TrainDraws":
+        return TrainDraws(**{f.name: None if getattr(self, f.name) is None
+                             else fn(getattr(self, f.name)) for f in dataclasses.fields(self)})
 
     def to(self, device) -> "TrainDraws":
-        return TrainDraws(**{f.name: getattr(self, f.name).to(device)
-                             for f in dataclasses.fields(self)})
+        return self._map(lambda t: t.to(device))
 
     def rows(self, rows: slice) -> "TrainDraws":
         """The draws of ``rows`` of the batch (a process's rows of the
         global batch under data parallelism)."""
-        return TrainDraws(**{f.name: getattr(self, f.name)[rows]
-                             for f in dataclasses.fields(self)})
+        return self._map(lambda t: t[rows])
 
 
 def draw_train(generator: torch.Generator, n: int, image_hw: Tuple[int, int],
-               device=None) -> TrainDraws:
+               device=None, fast_mode: bool = True) -> TrainDraws:
     """Draw one batch's distortions from ``generator`` (on ``device``): the
     crop as :func:`distorted_bounding_box_crop`, a fair coin for the flip
     and the order, the brightness delta uniform in [-32/255, 32/255) and
-    the saturation factor uniform in [0.5, 1.5)."""
+    the saturation factor uniform in [0.5, 1.5); for full mode then the
+    resize case and the chain uniform over 4, the hue delta uniform in
+    [-0.2, 0.2) and the contrast factor in [0.5, 1.5)."""
     oy, ox, ch, cw = distorted_bounding_box_crop(generator, n, image_hw, device=device)
 
     def uniform(lo, hi):
         return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
 
+    def four():
+        return torch.randint(0, 4, (n,), generator=generator, device=device)
+
     flip = torch.rand(n, generator=generator, device=device) < 0.5
     delta = uniform(-32.0 / 255.0, 32.0 / 255.0)
     factor = uniform(0.5, 1.5)
     order = torch.rand(n, generator=generator, device=device) < 0.5
-    return TrainDraws(oy, ox, ch, cw, flip, delta, factor, order)
+    d = TrainDraws(oy, ox, ch, cw, flip, delta, factor, order)
+    if not fast_mode:
+        d.resize, d.hue, d.contrast, d.chain = four(), uniform(-0.2, 0.2), uniform(0.5, 1.5), \
+            four()
+    return d
+
+
+def _true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as IEEE division, as the reference divides: on the
+    card PyTorch divides by a Python scalar as a product with its
+    reciprocal, which moves a quotient by an ulp and, under a floor, moves
+    a nearest or bicubic tap by a whole pixel."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _crop_resize_matrix(out_size: int, off: torch.Tensor, size: torch.Tensor,
                         in_size: int, method: str) -> torch.Tensor:
-    """Dense [N, out_size, in_size] bilinear matrices of a per-image crop
-    (``off``, ``size``: [N]) and resize, the weight at input column ``i``
-    being ``relu(1 - |i - src(o)|)`` on the f32 source grid: the
-    reference's ``_crop_resize_matrix`` for ``tf1`` (``src = o * scale``),
-    ``half_pixel`` and its alias ``bilinear``."""
-    if method not in ("tf1", "half_pixel", "bilinear"):
-        raise ValueError(f"unknown resize method {method!r}; the fast train path "
-                         "resizes with tf1, half_pixel or bilinear")
+    """Dense [N, out_size, in_size] matrices of a per-image crop (``off``,
+    ``size``: [N]) and resize, in the reference's f32 arithmetic
+    (``_crop_resize_matrix``):
+
+    - ``tf1`` (``src = o * scale``), ``half_pixel`` and its alias
+      ``bilinear``: the weight at input column ``i`` is
+      ``relu(1 - |i - src(o)|)``;
+    - ``nearest``: TF1's ``min(floor(o * scale), size - 1)``;
+    - ``bicubic``: TF1's Keys kernel (A = -0.75) over the 4 taps around
+      ``floor(o * scale)``, each clamped into the crop;
+    - ``area``: the overlap of input cell ``i`` with ``[o, o+1) * scale``,
+      over ``scale``."""
     dev = off.device
-    scale = size.float() / out_size                                 # [N]
+    scale = _true_div(size.float(), out_size)                       # [N]
     o = torch.arange(out_size, dtype=torch.float32, device=dev)
     i = torch.arange(in_size, dtype=torch.float32, device=dev)
-    if method == "half_pixel":
-        src = (o[None, :] + 0.5) * scale[:, None] - 0.5
-    else:
-        src = o[None, :] * scale[:, None]
-    src = torch.minimum(src.clamp_min(0.0), size.float()[:, None] - 1.0)
-    src = src + off.float()[:, None]                                # [N, out]
-    return (1.0 - (i[None, None, :] - src[:, :, None]).abs()).clamp_min(0.0)
+    offf = off.float()
+    if method in ("tf1", "half_pixel", "bilinear"):
+        if method == "half_pixel":
+            src = (o[None, :] + 0.5) * scale[:, None] - 0.5
+        else:
+            src = o[None, :] * scale[:, None]
+        src = torch.minimum(src.clamp_min(0.0), size.float()[:, None] - 1.0)
+        src = src + offf[:, None]                                   # [N, out]
+        return (1.0 - (i[None, None, :] - src[:, :, None]).abs()).clamp_min(0.0)
+    if method == "nearest":
+        idx = torch.minimum(torch.floor(o[None, :] * scale[:, None]),
+                            size.float()[:, None] - 1)
+        idx = idx + offf[:, None]
+        return (i[None, None, :] == idx[:, :, None]).float()
+    if method == "bicubic":
+        a = -0.75
+        src = o[None, :] * scale[:, None]                           # [N, out]
+        p = torch.floor(src)
+        t = src - p
+
+        def edge(s):
+            return ((a * s - 5.0 * a) * s + 8.0 * a) * s - 4.0 * a
+
+        def center(s):
+            return ((a + 2.0) * s - (a + 3.0)) * s * s + 1.0
+
+        wts = [edge(1.0 + t), center(t), center(1.0 - t), edge(2.0 - t)]
+        hi = size.float()[:, None] - 1.0
+        m = torch.zeros(off.shape[0], out_size, in_size, device=dev)
+        for k in range(4):
+            tap = torch.minimum((p + (k - 1)).clamp_min(0.0), hi) + offf[:, None]
+            m = m + wts[k][:, :, None] * (i[None, None, :] == tap[:, :, None]).float()
+        return m
+    if method == "area":
+        start = o[None, :] * scale[:, None]                         # [N, out]
+        end = (o[None, :] + 1.0) * scale[:, None]
+        i_rel = i[None, None, :] - offf[:, None, None]              # [N, 1, in]
+        overlap = (torch.minimum(i_rel + 1.0, end[:, :, None])
+                   - torch.maximum(i_rel, start[:, :, None]))
+        return overlap.clamp_min(0.0) / scale[:, None, None]
+    raise ValueError(f"unknown resize method {method!r}")
+
+
+def _resize_matrices(d: TrainDraws, height: int, width: int, h: int, w: int,
+                     method: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row and column matrices of each image: ``method``'s, or in full
+    mode (``d.resize`` set) the per-image case's, picked among the
+    matrices (not among resized outputs)."""
+    if d.resize is None:
+        return (_crop_resize_matrix(height, d.oy, d.ch, h, method),
+                _crop_resize_matrix(width, d.ox, d.cw, w, method))
+    cases = (method,) + FULL_RESIZES
+    pick = d.resize[:, None, None]
+    my = torch.zeros(d.oy.shape[0], height, h, device=d.oy.device)
+    mx = torch.zeros(d.oy.shape[0], width, w, device=d.oy.device)
+    for k, m in enumerate(cases):
+        my = torch.where(pick == k, _crop_resize_matrix(height, d.oy, d.ch, h, m), my)
+        mx = torch.where(pick == k, _crop_resize_matrix(width, d.ox, d.cw, w, m), mx)
+    return my, mx
 
 
 def _crop_resize_batch(images: torch.Tensor, d: TrainDraws, height: int, width: int,
@@ -328,8 +416,7 @@ def _crop_resize_batch(images: torch.Tensor, d: TrainDraws, height: int, width: 
     (a permutation, so equal to flipping afterwards), and ``in_scale``
     (1/255 for uint8) is folded into the row matrix."""
     n, h, w, c = images.shape
-    my = _crop_resize_matrix(height, d.oy, d.ch, h, method)
-    mx = _crop_resize_matrix(width, d.ox, d.cw, w, method)
+    my, mx = _resize_matrices(d, height, width, h, w, method)
     mx = torch.where(d.flip[:, None, None], mx.flip(1), mx)
     if in_scale != 1.0:
         my = my * in_scale
@@ -359,14 +446,159 @@ def _distort_color_fast_batch(x: torch.Tensor, d: TrainDraws) -> torch.Tensor:
     return torch.where(d.order[:, None, None, None], a, b)
 
 
+def _floor_mod(x: torch.Tensor, y: float) -> torch.Tensor:
+    """``jnp.remainder`` for a positive float ``y``: C's ``fmod`` (exact),
+    moved into [0, y) (``torch.remainder`` rounds ``x - floor(x/y)*y``)."""
+    m = torch.fmod(x, y)
+    return torch.where((m != 0) & (m < 0), m + y, m)
+
+
+def rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    """RGB [..., 3] in [0,1] -> HSV, matching tf.image.rgb_to_hsv, in the
+    reference's operation order."""
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    mx = img.amax(dim=-1)
+    mn = img.amin(dim=-1)
+    d = mx - mn
+    safe_d = torch.where(d > 0, d, torch.ones_like(d))
+    h_r = _floor_mod((g - b) / safe_d, 6.0)
+    h_g = (b - r) / safe_d + 2.0
+    h_b = (r - g) / safe_d + 4.0
+    h = _true_div(torch.where(mx == r, h_r, torch.where(mx == g, h_g, h_b)), 6.0)
+    h = torch.where(d > 0, h, torch.zeros_like(h))
+    s = torch.where(mx > 0, d / torch.where(mx > 0, mx, torch.ones_like(mx)),
+                    torch.zeros_like(mx))
+    return torch.stack([h, s, mx], dim=-1)
+
+
+def hsv_to_rgb(img: torch.Tensor) -> torch.Tensor:
+    """HSV [..., 3] -> RGB, matching tf.image.hsv_to_rgb: the sector
+    ``int(h * 6) % 6`` of each pixel picks its channels, as the reference
+    selects them."""
+    h, s, v = img[..., 0], img[..., 1], img[..., 2]
+    c = s * v
+    m = v - c
+    dh = _floor_mod(h, 1.0) * 6.0
+    x = c * (1.0 - (_floor_mod(dh, 2.0) - 1.0).abs())
+    idx = dh.to(torch.int32) % 6
+    z = torch.zeros_like(c)
+
+    def select(values, default):   # sector 5 is the default
+        out = default
+        for k in reversed(range(5)):
+            out = torch.where(idx == k, values[k], out)
+        return out
+
+    r = select([c, x, z, z, x], c)
+    g = select([x, c, c, x, z], z)
+    b = select([z, z, x, c, c], x)
+    return torch.stack([r + m, g + m, b + m], dim=-1)
+
+
+def _hue_rotate(img: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """tf.image.adjust_hue with a per-image [N,1,1] delta, elementwise."""
+    hsv = rgb_to_hsv(img.clamp(0.0, 1.0))
+    h = _floor_mod(hsv[..., 0] + delta, 1.0)
+    return hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
+
+
+def _contrast(img: torch.Tensor, factor: torch.Tensor) -> torch.Tensor:
+    mean = img.mean(dim=(-3, -2), keepdim=True)
+    return mean + (img - mean) * factor
+
+
+def _distort_color_full_batch(x: torch.Tensor, d: TrainDraws) -> torch.Tensor:
+    """slim's full-mode colour distortion per image: brightness,
+    saturation, hue and contrast in the order ``d.chain`` picks (all four
+    chains computed elementwise, then selected, as the reference does)."""
+    delta, sat_f = d.delta[:, None, None, None], d.factor[:, None, None, None]
+    hue_d, con_f = d.hue[:, None, None], d.contrast[:, None, None, None]
+
+    def bright(im):
+        return im + delta
+
+    def sat(im):
+        return _saturate(im, sat_f)
+
+    def hue(im):
+        return _hue_rotate(im, hue_d)
+
+    def con(im):
+        return _contrast(im, con_f)
+
+    chains = [con(hue(sat(bright(x)))),
+              hue(con(bright(sat(x)))),
+              bright(sat(con(hue(x)))),
+              sat(bright(con(hue(x))))]
+    case = d.chain[:, None, None, None]
+    out = chains[3]
+    for k in reversed(range(3)):
+        out = torch.where(case == k, chains[k], out)
+    return out
+
+
+def _adjust_saturation(img: torch.Tensor, factor) -> torch.Tensor:
+    """tf.image.adjust_saturation by the exact HSV scaling."""
+    hsv = rgb_to_hsv(img.clamp(0.0, 1.0))
+    s = (hsv[..., 1] * factor).clamp(0.0, 1.0)
+    return hsv_to_rgb(torch.stack([hsv[..., 0], s, hsv[..., 2]], dim=-1))
+
+
+def _adjust_hue(img: torch.Tensor, delta) -> torch.Tensor:
+    """tf.image.adjust_hue by the exact HSV rotation."""
+    hsv = rgb_to_hsv(img.clamp(0.0, 1.0))
+    h = _floor_mod(hsv[..., 0] + delta, 1.0)
+    return hsv_to_rgb(torch.stack([h, hsv[..., 1], hsv[..., 2]], dim=-1))
+
+
+def _adjust_contrast(img: torch.Tensor, factor) -> torch.Tensor:
+    mean = img.mean(dim=(0, 1), keepdim=True)
+    return mean + (img - mean) * factor
+
+
+def distort_color(img: torch.Tensor, delta, saturation, hue, contrast, order: int,
+                  fast_mode: bool = True) -> torch.Tensor:
+    """slim ``distort_color`` of one [H,W,3] image with its draws given:
+    brightness ``delta``, ``saturation`` factor, ``hue`` delta and
+    ``contrast`` factor, in ordering ``order`` (one of 2 in fast mode, of 4
+    in full mode), each adjustment as TF computes it."""
+    def bright(im):
+        return im + delta
+
+    def sat(im):
+        return _adjust_saturation(im, saturation)
+
+    def hue_(im):
+        return _adjust_hue(im, hue)
+
+    def con(im):
+        return _adjust_contrast(im, contrast)
+
+    if fast_mode:
+        chains = [lambda im: sat(bright(im)), lambda im: bright(sat(im))]
+    else:
+        chains = [lambda im: con(hue_(sat(bright(im)))),
+                  lambda im: hue_(con(bright(sat(im)))),
+                  lambda im: bright(sat(con(hue_(im)))),
+                  lambda im: sat(bright(con(hue_(im))))]
+    return chains[int(order)](img)
+
+
 def apply_train(images: torch.Tensor, draws: TrainDraws, height: int = 299,
-                width: int = 299, resize_method: str = "tf1") -> torch.Tensor:
+                width: int = 299, resize_method: str = "tf1",
+                fast_mode: bool = True) -> torch.Tensor:
     """The train distortions of ``draws`` on an NHWC batch (uint8, or float
     in [0, 1]) -> [N, height, width, C] f32 in [-1, 1]: the reference's
-    ``preprocess_for_train`` in fast mode, with its draws given."""
+    ``preprocess_for_train`` with its draws given; ``fast_mode=False``
+    takes full-mode draws (``draw_train(fast_mode=False)``)."""
+    if not fast_mode and draws.resize is None:
+        raise ValueError("full mode needs full-mode draws (draw_train(fast_mode=False))")
+    if fast_mode:
+        draws = dataclasses.replace(draws, resize=None)
     in_scale = 1.0 if images.is_floating_point() else 1.0 / 255.0
     x = _crop_resize_batch(images, draws, height, width, resize_method, in_scale)
-    x = _distort_color_fast_batch(x, draws)
+    x = _distort_color_fast_batch(x, draws) if fast_mode else \
+        _distort_color_full_batch(x, draws)
     return x.clamp(0.0, 1.0) * 2.0 - 1.0
 
 
@@ -374,12 +606,9 @@ def preprocess_for_train(generator: torch.Generator, images: torch.Tensor,
                          height: int = 299, width: int = 299, resize_method: str = "tf1",
                          fast_mode: bool = True) -> torch.Tensor:
     """slim ``preprocess_for_train`` over a batch on its device, drawing
-    from ``generator`` (on that device): distorted crop, resize, random
-    flip, colour distortion, scale to [-1, 1], in f32."""
-    if not fast_mode:
-        raise NotImplementedError(
-            "slim's full-mode train distortions (four resize methods, hue and "
-            "contrast) are not ported yet; the trainer runs fast mode")
+    from ``generator`` (on that device): distorted crop, resize (per image
+    among four methods in full mode), random flip, colour distortion,
+    scale to [-1, 1], in f32."""
     n, h, w, _ = images.shape
-    return apply_train(images, draw_train(generator, n, (h, w), device=images.device),
-                       height, width, resize_method)
+    draws = draw_train(generator, n, (h, w), device=images.device, fast_mode=fast_mode)
+    return apply_train(images, draws, height, width, resize_method, fast_mode=fast_mode)

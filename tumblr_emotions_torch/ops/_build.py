@@ -29,6 +29,15 @@ BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+def launched(dev: torch.device) -> bool:
+    """Whether a kernel just launched on ``dev``'s current stream ran: not
+    while that stream is being captured into a CUDA graph, which records the
+    launch.  The wrappers' launch counts count the kernels run; a graph's
+    kernels are counted from the graph (``utils.compile_opts``)."""
+    with torch.cuda.device(dev):
+        return not torch.cuda.is_current_stream_capturing()
+
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # Entry points of each source: name -> argtypes (all return an int error).
 SIGNATURES: Dict[str, Dict[str, list]] = {

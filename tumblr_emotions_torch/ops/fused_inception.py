@@ -378,9 +378,10 @@ def _launch(op: ConvOp, cfg: TileConfig, x_ptr: int, x_stride: int, B: int, H: i
         with torch.cuda.device(dev):
             err = lib.conv_bf16(*args)
     _build.check(err, "conv_same_bias_relu", "inception_blocks")
-    conv_same_bias_relu.launches += 1
-    if op.pooled:
-        conv_same_bias_relu.pooled_launches += 1
+    if _build.launched(dev):
+        conv_same_bias_relu.launches += 1
+        if op.pooled:
+            conv_same_bias_relu.pooled_launches += 1
 
 
 def conv_same_bias_relu(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
@@ -605,7 +606,7 @@ def fused_inception_a(x: torch.Tensor, taps: Taps, scope: str,
     :class:`BlockPlan` (5 launches), built on first use.
     """
     out = block_plan(taps, scope, inception_a_branches(quirky_5c))(x)
-    if x.device.type != "cpu":
+    if x.device.type != "cpu" and _build.launched(x.device):
         fused_inception_a.launches += 1
     return out
 
@@ -616,7 +617,7 @@ fused_inception_a.launches = 0
 def fused_inception_b(x: torch.Tensor, taps: Taps, scope: str) -> torch.Tensor:
     """Inception-B (factorized 7x7): x [B,H,W,Cin] -> [B,H,W,Cout] (8 launches)."""
     out = block_plan(taps, scope, INCEPTION_B_BRANCHES)(x)
-    if x.device.type != "cpu":
+    if x.device.type != "cpu" and _build.launched(x.device):
         fused_inception_b.launches += 1
     return out
 

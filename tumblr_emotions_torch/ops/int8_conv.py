@@ -35,7 +35,8 @@ The plain version computes the conv in float64 (exact: |acc| <= 127^2 *
 4032 < 2^53) cast to int32, then the same epilogue in PyTorch ops, each
 float step one rounded multiply and one rounded add as in the kernel.  A
 wrapper takes it only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.  ``conv_int8.launches`` counts launches.
+launches the kernel or raises.  ``conv_int8.launches`` counts launches
+(run, not recorded into a CUDA graph).
 """
 
 from __future__ import annotations
@@ -391,9 +392,10 @@ def _run(plan: _Plan, x, w, epi: Epilogue, strides, pad, outs) -> List[torch.Ten
         with torch.cuda.device(dev):
             err = lib.conv_int8(*args)
     _build.check(err, "conv_int8", "int8_conv")
-    conv_int8.launches += 1
-    if cfg.load_bytes == 1:
-        conv_int8.byte_launches += 1
+    if _build.launched(dev):
+        conv_int8.launches += 1
+        if cfg.load_bytes == 1:
+            conv_int8.byte_launches += 1
     return outs
 
 

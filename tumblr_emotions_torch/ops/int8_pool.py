@@ -15,7 +15,8 @@ block's concat buffer.  Its plain version pools the values widened to
 float32 (exact) and rescales with one rounded multiply and one rounded add,
 as the kernel does.  The wrapper takes the plain version only for a tensor
 on the CPU; for a CUDA tensor it launches the kernel or raises.
-``maxpool3x3s2_int8.launches`` counts launches.
+``maxpool3x3s2_int8.launches`` counts launches (run, not recorded into a
+CUDA graph).
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ def maxpool3x3s2_int8_plain(x: torch.Tensor, rescale: Optional[float] = None,
     if rescale is None:
         y = y.to(torch.int8)
     else:
-        r = torch.tensor(np.float32(rescale), device=x.device)
-        y = (y * r + 0.5).clamp(0.0, 127.0).to(torch.int8)
+        # the f32 value as a Python scalar: the same f32 product as a 0-d f32
+        # tensor, with no host-to-card copy (which a CUDA graph capture refuses)
+        y = (y * float(np.float32(rescale)) + 0.5).clamp(0.0, 127.0).to(torch.int8)
     return y if out is None else out.copy_(y)
 
 
@@ -76,7 +78,8 @@ def maxpool3x3s2_int8(x: torch.Tensor, rescale: Optional[float] = None,
             float(np.float32(rescale)) if rescale is not None else 0.0,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "maxpool3x3s2_int8", "int8_pool")
-    maxpool3x3s2_int8.launches += 1
+    if _build.launched(x.device):
+        maxpool3x3s2_int8.launches += 1
     return out
 
 

@@ -20,14 +20,19 @@ Port of the one-device form of ``tumblr_emotions_tpu/ops/serving.py``:
 The default served program is ``image_server(QuantizedInceptionV3(state,
 calib, stem_s2d="pre"))``, the program the JAX package's ``bench.py``
 measures; its convs and max pools run as hand-written kernels
-(``ops/int8_conv.py``, ``ops/int8_pool.py``).  Multi-card serving comes with
-a later slice.
+(``ops/int8_conv.py``, ``ops/int8_pool.py``).  Every served program (the
+preprocess, the engine, the text branch and the softmax) runs through
+``utils.compile_opts.capture``, as the reference's runs through
+``tpu_jit``: on the card, one CUDA graph per input signature, its inputs
+copied into static buffers, so a batch is one launch.  Multi-card serving
+comes with a later slice.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
 from tumblr_emotions_torch._device import resolve_device
@@ -37,6 +42,7 @@ from tumblr_emotions_torch.models import build_model
 from tumblr_emotions_torch.models.joint_model import tower_state
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
 from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
+from tumblr_emotions_torch.utils.compile_opts import capture
 
 
 def _checked(logits, feature):
@@ -48,12 +54,16 @@ def _checked(logits, feature):
     return torch.softmax(logits.float(), dim=-1), feature
 
 
-def _uint8_batch(images, dev: torch.device) -> torch.Tensor:
-    raw = torch.as_tensor(images)
-    if raw.dtype != torch.uint8 or raw.ndim != 4 or raw.shape[-1] != 3:
+def _uint8_batch(images):
+    """``images`` (a tensor or numpy array, where it lies: the captured
+    program copies it to the card) after checking it is a uint8 [B,H,W,3]
+    batch."""
+    raw = images if isinstance(images, (torch.Tensor, np.ndarray)) else np.asarray(images)
+    u8 = torch.uint8 if isinstance(raw, torch.Tensor) else np.uint8
+    if raw.dtype != u8 or raw.ndim != 4 or raw.shape[-1] != 3:
         raise ValueError(f"expected a uint8 [B,H,W,3] batch, got "
                          f"{raw.dtype} {tuple(raw.shape)}")
-    return raw.to(dev)
+    return raw
 
 
 def _front(engine, dev: torch.device, from_uint8: bool, preprocess_dtype,
@@ -99,16 +109,18 @@ def image_server(engine, device="cuda", preprocess_dtype=torch.bfloat16,
     (``preprocess_for_eval_s2d``).  ``from_uint8=True`` serves the int8
     engine's all-int8 front (TF1 resize only; not with ``stem_s2d="pre"``).
     The preprocess knobs must match the model's eval config
-    (``build_forward`` threads them from ``cfg``).
+    (``build_forward`` threads them from ``cfg``).  The program runs through
+    ``capture`` (``serve.program``).
     """
     dev = resolve_device(device)
     front = _front(engine, dev, from_uint8, preprocess_dtype, image_size,
                    central_fraction, resize_method)
+    program = capture(lambda raw: _checked(*front(raw)), device=dev)
 
-    @torch.inference_mode()
     def serve(images):
-        return _checked(*front(_uint8_batch(images, dev)))
+        return program(_uint8_batch(images))
 
+    serve.program = program
     return serve
 
 
@@ -123,16 +135,22 @@ def joint_server(engine, model, device="cuda", preprocess_dtype=torch.bfloat16,
     :func:`image_server`); its feature, in f32, feeds ``model.fuse`` (a
     ``DeepSentimentModel`` on ``device``), which carries the text lookup, the
     aggregator and the fusion head.  ``lengths=None`` counts the non-pad ids.
+    The whole program runs through ``capture`` (``serve.program``).
     """
     dev = resolve_device(device)
     front = _front(engine, dev, from_uint8, preprocess_dtype, image_size,
                    central_fraction, resize_method)
 
-    @torch.inference_mode()
-    def serve(images, tokens, lengths=None):
-        _, feature = front(_uint8_batch(images, dev))
+    def body(raw, tokens, lengths):
+        _, feature = front(raw)
         return model.fuse(feature.float(), tokens, lengths)[1]["Predictions"]
 
+    program = capture(body, device=dev)
+
+    def serve(images, tokens, lengths=None):
+        return program(_uint8_batch(images), tokens, lengths)
+
+    serve.program = program
     return serve
 
 
@@ -156,7 +174,12 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
     resize GEMMs, no float image; TF1 resize only, any other resize falls
     back to the float front, as in the reference) or ``"float"`` (normal
     layout, stride-2 stem).  The int8 and bf16 runners carry their engine
-    as ``runner.engine``.
+    as ``runner.engine``.  Every runner serves its program through
+    ``utils.compile_opts.capture`` (one CUDA graph per input signature on
+    the card, unless ``TET_TORCH_COMPILER_OPTIONS`` turns it off), as
+    ``runner.program`` (its eager program is ``runner.program.fn``); inputs may be
+    tensors anywhere or numpy arrays.  A parity or text runner carries its
+    slim model as ``runner.model``.
     """
     if front not in ("s2d", "uint8", "float"):
         raise ValueError(f"unknown front {front!r}; expected s2d|uint8|float")
@@ -170,15 +193,27 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
         model = build_model(cfg, device=dev)
         model.load_state_dict(state)
 
-        @torch.inference_mode()
-        def runner(image=None, tokens=None, lengths=None):
+        def body(image, tokens, lengths):
             args = [] if cfg.model == "text" else [preprocess_for_eval(
-                _uint8_batch(image, dev), size, size, dtype=torch.float32, **pp)]
+                image, size, size, dtype=torch.float32, **pp)]
             if cfg.model != "image":
                 args += [tokens, lengths]
             return model(*args)[1]["Predictions"]
 
+        program = capture(body, device=dev)
+
+        def runner(image=None, tokens=None, lengths=None):
+            if cfg.model == "text":
+                image = None
+            elif image is not None:
+                image = _uint8_batch(image)
+            if cfg.model == "image":
+                tokens = lengths = None
+            return program(image, tokens, lengths)
+
         runner.device = dev
+        runner.program = program
+        runner.model = model
         return runner
 
     tower = state if cfg.model == "image" else tower_state(state)
@@ -211,6 +246,7 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
         def runner(image, tokens=None, lengths=None):
             return img_server(image)[0]
 
+        runner.program = img_server.program
     runner.engine = eng  # the engine behind the runner (its scales, epilogue kinds)
     runner.device = dev
     return runner

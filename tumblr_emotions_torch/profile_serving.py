@@ -19,7 +19,8 @@ seeded weights, batch 32 unless ``--batch`` says otherwise (the batch's
 ids are seeded [B,50] ids, its labels seeded).  Prints
 one JSON line per program: host wall ms per batch, device busy ms per batch
 (sum of kernel times on the one stream), the idle share (1 - busy/wall),
-and device time by kernel group.  Needs a CUDA card; raises without one.
+the host's kernel and graph launch calls per batch, and device time by
+kernel group.  Needs a CUDA card; raises without one.
 """
 
 from __future__ import annotations
@@ -63,6 +64,12 @@ GROUPS = [
 ]
 
 
+# The CUDA API calls (cuda* and cu*) that launch work, as the trace names them.
+LAUNCH_CALLS = {"cudaLaunchKernel": "kernel", "cudaLaunchKernelExC": "kernel",
+                "cuLaunchKernel": "kernel", "cuLaunchKernelEx": "kernel",
+                "cudaGraphLaunch": "graph", "cuGraphLaunch": "graph"}
+
+
 def _group(name: str) -> str:
     low = name.lower()
     for key, group in GROUPS:
@@ -86,8 +93,11 @@ def profile_engine(serve, n: int) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_group, by_kernel = defaultdict(float), defaultdict(float)
     n_kernels = 0
+    host_launches = defaultdict(int)   # the host's launch calls the trace saw, by kind
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.name in LAUNCH_CALLS:
+                host_launches[LAUNCH_CALLS[e.name]] += 1
             continue
         us = e.time_range.elapsed_us()
         by_group[_group(e.name)] += us / 1e3
@@ -99,6 +109,7 @@ def profile_engine(serve, n: int) -> dict:
             "device_busy_ms_per_batch": busy / n if n_kernels else None,
             "idle_share": 1.0 - busy / wall_ms if n_kernels else None,
             "kernels_per_batch": n_kernels / n,
+            "host_launches_per_batch": {k: v / n for k, v in sorted(host_launches.items())},
             "device_ms_per_batch_by_group": {k: v / n for k, v in
                                              sorted(by_group.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms_per_batch": {k: v / n for k, v in top}}

@@ -7,7 +7,10 @@ libjpeg's), the exact eval preprocessing (central crop at native
 resolution, then the TF1 bilinear resize to the model's size) runs on the
 device, then the slim model ``models.build_model(cfg)`` builds, in the
 config's precision mode (f32, or bf16 for ``precision_mode="perf"``):
-the parity path, batch 1.
+the parity path, batch 1: the program ``ops.serving.build_forward(
+engine="parity")`` serves, run eagerly.  Each post's image keeps its own
+decoded size, so a CUDA graph per shape (the served runners' capture) would
+rarely be replayed, and ``cli predict`` calls it once.
 """
 
 from __future__ import annotations
@@ -20,9 +23,9 @@ import torch
 from tumblr_emotions_torch._device import resolve_device
 from tumblr_emotions_torch.config import EMOTIONS, Config
 from tumblr_emotions_torch.data import jpeg as jpeg_lib
-from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
 from tumblr_emotions_torch.data.vocab import Vocabulary
-from tumblr_emotions_torch.models import build_model
+from tumblr_emotions_torch.ops.serving import build_forward
+from tumblr_emotions_torch.utils.compile_opts import capture
 
 
 class Predictor:
@@ -39,31 +42,27 @@ class Predictor:
         self.vocab = vocab
         self.emotions = list(emotions)
         self.device = resolve_device(device)
-        self.model = build_model(cfg, device=self.device)
-        self.model.load_state_dict(state)
+        self.runner = build_forward(cfg, state, engine="parity", device=self.device)
+        self.model = self.runner.model
+        self.program = capture(self.runner.program.fn, options={"cuda_graph": "false"},
+                               device=self.device)
 
-    @torch.inference_mode()
     def predict(self, image_bytes: Optional[bytes] = None,
                 text: Optional[str] = None) -> Dict[str, float]:
         """One post -> {emotion: probability}, sorted descending."""
-        cfg, dev = self.cfg, self.device
-        args = []
+        cfg = self.cfg
+        raw = ids = lengths = None
         if cfg.model in ("image", "joint"):
             if image_bytes is None:
                 raise ValueError(f"model {cfg.model!r} needs an image")
-            raw = torch.from_numpy(jpeg_lib.decode(image_bytes))[None].to(dev)
-            size = cfg.image.image_size
-            args.append(preprocess_for_eval(
-                raw, size, size, central_fraction=cfg.data.eval_central_crop,
-                resize_method=cfg.data.resize_method, dtype=torch.float32))
+            raw = jpeg_lib.decode(image_bytes)[None]
         if cfg.model in ("text", "joint"):
             if text is None:
                 raise ValueError(f"model {cfg.model!r} needs text")
             if self.vocab is None:
                 raise ValueError("predictor needs a vocabulary for text")
             ids, length = self.vocab.encode(text, cfg.text.max_len)
-            args += [torch.from_numpy(ids[None]).to(dev),
-                     torch.tensor([length], dtype=torch.int32, device=dev)]
-        probs = self.model(*args)[1]["Predictions"][0].float().cpu().numpy()
+            ids, lengths = ids[None], np.array([length], np.int32)
+        probs = self.program(raw, ids, lengths)[0].float().cpu().numpy()
         order = np.argsort(-probs)
         return {self.emotions[i]: float(probs[i]) for i in order}

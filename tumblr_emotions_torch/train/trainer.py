@@ -372,6 +372,17 @@ class Trainer:
             stats = {k: p.view_as(stats[k]).to(stats[k].dtype) for k, p in zip(keys, parts)}
         return stats
 
+    @torch.no_grad()
+    def predict_step(self, state: TrainState, batch: Dict[str, Any]) -> torch.Tensor:
+        """The batch's probabilities (the model's ``Predictions``) from the
+        eval-mode forward :meth:`eval_step` runs, on the device."""
+        with full_f32():
+            batch = self._maybe_preprocess(self._to_device(batch), False, None, None)
+        with self._numerics():
+            self.model.eval()
+            _, end_points = functional_call(self.model, state.state, self._model_args(batch))
+        return end_points["Predictions"]
+
     # -- loops ---------------------------------------------------------------
 
     def fit(self, state: TrainState, batches: Iterable[Dict[str, Any]],

@@ -1,0 +1,391 @@
+"""Serve a program as one captured CUDA graph per input signature, with
+options, their environment override and an autotuner.
+
+The port's counterpart of ``tumblr_emotions_tpu/utils/compile_opts.py``.
+The JAX package serves every program through ``tpu_jit``: one compiled XLA
+program per input shape.  Here :func:`capture` plays that role: on the card
+the first call of a signature runs the program eagerly as a warm-up, then
+records it into one ``torch.cuda.CUDAGraph`` over static input buffers;
+every later call copies its inputs in and replays the graph, one launch for
+the whole program where eager PyTorch launches each kernel from Python.
+
+The options are the port's own (the reference's are XLA flags):
+
+- ``cuda_graph``: ``"true"`` (the card's default) captures the program,
+  ``"false"`` launches it op by op from Python.
+
+A graph replays the same kernels on the same operands as the eager program,
+so every option leaves the answers bit-equal (the reference's standard for
+its option ladder: bit-identical logits).  ``TET_TORCH_COMPILER_OPTIONS``
+(a JSON object, e.g. the winner ``cli tune`` prints) overrides the default
+for every call site; ``{}`` is the plain program, as in the reference.  The
+JAX package's ``TET_COMPILER_OPTIONS`` carries XLA flags and is not read.
+
+A capture that fails raises: there is no quiet fallback to the eager
+program, which would hide the graph's absence behind the same answers.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from tumblr_emotions_torch._device import resolve_device
+
+log = logging.getLogger("tumblr_emotions_torch")
+
+ENV_VAR = "TET_TORCH_COMPILER_OPTIONS"
+# Option name -> the values it takes.
+OPTIONS: Dict[str, Sequence[str]] = {"cuda_graph": ("true", "false")}
+DEFAULT_OPTIONS: Dict[str, str] = {"cuda_graph": "true"}
+# The ladder ``autotune`` walks by default: the eager program, then the graph.
+DEFAULT_AUTOTUNE_CANDIDATES: List[Dict[str, str]] = [
+    {"cuda_graph": "false"}, {"cuda_graph": "true"}]
+
+
+def default_options() -> Dict[str, str]:
+    """The options :func:`capture` applies when none are passed:
+    ``TET_TORCH_COMPILER_OPTIONS`` if set, else :data:`DEFAULT_OPTIONS`."""
+    return _options_from_env(ENV_VAR, DEFAULT_OPTIONS)
+
+
+def _options_from_env(var: str, default: Dict[str, str]) -> Dict[str, str]:
+    env = os.environ.get(var)
+    if env is None:
+        return dict(default)
+    try:
+        opts = json.loads(env)
+    except ValueError as e:
+        raise ValueError(f"{var} is not valid JSON: {env!r}") from e
+    if not isinstance(opts, dict):
+        raise ValueError(f"{var} must be a JSON object, got: {env!r}")
+    return {str(k): str(v) for k, v in opts.items()}
+
+
+def check_options(opts: Dict[str, str]) -> Dict[str, str]:
+    """``opts`` with its values lower-cased; a ``ValueError`` for a name or
+    a value the port does not know."""
+    out = {}
+    for name, value in opts.items():
+        if name not in OPTIONS:
+            raise ValueError(f"unknown option {name!r}; the port's options are "
+                             f"{sorted(OPTIONS)}")
+        value = str(value).lower()
+        if value not in OPTIONS[name]:
+            raise ValueError(f"option {name}={value!r}; expected one of {OPTIONS[name]}")
+        out[name] = value
+    return out
+
+
+def _graph_kernels(raw_graph: int) -> Dict[str, int]:
+    """The kernel nodes of a captured ``cudaGraph_t``, counted by the
+    kernel's (mangled) function name, read through the driver API."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr = ctypes.c_void_p
+
+    class KernelParams(ctypes.Structure):   # CUDA_KERNEL_NODE_PARAMS_v2
+        _fields_ = ([("func", ptr)] + [(f, ctypes.c_uint) for f in (
+            "grid_x", "grid_y", "grid_z", "block_x", "block_y", "block_z", "smem")]
+            + [("params", ptr), ("extra", ptr), ("kern", ptr), ("ctx", ptr)])
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed with CUresult {err}")
+
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(ptr(raw_graph), None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ptr * n.value)()
+    check(cu.cuGraphGetNodes(ptr(raw_graph), nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    counts: Dict[str, int] = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ptr(node), ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:     # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = KernelParams(), ctypes.c_char_p()
+        check(cu.cuGraphKernelNodeGetParams_v2(ptr(node), ctypes.byref(params)),
+              "cuGraphKernelNodeGetParams")
+        check(cu.cuFuncGetName(ctypes.byref(name), ptr(params.func)), "cuFuncGetName")
+        counts[name.value.decode()] = counts.get(name.value.decode(), 0) + 1
+    return counts
+
+
+def _is_array(a) -> bool:
+    return isinstance(a, (torch.Tensor, np.ndarray))
+
+
+def _torch_dtype(a) -> torch.dtype:
+    return a.dtype if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.empty(0, a.dtype)).dtype
+
+
+def _signature(args) -> tuple:
+    """Each input's shape, dtype and device (``host`` for numpy), or None."""
+    sig = []
+    for a in args:
+        if a is None:
+            sig.append(None)
+        elif _is_array(a):
+            where = str(a.device) if isinstance(a, torch.Tensor) else "host"
+            sig.append((tuple(a.shape), str(_torch_dtype(a)), where))
+        else:
+            raise TypeError(f"captured programs take tensors, arrays or None, got "
+                            f"{type(a).__name__}")
+    return tuple(sig)
+
+
+def _to_device(a, dev: torch.device):
+    return None if a is None else torch.as_tensor(a).to(dev)
+
+
+def _map(out, fn):
+    """``fn`` over every tensor of a (nested) tuple, list or dict."""
+    if isinstance(out, torch.Tensor):
+        return fn(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_map(o, fn) for o in out)
+    if isinstance(out, dict):
+        return {k: _map(v, fn) for k, v in out.items()}
+    return out
+
+
+class _Graph:
+    """One captured signature: the graph, its static inputs and outputs and
+    the pinned staging buffers of host inputs."""
+
+    def __init__(self, graph, static_in, static_out, staging):
+        self.graph, self.static_in, self.static_out = graph, static_in, static_out
+        self.staging = staging
+        self.staged = None   # event: the last copy out of the staging buffers
+        self.replays = 0
+
+
+class Captured:
+    """``fn`` served through CUDA graphs on ``device`` (see :func:`capture`)."""
+
+    def __init__(self, fn: Callable, options: Dict[str, str], device: torch.device):
+        self.fn = fn
+        self.options = options
+        self.device = device
+        self.graphed = device.type == "cuda" and options.get("cuda_graph") == "true"
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._lock = threading.Lock()
+        self._done = None     # event: the last call's copies out
+        self.replays = 0      # graph launches
+
+    def _cache_size(self) -> int:
+        return len(self._graphs)
+
+    def kernel_nodes(self) -> List[Dict[str, int]]:
+        """Per captured signature, in capture order: its graph's kernel
+        nodes by kernel function name (what each replay launches) and its
+        replays, as ``{"kernels": {name: n}, "replays": r}``."""
+        return [{"kernels": _graph_kernels(g.graph.raw_cuda_graph()), "replays": g.replays}
+                for g in self._graphs.values()]
+
+    def __call__(self, *args):
+        if not self.graphed:
+            with torch.inference_mode():
+                return self.fn(*[_to_device(a, self.device) for a in args])
+        with self._lock, torch.inference_mode():
+            stream = torch.cuda.current_stream(self.device)
+            if self._done is not None:
+                stream.wait_event(self._done)
+            key = _signature(args)
+            g = self._graphs.get(key)
+            if g is None:
+                out = self._capture(key, args)
+            else:
+                self._copy_in(g, args)
+                g.graph.replay()
+                g.replays += 1
+                self.replays += 1
+                out = _map(g.static_out, torch.clone)
+            self._done = torch.cuda.Event()
+            self._done.record(stream)
+            return out
+
+    def _copy_in(self, g: _Graph, args) -> None:
+        if g.staged is not None:
+            g.staged.synchronize()   # the last copy out of staging is done
+        host = False
+        for a, static, stage in zip(args, g.static_in, g.staging):
+            if a is None:
+                continue
+            if stage is None:
+                static.copy_(a)
+                continue
+            if isinstance(a, np.ndarray):
+                stage.numpy()[...] = a
+            else:
+                stage.copy_(a)
+            static.copy_(stage, non_blocking=True)
+            host = True
+        if host:
+            g.staged = torch.cuda.Event()
+            g.staged.record(torch.cuda.current_stream(self.device))
+
+    def _capture(self, key: tuple, args):
+        """Warm up on a side stream (every lazy per-geometry plan, constant
+        and tensor map is made there, outside the capture), capture the
+        graph, and answer the first call from the warm-up."""
+        dev = self.device
+        static_in, staging = [], []
+        for a in args:
+            if a is None:
+                static_in.append(None)
+                staging.append(None)
+                continue
+            static_in.append(torch.empty(tuple(a.shape), dtype=_torch_dtype(a), device=dev))
+            on_host = not (isinstance(a, torch.Tensor) and a.device.type == "cuda")
+            staging.append(torch.empty(tuple(a.shape), dtype=_torch_dtype(a),
+                                       pin_memory=True) if on_host else None)
+        g = _Graph(None, static_in, None, staging)
+        self._copy_in(g, args)
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            warm = self.fn(*static_in)
+        main.wait_stream(side)
+        out = _map(warm, torch.clone)
+        # the graph itself is kept beside its executable form, so that
+        # ``kernel_nodes`` can read what it launches
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            g.static_out = self.fn(*static_in)
+        graph.instantiate()
+        g.graph = graph
+        self._graphs[key] = g
+        return out
+
+
+def capture(fn: Callable, *, options: Optional[Dict[str, str]] = None,
+            device="cuda") -> Captured:
+    """``fn`` (inputs: tensors, numpy arrays or None; outputs: tensors in
+    tuples, lists or dicts) as one CUDA graph per input signature on
+    ``device``: the counterpart of the reference's ``tpu_jit``.
+
+    The signature is each input's shape, dtype and device, and which inputs
+    are None.  The first call of a signature runs ``fn`` eagerly on a side
+    stream (so every lazy plan and constant is built outside the capture)
+    and answers from it, then captures the graph into the runner's memory
+    pool; every later call copies its inputs into the static buffers (host
+    inputs through a pinned staging buffer), replays the graph and returns
+    copies of its outputs, so a later replay cannot overwrite an answer a
+    caller still holds.  Calls are serialised by a lock.  The kernel
+    wrappers count the warm-up's launches, not the capture's (it records
+    them) nor a replay's; ``.kernel_nodes()`` reads each graph's kernels
+    and replays.
+
+    ``options`` default to :func:`default_options`; an unknown option is a
+    ``ValueError``.  On the CPU (which the caller asks for), or with
+    ``cuda_graph`` off, ``fn`` runs eagerly on the inputs moved to
+    ``device``.  ``._cache_size()`` counts the graphs.
+    """
+    opts = check_options(default_options() if options is None else options)
+    return Captured(fn, opts, resolve_device(device))
+
+
+def _finish(device: torch.device) -> None:
+    """Wait for the card's work (a candidate's calls)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _arg_device(args) -> torch.device:
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return resolve_device("cuda")
+
+
+def autotune(fn: Callable, example_args: Sequence[Any], *,
+             candidates: Optional[Sequence[Dict[str, str]]] = None,
+             steps: int = 8, repeats: int = 3,
+             cache_path: Optional[str] = None,
+             key: Optional[str] = None,
+             on_result: Optional[Callable[[Dict[str, str], float], None]] = None,
+             device=None) -> Dict[str, str]:
+    """Time each candidate option set for ``fn`` on ``example_args`` and
+    return the fastest, with the reference's semantics.
+
+    Walks ``candidates`` (default :data:`DEFAULT_AUTOTUNE_CANDIDATES`): each
+    is served through :func:`capture` (``device``: the card, or the first
+    tensor argument's device), called once (warm-up and capture), then timed
+    over ``repeats`` windows of ``steps`` calls, each window ended by a
+    synchronise; its time is the windows' median.  A candidate with an
+    unknown option, or whose first call raises, is skipped and logged.
+    ``on_result(options, seconds)`` gets each timed candidate.
+
+    With ``cache_path`` the winner is kept in a JSON file under ``key``
+    (default: the function's name and its arguments' signature; a given
+    candidate list adds its digest), written atomically, so a program pays
+    the sweep once per shape.  ``RuntimeError`` if no candidate runs.
+    """
+    cands = list(DEFAULT_AUTOTUNE_CANDIDATES if candidates is None else candidates)
+    dev = resolve_device(device) if device is not None else _arg_device(example_args)
+    if key is None:
+        sig = ",".join(f"{getattr(a, 'dtype', type(a).__name__)}{list(getattr(a, 'shape', []))}"
+                       for a in example_args)
+        key = f"{getattr(fn, '__name__', 'fn')}({sig})"
+    if candidates is not None:
+        # A custom list must not be served a winner cached from another sweep.
+        digest = hashlib.md5(json.dumps(cands, sort_keys=True).encode()).hexdigest()[:10]
+        key = f"{key}#cands={digest}"
+
+    cache: Dict[str, Dict[str, str]] = {}
+    if cache_path and os.path.exists(cache_path):
+        try:
+            with open(cache_path) as f:
+                cache = json.load(f)
+        except (OSError, ValueError):
+            cache = {}
+        if key in cache:
+            return dict(cache[key])
+
+    best: Optional[Dict[str, str]] = None
+    best_t = float("inf")
+    for opts in cands:
+        try:
+            program = capture(fn, options=opts, device=dev)
+            program(*example_args)
+            _finish(dev)
+        except Exception as e:  # noqa: BLE001 -- a candidate that cannot run
+            log.warning("autotune: skipped candidate %s (%s: %s)", json.dumps(opts),
+                        type(e).__name__, e)
+            continue
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                program(*example_args)
+            _finish(dev)
+            times.append(time.perf_counter() - t0)
+        t = sorted(times)[len(times) // 2]
+        if on_result is not None:
+            on_result(dict(opts), t)
+        if t < best_t:
+            best, best_t = dict(opts), t
+        del program
+    if best is None:
+        raise RuntimeError("autotune: every candidate failed to run")
+
+    if cache_path:
+        cache[key] = best
+        tmp = f"{cache_path}.tmp.{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(cache, f, indent=1, sort_keys=True)
+        os.replace(tmp, cache_path)
+    return best
