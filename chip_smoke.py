@@ -162,6 +162,23 @@ train_embeddings -- SGNS word2vec at V 50,000, D 200, B 1024, K 5 on a seeded
 full_mode -- slim's full-mode train distortions on uint8 [32,347,347,3] on
                the card against the CPU on the same draws; ms against fast
                mode.
+divisions -- f32 preprocess_for_eval on the card bit-equal to the CPU's (all
+               256 byte values, a seeded [8,347,347,3] batch), the input scale
+               of the int8 engine calibrated on the card equal to the CPU's,
+               Adam's bias-corrected update equal to the CPU's.
+train_captured -- the main path of training: Trainer.compile's train and
+               eval steps as captured CUDA graphs, bit-equal to the eager
+               steps over 8 steps for f32 joint_finetune (batch 32), the
+               image_frozen adam override, text_only and the data_parallel
+               preset in perf mode at 128 rows (one process, and on a
+               world-size-1 NCCL group); one graph launch per step, no
+               served kernel in any train graph, ms per step and peak memory
+               captured against eager, the trace's idle share; a restore
+               under capture equal to the straight run.
+tune_train -- cli tune --step train at batch 64, then from its cache.
+accuracy_smoke -- the synthetic accuracy benchmark's text run (200 steps)
+               near its Bayes ceiling; 50 steps of its end-to-end image run,
+               whose loss falls.
 kernels -- one JSON line listing every ported kernel (launches from
                Python by path; on the card, with each CUDA graph's kernel
                nodes times its replays, and the replays, by path).
@@ -177,6 +194,7 @@ The last line is {"ok": true, "device": {...}}.  Imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import sys
 import time
@@ -331,6 +349,20 @@ W2V_CHECK_STEPS = 20
 W2V_CHECK_LR = 25.0
 W2V_TOL = 1e-6
 W2V_UPDATE_FACTOR = 50
+# Phase train_captured: each case TRAIN_CAPTURED_STEPS steps eager, then as
+# many captured, from one state and seeds, held bit-equal; the f32 joint
+# case restored from its step-RESTORE_AT checkpoint under capture.
+TRAIN_CAPTURED_STEPS = 8
+RESTORE_AT = 4
+# Phase tune_train: cli tune --step train at this batch.
+TUNE_TRAIN_BATCH = 64
+# Phase accuracy_smoke: the synthetic benchmark's text run for ACC_TEXT_STEPS
+# steps, within ACC_TEXT_TOL of its Bayes ceiling (68.27%; the reference's
+# text run converges by step 200), and ACC_IMAGE_STEPS of its end-to-end
+# image run, whose loss falls.
+ACC_TEXT_STEPS = 200
+ACC_TEXT_TOL = 0.03
+ACC_IMAGE_STEPS = 50
 # Phase full_mode: slim's full-mode distortions on FULL_BATCH uint8 images
 # on the card against the CPU on the same draws, within PERF_IMAGE_ATOL
 # away from hue-sector crossings.
@@ -1244,22 +1276,6 @@ def train_phases(dev, smi):
     def snapshot(ts):
         return {k: v.detach().clone() for k, v in ts.state.items()}
 
-    def record_losses(tr, starts=None):
-        """Keep each step's loss (and, in ``starts``, the host clock when
-        each step began) as fit runs ``tr.train_step``."""
-        losses = []
-        step = tr.train_step
-
-        def recorded(*a, **k):
-            if starts is not None:
-                starts.append(time.perf_counter())
-            state, m = step(*a, **k)
-            losses.append(m["loss"])
-            return state, m
-
-        tr.train_step = recorded
-        return losses
-
     distance, one_step = update_distance, train_one_step
 
     # ---- 13. train_joint: joint_finetune at full width ----
@@ -1273,7 +1289,7 @@ def train_phases(dev, smi):
     tr = Trainer(cfg, preprocess="train", device=dev)
     ts = tr.init_state(state0)
     starts = []
-    losses = record_losses(tr, starts)
+    losses = record_steps(tr, starts, "loss")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all_launches()
@@ -1451,7 +1467,7 @@ def train_phases(dev, smi):
     fstate0 = inception_v3.init_state(build_model(fcfg, device="meta"), SEED)
     ftr = Trainer(fcfg, preprocess="train", device=dev)
     fts = ftr.init_state(fstate0)
-    flosses = record_losses(ftr)
+    flosses = record_steps(ftr, key="loss")
     fbatches = [make_batch(fcfg.train.batch_size, vocab) for _ in range(TRAIN_SIDE_STEPS)]
     t0 = time.perf_counter()
     fts = ftr.fit(fts, fbatches, num_steps=TRAIN_SIDE_STEPS)
@@ -1495,7 +1511,7 @@ def train_phases(dev, smi):
         fail(f"train_text: step loss {loss_card} on the card vs {loss_cpu} on the CPU")
     ttr = Trainer(tcfg, device=dev)
     tts = ttr.init_state(tstate0)
-    tlosses = record_losses(ttr)
+    tlosses = record_steps(ttr, key="loss")
     t0 = time.perf_counter()
     tts = ttr.fit(tts, tbatches, num_steps=TRAIN_SIDE_STEPS)
     torch.cuda.synchronize()
@@ -1510,6 +1526,464 @@ def train_phases(dev, smi):
           "held_step_worst_leaf_vs_update": worst, "update_tol": TEXT_UPDATE_TOL,
           "fit_s": tfit_s, "card": smi})
     return {"train_joint_int8": int8_launches}, held
+
+
+def divisions_phase(dev, smi, state):
+    """Phase divisions: the card divides as the reference divides.  f32
+    ``preprocess_for_eval`` on the card bit-equal to the CPU's on all 256
+    byte values and on a seeded [8,347,347,3] batch (beside the old
+    ``x / 255.0``, a product with the reciprocal on the card); the int8
+    engine calibrated on that batch on the card and on the CPU: the input
+    scale bit-equal, the conv sites' scales (f32 conv sums in another
+    order) reported; a tensor list divided by a Python float and by a
+    device tensor (the optimizer's form) against the CPU's division;
+    PyTorch's float32 sqrt on the card and on the CPU and the optimizer's
+    correctly rounded one against numpy's (IEEE, as the reference's XLA
+    sqrt); Adam's update bit-equal to the CPU's; RMSProp's rsqrt against
+    the CPU's, reported."""
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch.config import TrainConfig
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
+    from tumblr_emotions_torch.train import optim
+
+    values = torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16, 1).expand(1, 16, 16, 3)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    batch = torch.randint(0, 256, (8, SRC_HW, SRC_HW, 3), generator=gen, dtype=torch.uint8)
+    out = {}
+    for name, x in (("bytes", values), ("batch", batch)):
+        cpu = preprocess_for_eval(x, 16, 16, central_fraction=1.0) if name == "bytes" else \
+            preprocess_for_eval(x)
+        card = (preprocess_for_eval(x.to(dev), 16, 16, central_fraction=1.0)
+                if name == "bytes" else preprocess_for_eval(x.to(dev))).cpu()
+        scaled = x.float() / 255.0
+        out[name] = {"differ": int((card != cpu).sum()), "elements": cpu.numel(),
+                     "max_abs_diff": float((card - cpu).abs().max()),
+                     "old_form_differ": int(((x.to(dev).float() / 255.0).cpu()
+                                             != scaled).sum())}
+        if out[name]["differ"]:
+            fail(f"divisions: preprocess_for_eval on the card differs from the CPU's on "
+                 f"{name}: {out[name]}")
+    calib = preprocess_for_eval(batch)
+    s_card = QuantizedInceptionV3(state, calib.to(dev), stem_s2d="pre", device=dev).scales
+    s_cpu = QuantizedInceptionV3({k: v.cpu() for k, v in state.items()}, calib, stem_s2d="pre",
+                                 device="cpu").scales
+    rel = {k: abs(s_card[k] - s_cpu[k]) / s_cpu[k] for k in s_cpu}
+    out["int8_scales"] = {"input_card": s_card["input"], "input_cpu": s_cpu["input"],
+                          "sites": len(s_cpu), "bit_equal": sum(s_card[k] == s_cpu[k]
+                                                                for k in s_cpu),
+                          "max_rel_diff": max(rel.values())}
+    if s_card["input"] != s_cpu["input"] or sorted(s_card) != sorted(s_cpu):
+        fail(f"divisions: the card's calibration scales {out['int8_scales']}")
+    # a tensor list divided by a Python float and by a device tensor of
+    # the same value (Adam's bias correction after one update), against the
+    # CPU's IEEE division
+    xs = [torch.rand(4096, generator=gen) + 0.1 for _ in range(4)]
+    d = float(np.float32(1) - np.float32(optim.ADAM_B2))
+    cpu_q = [x / torch.tensor(d) for x in xs]
+    on_card = [x.to(dev) for x in xs]
+    out["foreach_div"] = {
+        "python_float_differ": sum(int((q.cpu() != c).sum()) for q, c in zip(
+            torch._foreach_div(on_card, d), cpu_q)),
+        "tensor_differ": sum(int((q.cpu() != c).sum()) for q, c in zip(
+            torch._foreach_div(on_card, torch.tensor(d, device=dev)), cpu_q)),
+        "elements": 4 * 4096}
+    if out["foreach_div"]["tensor_differ"]:
+        fail(f"divisions: a tensor list divided by a device tensor on the card differs from "
+             f"the CPU's division: {out['foreach_div']}")
+    # Adam's update (its bias corrections divided as above) and RMSProp's
+    # rsqrt, on the card against the CPU
+    t = TrainConfig(optimizer="adam", learning_rate=1e-3)
+    opt = optim.Optimizer(t)
+    rng = np.random.RandomState(SEED + 12)
+    p0 = {k: rng.normal(size=(256, 257)).astype(np.float32) for k in ("a", "b")}
+    grads = [{k: rng.normal(size=(256, 257)).astype(np.float32) for k in p0}
+             for _ in range(3)]
+    runs = []
+    for where in ("cpu", dev):
+        p = {k: torch.tensor(v, device=where) for k, v in p0.items()}
+        st = opt.init(p)
+        for g in grads:
+            opt.update(p, {k: torch.tensor(v, device=where) for k, v in g.items()}, st)
+        runs.append({k: v.cpu() for k, v in p.items()})
+    x = torch.from_numpy(np.abs(rng.normal(size=65536)).astype(np.float32)) + 1.0
+    out["adam"] = {"differ": sum(int((runs[0][k] != runs[1][k]).sum()) for k in p0),
+                   "elements": sum(v.size for v in p0.values()), "updates": len(grads)}
+    ieee = torch.from_numpy(np.sqrt(x.numpy()))     # numpy's: correctly rounded
+    out["sqrt"] = {"card_torch_sqrt_differ": int((torch.sqrt(x.to(dev)).cpu() != ieee).sum()),
+                   "cpu_torch_sqrt_differ": int((torch.sqrt(x) != ieee).sum()),
+                   "correctly_rounded_differ": int((optim.correctly_rounded_sqrt(
+                       [x.to(dev)])[0].cpu() != ieee).sum()),
+                   "elements": x.numel()}
+    out["rsqrt"] = {"differ": int((torch.rsqrt(x.to(dev)).cpu() != torch.rsqrt(x)).sum()),
+                    "elements": x.numel()}
+    if out["adam"]["differ"] or out["sqrt"]["correctly_rounded_differ"]:
+        fail(f"divisions: Adam's update on the card differs from the CPU's: {out['adam']}, "
+             f"{out['sqrt']}")
+    emit({"phase": "divisions", **out, "card": smi})
+
+
+@contextlib.contextmanager
+def train_options(opts):
+    """``TET_TORCH_TRAIN_COMPILER_OPTIONS`` set to ``opts`` (None: unset)
+    inside the block."""
+    import os
+
+    from tumblr_emotions_torch.utils import compile_opts
+
+    old = os.environ.get(compile_opts.TRAIN_ENV_VAR)
+    if opts is None:
+        os.environ.pop(compile_opts.TRAIN_ENV_VAR, None)
+    else:
+        os.environ[compile_opts.TRAIN_ENV_VAR] = json.dumps(opts)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(compile_opts.TRAIN_ENV_VAR, None)
+        else:
+            os.environ[compile_opts.TRAIN_ENV_VAR] = old
+
+
+def served_nodes(kernels: dict) -> dict:
+    """A graph's kernel nodes of the served kernels (K1-K4), by name."""
+    import re
+
+    return {k: sum(n for name, n in kernels.items() if re.search(pat, name))
+            for k, pat in GRAPH_KERNELS.items()}
+
+
+def fit_case(dev, cfg, preprocess, state0, batches, ev_batches, eager, mesh=None):
+    """``Trainer.fit`` over ``batches`` from ``state0`` with the compiled
+    step eager or captured (``TET_TORCH_TRAIN_COMPILER_OPTIONS``), then
+    ``evaluate`` over ``ev_batches``: the trainer, the trained state, each
+    step's loss and accuracy, ms per step (host clock; fit reads every
+    loss, cfg.train.log_every 1), peak memory, the served kernels'
+    launches, the eval summary and, captured, each graph's replays and
+    kernel nodes."""
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch.ops import int8_conv as ic
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    with train_options(EAGER if eager else None):
+        tr = Trainer(cfg, preprocess=preprocess, device=dev, mesh=mesh).compile()
+    if tr.step_mode != ("eager" if eager else "captured"):
+        fail(f"train_captured: step_mode {tr.step_mode} with eager={eager}")
+    ts = tr.init_state(state0)
+    starts = []
+    metrics = record_steps(tr, starts)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    ts = tr.fit(ts, batches, num_steps=len(batches))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = all_launches()
+    launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
+    ev = tr.evaluate(ts, ev_batches)
+    step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:] + [t0 + fit_s])]
+    run = {"tr": tr, "ts": ts, "losses": [float(m["loss"]) for m in metrics],
+           "accs": [float(m["accuracy"]) for m in metrics], "ms_each": step_ms,
+           "ms_steady": float(np.median(step_ms[1:])), "peak_gb": peak / 2 ** 30,
+           "launches": launches, "eval": ev}
+    for which, program in tr._programs.items():
+        run[which + "_graphs"] = [
+            {"replays": g["replays"], "kernel_nodes": sum(g["kernels"].values()),
+             "served_kernel_nodes": served_nodes(g["kernels"])}
+            for g in program.kernel_nodes()]
+    return run
+
+
+def state_differences(a, b) -> list:
+    """The leaves (state dict and optimizer moments) in which two
+    TrainStates differ at all."""
+    import torch
+
+    out = [k for k in a.state if not torch.equal(a.state[k], b.state[k])]
+    for m, leaves in a.opt_state.items():
+        if m != "count":
+            out += [f"{m}/{k}" for k in leaves if not torch.equal(leaves[k], b.opt_state[m][k])]
+    if a.step != b.step or a.opt_state["count"] != b.opt_state["count"]:
+        out.append("step")
+    return out
+
+
+def same_eval(a: dict, b: dict) -> bool:
+    import numpy as np
+
+    return (a["count"], a["accuracy"], a["loss"]) == (b["count"], b["accuracy"], b["loss"]) \
+        and np.array_equal(a["confusion"], b["confusion"])
+
+
+def train_captured_phase(dev, smi):
+    """Phase train_captured: this slice's main path, the train and eval
+    steps of ``Trainer.compile`` as captured CUDA graphs.  For each case
+    (f32 joint_finetune at batch 32 with RMSProp, image_frozen with the
+    adam override, text_only, the data_parallel preset in perf mode at 128
+    rows in one process and on a world-size-1 NCCL group), at full width:
+    TRAIN_CAPTURED_STEPS steps of fit eager, then as many captured from the
+    same state and seeds, and evaluate over TRAIN_EVAL_BATCHES batches (the
+    last half padding) after each.  Held bit-equal: parameters, optimizer
+    moments, BN statistics, every step's loss and accuracy, the eval
+    summary.  One train graph, replayed once per step after the first (the
+    warm-up that captures it); no served kernel (K1-K4) among any graph's
+    kernel nodes nor launched.  Prints ms per step and peak memory captured
+    and eager, each graph's kernel nodes, and for the f32 joint and perf
+    cases the device's busy time, idle share and kernels per step from a
+    trace of 2 steps each way, and with cuDNN's nondeterministic algorithms
+    allowed: how many leaves two eager runs of two steps differ in, and the
+    captured ms per step.  Then
+    restore: the f32 joint case captured
+    with a checkpoint at step RESTORE_AT, restored into fresh tensors and
+    trained on (captured anew) equals the straight captured run."""
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch import profile_serving
+    from tumblr_emotions_torch.models import build_model, inception_v3, joint_model, text_model
+    from tumblr_emotions_torch.parallel import distributed
+    from tumblr_emotions_torch.parallel import mesh as mesh_lib
+    from tumblr_emotions_torch.train.trainer import step_seed
+
+    init = {"image": inception_v3.init_state, "joint": joint_model.init_state,
+            "text": text_model.init_state}
+    cases = [("joint_f32", "joint_finetune", {}, None, True),
+             ("image_frozen_adam", "image_frozen", {"optimizer": "adam",
+                                                   "learning_rate": 1e-3}, None, False),
+             ("text", "text_only", {}, None, False),
+             ("perf_dp", "data_parallel", {"batch_size": PERF_BATCH}, None, True),
+             ("perf_dp_nccl", "data_parallel", {"batch_size": PERF_BATCH}, "nccl", False)]
+    rng = np.random.RandomState(SEED + 13)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    launches_total = {}
+    for name, preset, extra, group, profiled in cases:
+        cfg = get_preset(preset)
+        cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=DEPTH),
+                          train=cfg.train.replace(log_every=1, **extra))
+        t, vocab = cfg.train, cfg.text.vocab_size
+        state0 = init[cfg.model](build_model(cfg, device="meta"), SEED)
+        preprocess = None if cfg.model == "text" else "train"
+        drop = ("image",) if cfg.model == "text" else ()
+
+        def batch(n, weight=None):
+            return {k: v for k, v in train_batch(gen, rng, dev, n, vocab, weight).items()
+                    if k not in drop}
+
+        batches = [batch(t.batch_size) for _ in range(TRAIN_CAPTURED_STEPS)]
+        n = t.batch_size
+        ev_batches = [batch(n) for _ in range(TRAIN_EVAL_BATCHES - 1)]
+        ev_batches.append(batch(n, weight=[1] * (n // 2) + [0] * (n - n // 2)))
+        mesh = None
+        if group:
+            distributed.init_group(f"127.0.0.1:{free_port()}", 1, 0, device=dev,
+                                   backend=group)
+            mesh = mesh_lib.Mesh(1, 0, torch.distributed.group.WORLD)
+        try:
+            eager = fit_case(dev, cfg, preprocess, state0, batches, ev_batches, True, mesh)
+            capt = fit_case(dev, cfg, preprocess, state0, batches, ev_batches, False, mesh)
+            differ = state_differences(eager["ts"], capt["ts"])
+            if differ or eager["losses"] != capt["losses"] or eager["accs"] != capt["accs"]:
+                fail(f"train_captured {name}: captured differs from eager in {differ[:5]} "
+                     f"({len(differ)} leaves), losses {capt['losses']} vs {eager['losses']}, "
+                     f"accuracies {capt['accs']} vs {eager['accs']}")
+            if not same_eval(eager["eval"], capt["eval"]):
+                fail(f"train_captured {name}: eval {capt['eval']} vs eager {eager['eval']}")
+            graphs = capt["train_graphs"]
+            if len(graphs) != 1 or graphs[0]["replays"] != TRAIN_CAPTURED_STEPS - 1:
+                fail(f"train_captured {name}: train graphs {graphs}")
+            served = [g["served_kernel_nodes"] for w in ("train", "eval")
+                      for g in capt[w + "_graphs"]]
+            if any(any(s.values()) for s in served) or any(eager["launches"].values()) or \
+                    any(capt["launches"].values()):
+                fail(f"train_captured {name}: served kernels in training: {served}, "
+                     f"{eager['launches']}, {capt['launches']}")
+            line = {"phase": "train_captured", "case": name, "preset": preset,
+                    "precision_mode": t.precision_mode, "optimizer": t.optimizer,
+                    "batch": n, "depth": DEPTH, "steps": TRAIN_CAPTURED_STEPS,
+                    "group": group, "bit_equal": True, "losses": capt["losses"],
+                    "ms_per_step_captured": capt["ms_steady"],
+                    "ms_per_step_eager": eager["ms_steady"],
+                    "ms_each_captured": capt["ms_each"], "ms_each_eager": eager["ms_each"],
+                    "examples_per_s_captured": 1e3 * n / capt["ms_steady"],
+                    "examples_per_s_eager": 1e3 * n / eager["ms_steady"],
+                    "peak_memory_gb_captured": capt["peak_gb"],
+                    "peak_memory_gb_eager": eager["peak_gb"],
+                    "train_graphs": graphs, "eval_graphs": capt["eval_graphs"],
+                    "graph_launches_per_step": graphs[0]["replays"]
+                    / (TRAIN_CAPTURED_STEPS - 1),
+                    "eval": {k: capt["eval"][k] for k in ("count", "accuracy", "loss")},
+                    "timing": "host clock per step of fit (it reads every loss); the "
+                              "median of steps 2-8 (step 1 is the warm-up that captures)"}
+            if name == "joint_f32":
+                line["restore"] = restore_check(dev, cfg, preprocess, state0, batches,
+                                                capt["ts"])
+                line["without_deterministic_convs"] = nondeterminism(
+                    dev, cfg, preprocess, state0, batches)
+            if profiled:
+                # (after the comparisons: these steps move the states on)
+                for mode, run in (("captured", capt), ("eager", eager)):
+                    tr, st = run["tr"], run["ts"]
+
+                    def step(i, tr=tr, st=st):
+                        tr.generator.manual_seed(step_seed(t.seed, 100 + i))
+                        tr._compiled_train(st, batches[i], tr.generator)
+
+                    prof = profile_serving.profile_engine(step, 2)
+                    line["trace_" + mode] = {
+                        k: prof[k] for k in ("wall_ms_per_batch", "device_busy_ms_per_batch",
+                                             "idle_share", "kernels_per_batch")}
+            for k, v in capt["launches"].items():
+                launches_total[k] = launches_total.get(k, 0) + v
+            emit(dict(line, card=smi))
+            del eager, capt
+        finally:
+            if group:
+                torch.distributed.destroy_process_group()
+        torch.cuda.empty_cache()
+    print(smi, flush=True)
+    return {"train_captured": launches_total}
+
+
+def nondeterminism(dev, cfg, preprocess, state0, batches) -> dict:
+    """The steps with cuDNN free to pick its nondeterministic algorithms:
+    how many leaves two eager runs of two steps differ in (why every step
+    runs ``_device.deterministic_convs``), and the captured step's ms per
+    step that way (the device time the deterministic algorithms cost)."""
+    from tumblr_emotions_torch.train import trainer as trainer_lib
+
+    saved = trainer_lib.deterministic_convs
+    trainer_lib.deterministic_convs = contextlib.nullcontext
+    try:
+        runs = [fit_case(dev, cfg, preprocess, state0, batches[:2], [], True)["ts"]
+                for _ in range(2)]
+        captured = fit_case(dev, cfg, preprocess, state0, batches, [], False)
+    finally:
+        trainer_lib.deterministic_convs = saved
+    return {"leaves_differing_between_two_eager_runs": len(state_differences(*runs)),
+            "ms_per_step_captured": captured["ms_steady"]}
+
+
+def restore_check(dev, cfg, preprocess, state0, batches, straight):
+    """The captured f32 joint run checkpointed at step RESTORE_AT, restored
+    into fresh tensors (the graphs captured on the old ones dropped) and
+    trained on: bit-equal to the straight captured run ``straight``."""
+    import os
+    import shutil
+
+    from tumblr_emotions_torch.train.trainer import Trainer
+
+    work = os.path.abspath(os.path.join("build", "chip_smoke", "restore"))
+    shutil.rmtree(work, ignore_errors=True)
+    rcfg = cfg.replace(train=cfg.train.replace(checkpoint_dir=work,
+                                               checkpoint_every=RESTORE_AT))
+    try:
+        with train_options(None):
+            tr = Trainer(rcfg, preprocess=preprocess, device=dev).compile()
+        if tr.step_mode != "captured":
+            fail(f"train_captured restore: step_mode {tr.step_mode}")
+        tr.checkpoint_manager()
+        ts = tr.fit(tr.init_state(state0), batches[:RESTORE_AT], num_steps=RESTORE_AT)
+        program = tr._programs.get("train")
+        first = program and program.replays
+        restored = tr.restore_latest(tr.init_state(state0))
+        if restored.step != RESTORE_AT or any(
+                restored.state[k].data_ptr() == ts.state[k].data_ptr() for k in ts.state):
+            fail(f"train_captured restore: restored step {restored.step}, or onto the live "
+                 "tensors")
+        del ts
+        ts = tr.fit(restored, batches[RESTORE_AT:], num_steps=len(batches) - RESTORE_AT)
+        differ = state_differences(ts, straight)
+        graphs = program and program._cache_size()
+        if differ or graphs != 1:
+            fail(f"train_captured restore: the resumed run differs from the straight one in "
+                 f"{differ[:5]} ({len(differ)} leaves); graphs {graphs}")
+        return {"at_step": RESTORE_AT, "bit_equal_to_straight": True,
+                "replays_before": first, "replays_after": program and program.replays,
+                "checkpoint_bytes": tr.last_save and tr.last_save["bytes"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def tune_train_phase(dev, smi):
+    """Phase tune_train: ``cli tune --step train`` (joint_finetune in perf
+    mode) at full width, batch TUNE_TRAIN_BATCH, on the card: both
+    candidates measured, then the winner from its cache."""
+    import io
+    import shutil
+    import tempfile
+    from contextlib import redirect_stdout
+    from pathlib import Path
+
+    from tumblr_emotions_torch import cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="tet_tune_train_"))
+    try:
+        argv = ["tune", "--step", "train", "--batch-size", str(TUNE_TRAIN_BATCH),
+                "--image-size", str(SRC_HW), "--cache", str(tmp / "tune.json"), "--device",
+                DEVICE]
+        if DEPTH != 1.0:
+            argv += ["--depth-multiplier", str(DEPTH)]
+        runs = []
+        for _ in range(2):
+            t = time.perf_counter()
+            out = io.StringIO()
+            with redirect_stdout(out):
+                cli.main(argv)
+            runs.append((json.loads(out.getvalue().splitlines()[-1]), time.perf_counter() - t))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (first, s1), (second, s2) = runs
+    keys = {"step", "batch_size", "best_options", "best_images_per_sec",
+            "candidates_measured", "from_cache", "apply_hint", "results"}
+    if set(first) != keys or first["from_cache"] or first["candidates_measured"] != 2 \
+            or not second["from_cache"] or second["best_options"] != first["best_options"] \
+            or "TET_TORCH_TRAIN_COMPILER_OPTIONS" not in first["apply_hint"]:
+        fail(f"tune_train: first {first}, second {second}")
+    emit({"phase": "tune_train", **first, "second_from_cache": second["from_cache"],
+          "seconds": [s1, s2], "card": smi})
+
+
+def accuracy_smoke_phase(dev, smi):
+    """Phase accuracy_smoke: the synthetic accuracy benchmark's text run
+    (``synthetic_accuracy.run_preset``) for ACC_TEXT_STEPS steps, whose
+    final wide eval comes within ACC_TEXT_TOL of the text Bayes ceiling
+    (the reference's converges by step 200), and ACC_IMAGE_STEPS of the end-
+    to-end image run on the captured step, whose loss falls (the mean of the
+    last 10 steps' below the first 10's).  The full run is its own command,
+    ``python -m tumblr_emotions_torch.synthetic_accuracy``."""
+    import numpy as np
+
+    from tumblr_emotions_torch import synthetic_accuracy as sa
+
+    ceilings = sa.exact_ceilings()
+    text, _ = sa.run_preset("text_only", ACC_TEXT_STEPS, dev, log=lambda line: None)
+    losses = []
+    image, _ = sa.run_preset("image_frozen", ACC_IMAGE_STEPS, dev,
+                             extra={"optimizer": "adam", "learning_rate": 3e-4,
+                                    "trainable_scopes": ""},
+                             tag="image_e2e", log=lambda line: None, losses=losses)
+    losses = [float(x) for x in losses]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if text["step_mode"] != "captured" or image["step_mode"] != "captured":
+        fail(f"accuracy_smoke: step modes {text['step_mode']}, {image['step_mode']}")
+    if text["final_eval_acc"] < ceilings["text"] - ACC_TEXT_TOL:
+        fail(f"accuracy_smoke: text top-1 {text['final_eval_acc']} after {ACC_TEXT_STEPS} "
+             f"steps, more than {ACC_TEXT_TOL} below its ceiling {ceilings['text']}")
+    if not (np.all(np.isfinite(losses)) and last < first):
+        fail(f"accuracy_smoke: image e2e losses {losses}")
+    emit({"phase": "accuracy_smoke", "bayes_ceilings": ceilings,
+          "text": {k: text[k] for k in ("steps", "final_eval_acc", "curve", "img_s")},
+          "image_e2e": {"steps": ACC_IMAGE_STEPS, "loss_first_10": first,
+                        "loss_last_10": last, "final_eval_acc": image["final_eval_acc"],
+                        "img_s": image["img_s"]},
+          "card": smi})
 
 
 def free_port() -> int:
@@ -1571,16 +2045,8 @@ def train_perf_phase(dev, smi):
         if tr.model.dtype != torch.bfloat16:
             fail("train_perf: the perf model is not bf16")
         ts = tr.init_state(state0)
-        starts, losses = [], []
-        step_fn = tr.train_step
-
-        def recorded(*a, **k):
-            starts.append(time.perf_counter())
-            state, m = step_fn(*a, **k)
-            losses.append(m["loss"])
-            return state, m
-
-        tr.train_step = recorded
+        starts = []
+        losses = record_steps(tr, starts, "loss")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_all_launches()
@@ -1591,7 +2057,6 @@ def train_perf_phase(dev, smi):
         launches = all_launches()
         launches["conv_int8 byte path"] = ic.conv_int8.byte_launches
         peak = torch.cuda.max_memory_allocated()
-        tr.train_step = step_fn
         step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:] + [t0 + fit_s])]
         losses = [float(x) for x in losses]
         if any(launches.values()):
@@ -1798,6 +2263,25 @@ def train_perf_phase(dev, smi):
           "card": smi})
     print(smi, flush=True)
     return {"train_perf": launches}
+
+
+def record_steps(tr, starts=None, key=None) -> list:
+    """Compile ``tr`` and keep what each step of its compiled train step
+    returns (its metrics dict, or the metric ``key``), on the device, in the
+    list returned, and in ``starts`` the host clock when each step began."""
+    if tr._compiled_train is None:
+        tr.compile()
+    out, step = [], tr._compiled_train
+
+    def recorded(*a, **k):
+        if starts is not None:
+            starts.append(time.perf_counter())
+        state, m = step(*a, **k)
+        out.append(m if key is None else m[key])
+        return state, m
+
+    tr._compiled_train = recorded
+    return out
 
 
 def train_batch(gen, rng, dev, n, vocab, weight=None):
@@ -3152,6 +3636,14 @@ def main() -> int:
     parity_phase(dev, smi)
     train_embeddings_phase(dev, smi)
     full_mode_phase(dev, smi)
+
+    # ---- this slice: the card's divisions, then training as the reference
+    # trains: the captured train and eval steps (the main path), tune --step
+    # train and the accuracy benchmark's smoke run ----
+    divisions_phase(dev, smi, state)
+    paths.update(train_captured_phase(dev, smi))
+    tune_train_phase(dev, smi)
+    accuracy_smoke_phase(dev, smi)
 
     # ---- 19. the kernels line ----
     src = "tumblr_emotions_torch/csrc/inception_blocks.cu"

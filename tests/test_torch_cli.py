@@ -260,7 +260,7 @@ def test_joint_infer_int8_serve_predict_and_export_on_the_cpu(joint_run):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["tune", "--step", "train", "--device", "cpu"], "6\\(k\\)"),
+    (["infer", "--num-processes", "2", "--device", "cpu"], "6\\(h\\)"),
     (["infer", "--dp", "--device", "cpu"], "6\\(h\\)"),
     (["serve", "--dp", "--device", "cpu"], "6\\(h\\)"),
 ])

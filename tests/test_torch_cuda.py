@@ -1348,3 +1348,169 @@ def test_full_mode_distortions_on_the_card_match_the_cpu(dev):
     want = pp.apply_train(raw, d, 139, 139, fast_mode=False)
     got = pp.apply_train(raw.to(dev), d.to(dev), 139, 139, fast_mode=False)
     assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The card's divisions, the captured train and eval steps, V1 checkpoints
+# ---------------------------------------------------------------------------
+
+def test_preprocess_for_eval_divides_as_the_cpu_on_the_card(dev):
+    """f32 eval preprocessing on the card bit-equal to the CPU's: every byte
+    value (a 16x16 image resized to itself, so the division alone) and a
+    seeded [8,347,347,3] batch at 299 px.  The uint8 -> [0, 1] step divides
+    by 255 as IEEE division, as the reference does; PyTorch's ``x / 255.0``
+    is a product with the reciprocal on the card (126 of 256 values one ulp
+    off)."""
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+
+    v = torch.arange(256, dtype=torch.uint8).reshape(1, 16, 16, 1).expand(1, 16, 16, 3)
+    want = preprocess_for_eval(v, 16, 16, central_fraction=1.0)
+    assert torch.equal(preprocess_for_eval(v.to(dev), 16, 16, central_fraction=1.0).cpu(),
+                       want)
+    g = torch.Generator().manual_seed(0)
+    raw = torch.randint(0, 256, (8, 347, 347, 3), generator=g, dtype=torch.uint8)
+    assert torch.equal(preprocess_for_eval(raw.to(dev)).cpu(), preprocess_for_eval(raw))
+
+
+def test_int8_calibration_on_the_card_gives_the_cpus_input_scale(dev):
+    """The int8 engine calibrated on the card and on the CPU from one batch
+    (depth 0.25, 299 px): the input scale (the preprocessed images' range)
+    bit-equal; the conv sites' scales within 2^-6 of each other: the f32
+    conv sums run in another order, and where one lands by a rounding
+    boundary the next layer's bf16 operand rounds the other way (2^-8 of
+    that value), which the layers after it carry (7.4e-5 at Mixed_6c/out
+    on an H100)."""
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
+
+    state = init_state(InceptionV3(depth_multiplier=0.25, device="meta"), seed=0)
+    g = torch.Generator().manual_seed(1)
+    raw = torch.randint(0, 256, (4, 347, 347, 3), generator=g, dtype=torch.uint8)
+    card = QuantizedInceptionV3(state, preprocess_for_eval(raw.to(dev)), stem_s2d="pre",
+                                device=dev).scales
+    cpu = QuantizedInceptionV3(state, preprocess_for_eval(raw), stem_s2d="pre",
+                               device="cpu").scales
+    assert sorted(card) == sorted(cpu) and card["input"] == cpu["input"]
+    rel = {k: abs(card[k] - cpu[k]) / cpu[k] for k in cpu}
+    worst = max(rel, key=rel.get)
+    assert rel[worst] <= 2.0 ** -6, (worst, rel[worst])
+
+
+def test_adam_update_on_the_card_equals_the_cpu(dev):
+    """Three Adam updates (bias corrections read from a tensor, divided as
+    IEEE division) on the card bit-equal to the CPU's."""
+    from tumblr_emotions_torch.config import TrainConfig
+    from tumblr_emotions_torch.train import optim
+
+    opt = optim.Optimizer(TrainConfig(optimizer="adam", learning_rate=1e-3, lr_decay_steps=1))
+    rng = np.random.RandomState(0)
+    p0 = {k: rng.normal(size=(64, 65)).astype(np.float32) for k in "ab"}
+    grads = [{k: rng.normal(size=(64, 65)).astype(np.float32) for k in p0} for _ in range(3)]
+    out = []
+    for where in ("cpu", dev):
+        p = {k: torch.tensor(v, device=where) for k, v in p0.items()}   # copies
+        st = opt.init(p)
+        for g in grads:
+            opt.update(p, {k: torch.tensor(v, device=where) for k, v in g.items()}, st)
+        out.append({k: v.cpu() for k, v in p.items()})
+    assert all(torch.equal(out[0][k], out[1][k]) for k in p0)
+
+
+def _fit_compiled(cfg, state, batches, dev, eager, ckpt=None):
+    import os
+
+    from tumblr_emotions_torch.train.trainer import Trainer
+    from tumblr_emotions_torch.utils import compile_opts
+
+    env = os.environ.pop(compile_opts.TRAIN_ENV_VAR, None)
+    try:
+        if eager:
+            os.environ[compile_opts.TRAIN_ENV_VAR] = '{"cuda_graph": "false"}'
+        tr = Trainer(cfg, preprocess=None if cfg.model == "text" else "train",
+                     device=dev).compile()
+    finally:
+        os.environ.pop(compile_opts.TRAIN_ENV_VAR, None)
+        if env is not None:
+            os.environ[compile_opts.TRAIN_ENV_VAR] = env
+    assert tr.step_mode == ("eager" if eager else "captured")
+    if ckpt:
+        tr.checkpoint_manager(ckpt)
+    ts = tr.fit(tr.init_state(state), iter(batches), num_steps=len(batches))
+    return tr, ts
+
+
+def _same_train_state(a, b):
+    assert a.step == b.step and a.opt_state["count"] == b.opt_state["count"]
+    for k in a.state:
+        assert torch.equal(a.state[k], b.state[k]), k
+    for m in a.opt_state:
+        if m != "count":
+            for k in a.opt_state[m]:
+                assert torch.equal(a.opt_state[m][k], b.opt_state[m][k]), (m, k)
+
+
+@pytest.mark.parametrize("name", ["joint", "image", "text_mean"])
+def test_captured_train_and_eval_steps_equal_eager_on_the_card(dev, name):
+    """Four steps of fit with the steps captured (one graph, replayed from
+    the second step) bit-equal to four eager steps: parameters, optimizer
+    moments, BN statistics; evaluate's statistics too.  The options' false
+    runs the steps eagerly."""
+    cfg = _train_cfg(name)
+    cfg = cfg.replace(image=cfg.image.replace(dropout_keep_prob=0.8))
+    batches = [_train_batch(cfg, seed) for seed in range(4)]
+    state = _train_init(cfg)
+    tr_e, ts_e = _fit_compiled(cfg, state, batches, dev, eager=True)
+    tr_c, ts_c = _fit_compiled(cfg, state, batches, dev, eager=False)
+    _same_train_state(ts_c, ts_e)
+    program = tr_c._programs["train"]
+    assert program._cache_size() == 1 and program.replays == 3
+    if cfg.model != "text":
+        tr_c.preprocess = tr_e.preprocess = "eval"
+    ev_c, ev_e = tr_c.evaluate(ts_c, batches[:2]), tr_e.evaluate(ts_e, batches[:2])
+    assert (ev_c["count"], ev_c["accuracy"], ev_c["loss"]) == \
+        (ev_e["count"], ev_e["accuracy"], ev_e["loss"])
+    assert tr_c._programs["eval"].replays == 1
+
+
+def test_restore_under_capture_equals_the_straight_run_on_the_card(dev, tmp_path):
+    """A captured run checkpointed at step 2, restored into new tensors (the
+    graph captured on the old ones dropped) and trained to step 4, bit-equal
+    to four captured steps straight."""
+    cfg = _train_cfg("joint")
+    cfg = cfg.replace(train=cfg.train.replace(checkpoint_every=2))
+    batches = [_train_batch(cfg, seed) for seed in range(4)]
+    state = _train_init(cfg)
+    _, straight = _fit_compiled(cfg, state, batches, dev, eager=False)
+    tr, ts = _fit_compiled(cfg, state, batches[:2], dev, eager=False, ckpt=str(tmp_path))
+    restored = tr.restore_latest(tr.init_state(state))
+    assert restored.step == 2
+    ts = tr.fit(restored, iter(batches[2:]), num_steps=2)
+    _same_train_state(ts, straight)
+    assert tr._programs["train"]._cache_size() == 1
+
+
+def test_v1_fixture_warm_starts_a_model_on_the_card(dev):
+    """The committed V1 checkpoint (a partitioned leaf among slim names)
+    read on the card machine, which has no TensorFlow: every tensor equal
+    to the values TF read back when it was written, and a warm start puts
+    them on the card bit for bit."""
+    from tumblr_emotions_torch import convert
+    from tumblr_emotions_torch.utils import checkpoint as ck
+
+    fixture = Path(__file__).parent / "data" / "v1"
+    want = np.load(fixture / "expected.npz")
+    reader = ck.load_checkpoint(str(fixture / "slim_v1.ckpt"))
+    for name in want.files:
+        np.testing.assert_array_equal(reader.get_tensor(name), want[name])
+    model = InceptionV3(depth_multiplier=0.25, min_depth=8, device="meta")
+    state = {k: v.to(dev) for k, v in init_state(model, seed=0).items()}
+    warm = ck.merge_pretrained(state, ck.load_slim_checkpoint(str(fixture / "slim_v1.ckpt")))
+    keys = {k.replace(".", "/"): k for k in warm}
+    used = [n for n in want.files if n[len("InceptionV3/"):] in keys]
+    assert len(used) == 6      # not the optimizer slot, the global step
+    for name in used:
+        key = keys[name[len("InceptionV3/"):]]
+        assert warm[key].device.type == "cuda"
+        np.testing.assert_array_equal(
+            warm[key].cpu().numpy(),
+            convert.to_port_leaf(tuple(name.split("/")[1:]), want[name]).numpy())

@@ -66,3 +66,19 @@ def tf32_convs():
         yield
     finally:
         cudnn.allow_tf32 = saved
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """Let cuDNN pick only deterministic algorithms.  Its default weight-
+    gradient algorithms sum by atomics in another order each run, so two
+    runs of one train step on the card differ in the last bits of many
+    leaves (``chip_smoke.py`` train_captured counts them), and neither a
+    resumed nor a captured step could equal the step it replaces."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic
+    cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        cudnn.deterministic = saved

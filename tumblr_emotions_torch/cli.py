@@ -29,9 +29,10 @@ input record.  ``train`` and ``eval`` run as several processes, one card
 each (data parallel, ``parallel/``): started with ``--coordinator-address
 host:port --num-processes N --process-id i`` each, or by torchrun (its
 environment); each process reads its shard of the records.  Every served
-program runs as one captured CUDA graph per batch shape
-(``utils/compile_opts.py``; ``TET_TORCH_COMPILER_OPTIONS`` overrides the
-options, ``tune`` measures them).  Commands and flags the port does not
+program runs as one captured CUDA graph per batch shape, and so do
+``train``'s and ``eval``'s steps (``utils/compile_opts.py``;
+``TET_TORCH_COMPILER_OPTIONS`` and ``TET_TORCH_TRAIN_COMPILER_OPTIONS``
+override the options, ``tune`` and ``tune --step train`` measure them).  Commands and flags the port does not
 have yet are refused with the ROADMAP item that brings them.
 """
 
@@ -51,8 +52,6 @@ log = logging.getLogger("tumblr_emotions_torch")
 
 # Refused commands and flags -> the ROADMAP (Queue 1) item that brings them.
 LEFT = {
-    "tune --step train": "6(k) (a captured train and eval step, tpu_jit's role in the "
-                         "trainer)",
     "--dp": "6(j) (serving one batch over several cards, what is left of 6(h))",
     "multi-process": "6(j) (serving one batch over several cards, what is left of 6(h))",
 }
@@ -717,7 +716,11 @@ def cmd_tune(args) -> int:
     the s2d front; bf16: the engine with the block kernels, as the
     reference's ``tune`` builds it) at ``--depth-multiplier`` on seeded
     weights, over a seeded uint8 batch made on the card.  Export the
-    printed options as ``TET_TORCH_COMPILER_OPTIONS`` to apply them."""
+    printed options as ``TET_TORCH_COMPILER_OPTIONS`` to apply them.
+
+    ``--step train`` times the train step ``Trainer.compile`` captures
+    instead (:func:`_tune_train`), whose options are
+    ``TET_TORCH_TRAIN_COMPILER_OPTIONS``."""
     import torch
 
     from tumblr_emotions_torch._device import resolve_device
@@ -737,7 +740,7 @@ def cmd_tune(args) -> int:
             raise SystemExit(f"--candidates {args.candidates} must hold a JSON list of "
                              "option->value objects")
     if args.step == "train":
-        raise _left("tune --step train")
+        return _tune_train(args, candidates)
     dev = resolve_device(args.device)
     cfg = get_preset("fused_inference")
     if args.depth_multiplier != 1.0:
@@ -779,6 +782,69 @@ def cmd_tune(args) -> int:
         "candidates_measured": len(results),
         "from_cache": not results,
         "apply_hint": f"export {compile_opts.ENV_VAR}='{json.dumps(best)}'",
+        "results": results,
+    }))
+    return 0
+
+
+def _tune_train(args, candidates) -> int:
+    """``tune --step train``, the reference's: joint_finetune in perf mode
+    at ``--batch-size``, ``--image-size`` (the decoded size the train
+    distortions crop) and ``--depth-multiplier``, on seeded weights and a
+    seeded host batch (captions of 10 tokens); each candidate times the
+    train step on the device (``Trainer.train_step_on_device``, the
+    program ``Trainer.compile`` captures) on the same batch and per-update
+    values, updating the same state in place (timing only: the reference's
+    sweep also replays one set of arguments)."""
+    import torch
+
+    from tumblr_emotions_torch._device import resolve_device
+    from tumblr_emotions_torch.config import get_preset
+    from tumblr_emotions_torch.train.trainer import Trainer
+    from tumblr_emotions_torch.utils import compile_opts
+
+    dev = resolve_device(args.device)
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=args.depth_multiplier),
+                      train=cfg.train.replace(batch_size=args.batch_size,
+                                              precision_mode="perf"))
+    rng0 = np.random.RandomState(0)
+    b, src = args.batch_size, args.image_size
+    host = {"image": rng0.randint(0, 256, (b, src, src, 3), dtype=np.uint8),
+            "label": rng0.randint(0, 15, (b,)).astype(np.int32),
+            "lengths": np.full(b, 10, np.int32),
+            "tokens": rng0.randint(0, 50, (b, 10)).astype(np.int32)}
+    trainer = Trainer(cfg, preprocess="train", device=dev)
+    state = trainer.init_state(_initial_state(cfg))
+    names = sorted(host)
+    batch = [torch.from_numpy(host[k]).to(dev) for k in names]
+    scalars = trainer.optimizer.device_scalars(0, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def train_program(*args_):
+        return trainer.train_step_on_device(state, dict(zip(names, args_[:-1])), gen, None,
+                                            args_[-1])["loss"]
+
+    results = []
+
+    def _record(opts, seconds):
+        ips = args.batch_size * args.steps / seconds
+        results.append({"options": opts, "images_per_sec": round(ips, 1)})
+        log.info("candidate %s: %.1f img/s", json.dumps(opts), ips)
+
+    best = compile_opts.autotune(
+        train_program, (*batch, scalars), candidates=candidates, steps=args.steps,
+        repeats=args.repeats, cache_path=args.cache or None,
+        key=f"train/joint/b{args.batch_size}", on_result=_record, device=dev,
+        inference=False, generators=(gen,))
+    print(json.dumps({
+        "step": "train", "batch_size": args.batch_size, "best_options": best,
+        # A run served from the cache measures nothing.
+        "best_images_per_sec": (max(r["images_per_sec"] for r in results)
+                                if results else None),
+        "candidates_measured": len(results),
+        "from_cache": not results,
+        "apply_hint": f"export {compile_opts.TRAIN_ENV_VAR}='{json.dumps(best)}'",
         "results": results,
     }))
     return 0
@@ -973,7 +1039,8 @@ def parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("tune")
     p.add_argument("--step", choices=["serving", "train"], default="serving",
-                   help=f"train: refused, ROADMAP {LEFT['tune --step train']}")
+                   help="serving: the served program; train: the captured train step "
+                        "(joint_finetune, perf mode)")
     p.add_argument("--engine", choices=["int8", "bf16"], default="int8")
     p.add_argument("--batch-size", type=int, default=768)
     p.add_argument("--image-size", type=int, default=347,

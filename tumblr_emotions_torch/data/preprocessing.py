@@ -118,7 +118,7 @@ def preprocess_for_eval(images: torch.Tensor, height: int = 299, width: int = 29
     n, h, w, c = images.shape
     x = images.to(dtype)
     if not images.is_floating_point():
-        x = x / 255.0  # tf.image.convert_image_dtype
+        x = _true_div(x, 255.0)  # tf.image.convert_image_dtype
     if central_fraction and central_fraction < 1.0:
         oh, ow, ch, cw = central_crop_sizes(h, w, central_fraction)
         x = x[:, oh:oh + ch, ow:ow + cw, :]
@@ -163,7 +163,7 @@ def preprocess_for_eval_s2d(images: torch.Tensor, height: int = 299, width: int 
     n, h, w, c = images.shape
     x = images.to(dtype)
     if not images.is_floating_point():
-        x = x / 255.0
+        x = _true_div(x, 255.0)
     if central_fraction and central_fraction < 1.0:
         oh, ow, ch, cw = central_crop_sizes(h, w, central_fraction)
         x = x[:, oh:oh + ch, ow:ow + cw, :]

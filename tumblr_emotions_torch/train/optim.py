@@ -17,7 +17,15 @@ hand because ``torch.optim`` differs on the points that matter:
   ``-lr``; no trace when momentum is 0.
 - The learning rate: ``optax.exponential_decay(staircase=True)``, ``lr *
   rate**floor(count / steps)`` with ``count`` the number of updates
-  already applied, or constant.  Computed on the host in float32.
+  already applied, or constant.  Computed on the host in float32, as are
+  Adam's bias corrections (:meth:`Optimizer.scalars`); the update reads
+  them from a float32 tensor on the device (:meth:`Optimizer.apply`), so a
+  captured step takes each update's values as an input, and divides by
+  them as IEEE division (on the card PyTorch divides a tensor list by a
+  Python scalar as a product with its reciprocal).  Adam's square root is
+  correctly rounded on both devices (:func:`correctly_rounded_sqrt`), so
+  its update on the card is the CPU's bit for bit; RMSProp's ``rsqrt`` is
+  PyTorch's on each device.
 - ``optax.clip_by_global_norm`` ahead of the optimizer, over the leaves it
   updates: with frozen scopes that is the trainable leaves only, as in the
   reference's ``multi_transform`` partition.
@@ -75,18 +83,49 @@ class Optimizer:
             state[m] = {k: torch.zeros_like(p) for k, p in params.items()}
         return state
 
+    def scalars(self, count: int) -> np.ndarray:
+        """The per-update host scalars of update number ``count``, in float32:
+        ``[-lr, bc1, bc2]`` (Adam's bias corrections ``1 - b**(count+1)``; 1
+        for the others), computed on the host as optax's float32 schedule
+        gives them.  :meth:`apply` reads them from a tensor, so a captured
+        step takes each update's values as an input instead of baking in the
+        first's."""
+        c = count + 1
+        bc1 = np.float32(1) - np.float32(ADAM_B1) ** c if self.t.optimizer == "adam" else 1
+        bc2 = np.float32(1) - np.float32(ADAM_B2) ** c if self.t.optimizer == "adam" else 1
+        return np.asarray([-learning_rate(self.t, count), bc1, bc2], np.float32)
+
     @torch.no_grad()
     def update(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
                state: Dict) -> Dict:
         """Apply one update to ``params`` in place from ``grads`` (same
         keys) and advance ``state`` in place; returns ``state``."""
+        dev = next(iter(params.values())).device if params else torch.device("cpu")
+        self.apply(params, grads, state, self.device_scalars(state["count"], dev))
+        state["count"] += 1
+        return state
+
+    def device_scalars(self, count: int, device: torch.device) -> torch.Tensor:
+        """:meth:`scalars` as a tensor on ``device`` (through pinned memory
+        on the card, so the copy does not wait for the card's queue)."""
+        host = torch.from_numpy(self.scalars(count))
+        if device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(device, non_blocking=True)
+
+    @torch.no_grad()
+    def apply(self, params: Dict[str, torch.Tensor], grads: Dict[str, torch.Tensor],
+              state: Dict, scalars: torch.Tensor) -> None:
+        """The update of :meth:`update` on the device, in place, with the
+        per-update values ``scalars`` (:meth:`scalars`, a float32 tensor on
+        ``params``' device); ``state["count"]`` is left to the caller."""
         t = self.t
         keys = list(params)
         p = [params[k] for k in keys]
         g = [grads[k] for k in keys]
         if t.grad_clip_norm > 0:
             g = _clip_by_global_norm(g, t.grad_clip_norm)
-        neg_lr = -learning_rate(t, state["count"])
+        neg_lr, bc1, bc2 = scalars.unbind()
         if t.optimizer == "rmsprop":
             d = t.rmsprop_decay
             nu = [state["nu"][k] for k in keys]
@@ -100,7 +139,6 @@ class Optimizer:
             torch._foreach_mul_(u, neg_lr)
             u = _trace(state, keys, u, t.momentum)         # u + m*t
         elif t.optimizer == "adam":
-            c = state["count"] + 1
             mu = [state["mu"][k] for k in keys]
             nu = [state["nu"][k] for k in keys]
             g1 = torch._foreach_mul(g, 1.0 - ADAM_B1)
@@ -110,10 +148,7 @@ class Optimizer:
             torch._foreach_mul_(g2, 1.0 - ADAM_B2)
             torch._foreach_mul_(nu, ADAM_B2)
             torch._foreach_add_(nu, g2)
-            bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** c)
-            bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** c)
-            den = torch._foreach_div(nu, bc2)
-            torch._foreach_sqrt_(den)
+            den = correctly_rounded_sqrt(torch._foreach_div(nu, bc2))
             torch._foreach_add_(den, ADAM_EPS)             # sqrt(nu_hat) + eps
             u = torch._foreach_div(mu, bc1)                # mu_hat
             torch._foreach_div_(u, den)
@@ -122,8 +157,17 @@ class Optimizer:
             u = _trace(state, keys, g, t.momentum) if t.momentum else list(g)
             u = torch._foreach_mul(u, neg_lr)
         torch._foreach_add_(p, u)
-        state["count"] += 1
-        return state
+
+
+def correctly_rounded_sqrt(ts: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The float32 square roots of ``ts``, correctly rounded, as the card's
+    and the reference's (XLA's) are: PyTorch's vectorised float32 sqrt on
+    the CPU is not always (it misses in a fraction of a percent of values,
+    so Adam's update on the CPU and on the card differed); a float64 root
+    rounded to float32 is (53 bits cover 2 x 24 + 2)."""
+    roots = [t.double() for t in ts]
+    torch._foreach_sqrt_(roots)
+    return [t.float() for t in roots]
 
 
 def _trace(state: Dict, keys: List[str], u: List[torch.Tensor], decay: float

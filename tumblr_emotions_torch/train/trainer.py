@@ -35,6 +35,21 @@ input iterator's position beside each (``input_iterator_<step>.json``), and
 ``restore_latest`` / ``restore_input_iterator`` resume at the exact record;
 ``evaluate_continuously`` scores each new checkpoint as it appears.
 
+Compiled steps (:meth:`Trainer.compile`, the role of the reference's
+``tpu_jit`` of both steps): on the card each train and eval step runs as
+one captured CUDA graph per input signature (``utils/compile_opts.py``),
+bit-equal to the step launched op by op.  The graph updates the state's
+tensors in place at the addresses it was captured on; a TrainState whose
+tensors sit elsewhere (``restore``, ``init_state``, a warm start) is
+captured anew.  The per-update learning rate and bias corrections are its
+inputs (``Optimizer.scalars``), and its draws come from
+``Trainer.generator``, registered with the graph and reseeded before each
+step.  ``TET_TORCH_TRAIN_COMPILER_OPTIONS='{"cuda_graph": "false"}'`` runs
+the steps op by op; so do the CPU and a gloo group (its collectives stage
+through the host).  Every step runs cuDNN's deterministic algorithms
+(``_device.deterministic_convs``), so a step computes the same on every
+run: captured or not, resumed or not.
+
 Parity mode (f32): the whole step, forward, backward and update, runs
 with TF32 off (``_device.full_f32``), as the reference runs
 ``precision="highest"``.  Perf mode (bf16): the bf16 models of
@@ -75,6 +90,7 @@ import logging
 import os
 import re
 import time
+import weakref
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -83,7 +99,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from tumblr_emotions_torch import convert
-from tumblr_emotions_torch._device import full_f32, resolve_device
+from tumblr_emotions_torch._device import deterministic_convs, full_f32, resolve_device
 from tumblr_emotions_torch.config import Config
 from tumblr_emotions_torch.data import pipeline
 from tumblr_emotions_torch.data import preprocessing as pp
@@ -93,6 +109,7 @@ from tumblr_emotions_torch.parallel import distributed
 from tumblr_emotions_torch.parallel import mesh as mesh_lib
 from tumblr_emotions_torch.train.optim import Optimizer, learning_rate
 from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
+from tumblr_emotions_torch.utils import compile_opts
 from tumblr_emotions_torch.utils import metrics as metrics_lib
 from tumblr_emotions_torch.utils.summaries import ProfilerHook, SummaryWriter
 
@@ -110,6 +127,12 @@ class TrainState:
     step: int
     state: Dict[str, torch.Tensor]
     opt_state: Dict[str, Any]
+
+
+def _weak(method: Callable) -> Callable:
+    """``method`` through a weak reference to its object."""
+    ref = weakref.WeakMethod(method)
+    return lambda *args: ref()(*args)
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -203,6 +226,15 @@ class Trainer:
         self._ckpt_mgr: Optional[ckpt_lib.CheckpointManager] = None
         self.last_save: Optional[Dict[str, float]] = None
         self.last_trace: Optional[str] = None
+        # compile(): the steps fit and evaluate run, the mode and the
+        # generator every step draws from
+        self._compiled_train: Optional[Callable] = None
+        self._compiled_eval: Optional[Callable] = None
+        self.step_mode: Optional[str] = None
+        self.generator: Optional[torch.Generator] = None
+        self._programs: Dict[str, compile_opts.Captured] = {}
+        self._bound_keys: Dict[str, tuple] = {}
+        self._bound: Optional[Tuple[TrainState, Tuple[str, ...]]] = None
 
     # -- initialization ----------------------------------------------------
 
@@ -247,10 +279,14 @@ class Trainer:
                 for k, v in batch.items()}
 
     def _numerics(self):
-        """The model's numerics: TF32 off in parity mode; in perf mode the
-        bf16 layers decide (their convs run TF32 on bf16 values, exactly)."""
-        return full_f32() if self.cfg.train.precision_mode == "parity" else \
-            contextlib.nullcontext()
+        """The model's numerics: cuDNN's deterministic algorithms; TF32 off
+        in parity mode; in perf mode the bf16 layers decide (their convs
+        run TF32 on bf16 values, exactly)."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(deterministic_convs())
+        if self.cfg.train.precision_mode == "parity":
+            stack.enter_context(full_f32())
+        return stack
 
     def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` summed over the process group (itself without one)."""
@@ -294,15 +330,30 @@ class Trainer:
         distortions and the dropout draw from ``generator`` (on the
         device); ``draws`` gives the distortions' draws instead.  The step's
         three stages are the methods below."""
+        scalars = self.optimizer.device_scalars(state.opt_state["count"], self.device)
+        metrics = self.train_step_on_device(state, batch, generator, draws, scalars)
+        state.opt_state["count"] += 1
+        return TrainState(state.step + 1, state.state, state.opt_state), metrics
+
+    def train_step_on_device(self, state: TrainState, batch: Dict[str, Any],
+                             generator: Optional[torch.Generator],
+                             draws: Optional[pp.TrainDraws],
+                             scalars: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """:meth:`train_step` with the optimizer's per-update values
+        ``scalars`` given (``Optimizer.scalars``, a float32 tensor on the
+        device) and no host work: what a captured step records.  Returns
+        the metrics; leaves ``state.step`` and the optimizer's count to the
+        caller."""
         batch = self.train_inputs(batch, generator, draws)
         loss, logits, grads = self.loss_and_grads(state, batch, generator)
-        self.apply_gradients(state, grads)
+        with self._numerics():
+            self.optimizer.apply({k: state.state[k] for k in grads}, grads, state.opt_state,
+                                 scalars)
         acc = (logits.to(self.model.dtype).argmax(-1) == batch["label"].long()).float().mean()
         if self.group is not None:
             # loss is this process's share of the global loss already
             loss, acc = self._all_reduce(torch.stack([loss, acc / self.world])).unbind()
-        return TrainState(state.step + 1, state.state, state.opt_state), {"loss": loss,
-                                                                          "accuracy": acc}
+        return {"loss": loss, "accuracy": acc}
 
     def train_inputs(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
                      draws: Optional[pp.TrainDraws] = None) -> Dict[str, torch.Tensor]:
@@ -383,6 +434,87 @@ class Trainer:
             _, end_points = functional_call(self.model, state.state, self._model_args(batch))
         return end_points["Predictions"]
 
+    # -- compiled steps ------------------------------------------------------
+
+    def compile(self) -> "Trainer":
+        """Decide how ``fit`` and ``evaluate`` run their steps, as the
+        reference's ``compile`` jits both: ``_compiled_train(state, batch,
+        generator)`` and ``_compiled_eval(state, batch)``, each one captured
+        CUDA graph per input signature (``utils/compile_opts.capture``,
+        ``TET_TORCH_TRAIN_COMPILER_OPTIONS``), or :meth:`train_step` and
+        :meth:`eval_step` op by op.  Captured iff the device is the card,
+        the options' ``cuda_graph`` is true and there is no group or an NCCL
+        one (gloo stages its collectives through the host); the mode is in
+        ``step_mode``.  ``generator`` (on the device) is the one the
+        captured train step draws from: ``fit`` reseeds it before each step.
+        A capture that fails raises."""
+        opts = compile_opts.check_options(compile_opts.train_default_options())
+        why = []
+        if self.device.type != "cuda":
+            why.append(f"device {self.device}")
+        if opts.get("cuda_graph") != "true":
+            why.append(f"{compile_opts.TRAIN_ENV_VAR} {opts}")
+        if self.group is not None and torch.distributed.get_backend(self.group) != "nccl":
+            why.append(f"a {torch.distributed.get_backend(self.group)} group")
+        self.step_mode = "eager" if why else "captured"
+        self.generator = torch.Generator(device=self.device)
+        self._programs, self._bound_keys = {}, {}
+        if not why:
+            # The programs (and the steps below) hold the trainer weakly: a
+            # trainer let go frees its graphs' memory then, not at the next
+            # garbage collection.
+            self._programs["train"] = compile_opts.capture(
+                _weak(self._captured_train), options=opts, device=self.device,
+                inference=False, generators=(self.generator,))
+            self._programs["eval"] = compile_opts.capture(
+                _weak(self._captured_eval), options=opts, device=self.device, inference=False)
+        log.info("train and eval steps: %s%s", self.step_mode,
+                 f" ({', '.join(why)})" if why else " (one CUDA graph per input signature)")
+        self._compiled_train, self._compiled_eval = _weak(self._run_train), _weak(self._run_eval)
+        return self
+
+    def _run_train(self, state: TrainState, batch: Dict[str, Any],
+                   generator: torch.Generator) -> Tuple[TrainState, Dict]:
+        program = self._programs.get("train")
+        if program is None:
+            return self.train_step(state, batch, generator)
+        if generator is not self.generator:
+            raise ValueError("the captured train step draws from trainer.generator")
+        scalars = self.optimizer.scalars(state.opt_state["count"])
+        metrics = self._call("train", state, batch, [scalars])
+        state.opt_state["count"] += 1
+        return TrainState(state.step + 1, state.state, state.opt_state), metrics
+
+    def _run_eval(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        if "eval" not in self._programs:
+            return self.eval_step(state, batch)
+        return self._call("eval", state, batch, [])
+
+    def _call(self, which: str, state: TrainState, batch: Dict[str, Any], extra: List):
+        """Run a captured step on ``state``: its graphs were captured on the
+        addresses of the tensors it updates or reads (the state dict, and
+        for the train step the optimizer's moments and which leaves train),
+        so a state held elsewhere drops them and is captured anew."""
+        tensors = list(state.state.values())
+        if which == "train":
+            tensors += [v for m in self.optimizer.moments for v in state.opt_state[m].values()]
+        bound = tuple((t.data_ptr(), t.requires_grad) for t in tensors)
+        if bound != self._bound_keys.get(which):
+            self._programs[which].clear()
+            self._bound_keys[which] = bound
+        names = tuple(sorted(batch))
+        self._bound = (state, names)   # read by the program while it is captured
+        return self._programs[which](*[batch[k] for k in names], *extra, key=names)
+
+    def _captured_train(self, *args) -> Dict[str, torch.Tensor]:
+        state, names = self._bound
+        return self.train_step_on_device(state, dict(zip(names, args[:-1])), self.generator,
+                                         None, args[-1])
+
+    def _captured_eval(self, *args) -> Dict[str, torch.Tensor]:
+        state, names = self._bound
+        return self.eval_step(state, dict(zip(names, args)))
+
     # -- loops ---------------------------------------------------------------
 
     def fit(self, state: TrainState, batches: Iterable[Dict[str, Any]],
@@ -404,10 +536,13 @@ class Trainer:
         beside each checkpoint, so a restart resumes at the exact record.
         The profiler hook traces steps ``[profile_start_step,
         profile_start_step + profile_num_steps)`` into a Chrome trace
-        under ``log_dir`` (its path in ``last_trace``)."""
+        under ``log_dir`` (its path in ``last_trace``).  The steps are
+        :meth:`compile`'s."""
+        if self._compiled_train is None:
+            self.compile()
         t = self.cfg.train
         num_steps = t.num_steps if num_steps is None else num_steps
-        gen = torch.Generator(device=self.device)
+        gen = self.generator
         it = iter(batches)
         writer = SummaryWriter(t.log_dir if self.rank == 0 else "")
         profiler = ProfilerHook(t.log_dir or os.path.join(t.checkpoint_dir, "trace"),
@@ -426,7 +561,7 @@ class Trainer:
                 gen.manual_seed(step_seed(t.seed, step))
                 profiler.maybe_start(step + 1)
                 with profiler.step_range(step + 1):
-                    state, m = self.train_step(state, batch, gen)
+                    state, m = self._compiled_train(state, batch, gen)
                 step += 1
                 profiler.maybe_stop(step)
                 if step % t.log_every == 0:
@@ -474,13 +609,15 @@ class Trainer:
         ``metrics.summarize`` plus the mean ``loss`` over the weighted
         examples.  Under data parallelism each process passes its own shard
         and the statistics are the whole split's (lockstep, see
-        :meth:`lockstep_local_batches`)."""
+        :meth:`lockstep_local_batches`).  The steps are :meth:`compile`'s."""
+        if self._compiled_eval is None:
+            self.compile()
         if self.group is not None:
             batches = self.lockstep_local_batches(batches)
         total = None
         loss_sum = torch.zeros((), dtype=torch.float64, device=self.device)
         for batch in batches:
-            stats = self.eval_step(state, batch)
+            stats = self._compiled_eval(state, batch)
             loss_sum += stats.pop("loss_sum").double()
             total = stats if total is None else metrics_lib.merge_stats(total, stats)
         if total is None:

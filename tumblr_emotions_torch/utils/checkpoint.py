@@ -1,5 +1,6 @@
-"""Checkpoints without TensorFlow: TF's V2 tensor-bundle format, the slim
-warm start and export, and the trainer's step checkpoints.
+"""Checkpoints without TensorFlow: TF's V2 tensor-bundle format, TF's V1
+checkpoints (read), the slim warm start and export, and the trainer's step
+checkpoints.
 
 Port of ``tumblr_emotions_tpu/utils/checkpoint.py`` (which reads and writes
 through TF) and of the reference trainer's orbax checkpoints, on one codec:
@@ -15,22 +16,33 @@ through TF) and of the reference trainer's orbax checkpoints, on one codec:
   footer (two block handles, padding, the magic number).  TF writes its
   tables uncompressed; a compressed block is refused.  The crc is the C++
   of ``utils/crc32c.py``.
+- A V1 checkpoint (slim's released checkpoints, e.g. ``inception_v3.ckpt``)
+  is one table per shard file (``model.ckpt``, or ``model.ckpt-00000-of-
+  00002`` and its siblings): the empty key holds a ``SavedTensorSlices``
+  whose ``meta`` names each tensor's shape, dtype and slices; every other
+  entry is a ``SavedTensorSlices`` whose ``data`` is one slice of one
+  tensor, a ``TensorProto`` with its values in the typed ``*_val`` fields
+  (or ``tensor_content``).  :class:`V1Reader` reassembles sliced
+  (partitioned) variables into whole tensors, which ``tf.train.
+  load_checkpoint`` refuses.  :func:`load_checkpoint` tells the formats
+  apart as ``tf.train.load_checkpoint`` does: V2 where ``<prefix>.index``
+  exists, else the V1 files the path matches as a glob pattern.
 - ``load_slim_checkpoint`` / ``merge_pretrained`` / ``save_as_slim_checkpoint``
-  are the reference's warm start and export, in the port's state-dict names
-  and layouts (``convert.to_port_leaf`` / ``to_jax_leaf``).
+  are the reference's warm start (from either format) and export, in the
+  port's state-dict names and layouts (``convert.to_port_leaf`` /
+  ``to_jax_leaf``).
 - :class:`CheckpointManager` keeps one directory per step under the
   checkpoint dir (written to a temporary name and renamed, so a crash never
   leaves half a checkpoint), holding a bundle of ``params/...``,
   ``batch_stats/...``, ``opt_state/...`` and ``step`` under the JAX tree's
   names, with a ``checkpoint`` state file so ``tf.train.load_checkpoint``
   reads the directory.  Nothing is pickled.
-
-TF's V1 (single-file) checkpoints are not read (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import collections
+import glob
 import os
 import re
 import shutil
@@ -332,8 +344,10 @@ def _write_state_file(directory: str, name: str) -> None:
 
 
 def resolve_prefix(path: str) -> str:
-    """A bundle prefix from a prefix, its ``.index`` file or a directory
-    holding a ``checkpoint`` state file (as ``tf.train.load_checkpoint``)."""
+    """A checkpoint's prefix from a prefix, a V2 bundle's ``.index`` file or
+    a directory holding a ``checkpoint`` state file (as
+    ``tf.train.load_checkpoint``): a V2 bundle's where ``<prefix>.index``
+    exists, else a V1 file pattern that matches at least one file."""
     if os.path.isdir(path):
         state = os.path.join(path, STATE_FILE)
         if not os.path.exists(state):
@@ -345,9 +359,18 @@ def resolve_prefix(path: str) -> str:
         return p if os.path.isabs(p) else os.path.join(path, p)
     if path.endswith(".index"):
         path = path[:-len(".index")]
-    if not os.path.exists(path + ".index"):
-        raise FileNotFoundError(f"no tensor bundle at {path} ({path}.index missing)")
+    if not os.path.exists(path + ".index") and not glob.glob(path):
+        raise FileNotFoundError(f"no checkpoint at {path}: neither a V2 bundle "
+                                f"({path}.index) nor V1 files matching it")
     return path
+
+
+def load_checkpoint(path: str):
+    """A reader of the checkpoint at ``path`` (:func:`resolve_prefix`):
+    :class:`BundleReader` for a V2 bundle, :class:`V1Reader` for V1 files,
+    chosen as ``tf.train.load_checkpoint`` chooses."""
+    prefix = resolve_prefix(path)
+    return BundleReader(prefix) if os.path.exists(prefix + ".index") else V1Reader(prefix)
 
 
 class BundleReader:
@@ -355,6 +378,9 @@ class BundleReader:
 
     def __init__(self, path: str):
         self.prefix = resolve_prefix(path)
+        if not os.path.exists(self.prefix + ".index"):
+            raise FileNotFoundError(f"no tensor bundle at {self.prefix} ({self.prefix}.index "
+                                    "missing; load_checkpoint reads V1 files)")
         with open(self.prefix + ".index", "rb") as f:
             table = read_table(f.read())
         if not table or table[0][0] != b"":
@@ -390,6 +416,137 @@ class BundleReader:
 
 
 # ---------------------------------------------------------------------------
+# V1 checkpoints (tensorflow/core/util/saved_tensor_slice.proto)
+# ---------------------------------------------------------------------------
+
+# TF dtype -> the TensorProto field its values are saved in by the V1 writer
+# (saved_tensor_slice_util.h) and how that field is encoded.
+_V1_FIELDS = {1: (5, "<f4"), 2: (6, "<f8"), 3: (7, "varint"), 4: (7, "varint"),
+              5: (7, "varint"), 6: (7, "varint"), 9: (10, "varint"), 10: (11, "varint"),
+              17: (7, "varint"), 19: (13, "varint")}
+_V1Slice = collections.namedtuple("_V1Slice", "extents data")
+
+
+def _v1_extents(msg: bytes) -> Tuple[Tuple[int, Optional[int]], ...]:
+    """A TensorSliceProto's extents, ``(start, length)`` each; a length of
+    None spans the whole dimension."""
+    out = []
+    for field, ext in _fields(msg):
+        if field == 1:
+            e = dict(_fields(ext))
+            out.append((_signed(e.get(1, 0)), _signed(e[2]) if 2 in e else None))
+    return tuple(out)
+
+
+def _signed(v: int) -> int:
+    """A varint read as a two's-complement int64."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _v1_values(name: str, dtype: int, proto: bytes) -> np.ndarray:
+    """The flat values of a V1 slice's TensorProto."""
+    if dtype not in _V1_FIELDS:
+        raise ValueError(f"{name}: TF dtype {dtype} is not read from a V1 checkpoint")
+    want, enc = _V1_FIELDS[dtype]
+    np_dtype = _NP_OF[dtype]
+    content, vals = None, []
+    for field, v in _fields(proto):
+        if field == 4:
+            content = v
+        elif field == want:
+            if isinstance(v, bytes) and enc != "varint":      # packed fixed-width
+                vals.append(np.frombuffer(v, enc))
+            elif isinstance(v, bytes):                          # packed varints
+                pos, packed = 0, []
+                while pos < len(v):
+                    x, pos = _read_varint(v, pos)
+                    packed.append(_signed(x))
+                vals.append(np.asarray(packed, np.int64))
+            else:                                               # one unpacked value
+                vals.append(np.asarray([struct.unpack("<f", struct.pack("<I", v))[0]
+                                        if enc == "<f4" else _signed(v)]))
+    if content is not None:
+        return np.frombuffer(content, np_dtype.newbyteorder("<")).astype(np_dtype)
+    flat = np.concatenate(vals) if vals else np.zeros(0, np_dtype)
+    if dtype == 19:                     # half: the bits, in an int
+        return flat.astype(np.uint16).view(np.float16)
+    return flat.astype(np_dtype)
+
+
+class V1Reader:
+    """Reads a TF V1 checkpoint: every file ``pattern`` matches (one, or
+    the shards of a sharded save), with the interface of
+    :class:`BundleReader`."""
+
+    def __init__(self, pattern: str):
+        self.prefix = pattern
+        files = sorted(glob.glob(pattern))
+        if not files:
+            raise FileNotFoundError(f"no V1 checkpoint files match {pattern}")
+        self.meta: Dict[str, Tuple[Tuple[int, ...], int, int]] = {}
+        self.slices: Dict[str, List[_V1Slice]] = collections.defaultdict(list)
+        for path in files:
+            with open(path, "rb") as f:
+                table = read_table(f.read())
+            for key, value in table:
+                for field, msg in _fields(value):
+                    if field == 1 and key == b"":
+                        self._read_meta(msg)
+                    elif field == 2:
+                        s = dict(_fields(msg))
+                        self.slices[s[1].decode()].append(
+                            _V1Slice(_v1_extents(s.get(2, b"")), s.get(3, b"")))
+
+    def _read_meta(self, msg: bytes) -> None:
+        """A shard's ``SavedTensorSliceMeta``: each tensor's shape, dtype
+        and how many slices this shard lists (summed over the shards)."""
+        for field, tensor in _fields(msg):
+            if field != 1:
+                continue
+            t = dict(_fields(tensor))
+            name = t[1].decode()
+            dims = [next((s for f3, s in _fields(d) if f3 == 1), 0)
+                    for f2, d in _fields(t.get(2, b"")) if f2 == 2]
+            n_slices = sum(1 for f, _ in _fields(tensor) if f == 4)
+            self.meta[name] = (tuple(dims), t.get(3, 0),
+                               self.meta.get(name, ((), 0, 0))[2] + n_slices)
+
+    def keys(self) -> List[str]:
+        return list(self.meta)
+
+    def get_variable_to_shape_map(self) -> Dict[str, List[int]]:
+        return {k: list(m[0]) for k, m in self.meta.items()}
+
+    def get_tensor(self, name: str) -> np.ndarray:
+        if name not in self.meta:
+            raise KeyError(f"{name} not in {self.prefix}")
+        shape, dtype, n_slices = self.meta[name]
+        if dtype not in _NP_OF:
+            raise ValueError(f"{name}: TF dtype {dtype} is not read")
+        parts = self.slices.get(name, [])
+        if len(parts) != n_slices:
+            raise IOError(f"{self.prefix}: {name} has {len(parts)} of its {n_slices} slices")
+        out = np.zeros(shape, _NP_OF[dtype])
+        covered = np.zeros(shape, bool)
+        for part in parts:
+            ext = part.extents or ((0, None),) * len(shape)
+            if len(ext) != len(shape):
+                raise ValueError(f"{name}: a slice of rank {len(ext)} in a tensor of rank "
+                                 f"{len(shape)}")
+            region = tuple(slice(0, d) if n is None else slice(a, a + n)
+                           for (a, n), d in zip(ext, shape))
+            vals = _v1_values(name, dtype, part.data)
+            if vals.size != covered[region].size or covered[region].any():
+                raise ValueError(f"{name}: a slice of {vals.size} values does not fit "
+                                 f"{region} or overlaps another")
+            out[region] = vals.reshape(covered[region].shape)
+            covered[region] = True
+        if not covered.all():
+            raise IOError(f"{self.prefix}: {name} is not covered by its slices")
+        return out
+
+
+# ---------------------------------------------------------------------------
 # slim warm start and export (the reference's functions, in port names)
 # ---------------------------------------------------------------------------
 
@@ -409,8 +566,9 @@ def load_slim_checkpoint(ckpt_path: str, root_scope: str = "InceptionV3",
     Keys outside ``root_scope`` and optimizer slots are skipped; so are
     scopes in ``exclude_scopes``, matched on path-segment boundaries (as
     slim's ``get_variables_to_restore(exclude=...)``: excluding ``Logits``
-    keeps ``AuxLogits``)."""
-    reader = BundleReader(ckpt_path)
+    keeps ``AuxLogits``).  Reads V2 bundles and V1 checkpoints
+    (:func:`load_checkpoint`)."""
+    reader = load_checkpoint(ckpt_path)
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     prefix = root_scope + "/"
     for key in sorted(reader.get_variable_to_shape_map()):

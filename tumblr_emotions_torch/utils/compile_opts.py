@@ -1,5 +1,6 @@
-"""Serve a program as one captured CUDA graph per input signature, with
-options, their environment override and an autotuner.
+"""Run a program as one captured CUDA graph per input signature, with
+options, their environment overrides and an autotuner: the served programs
+and the trainer's steps.
 
 The port's counterpart of ``tumblr_emotions_tpu/utils/compile_opts.py``.
 The JAX package serves every program through ``tpu_jit``: one compiled XLA
@@ -18,8 +19,20 @@ A graph replays the same kernels on the same operands as the eager program,
 so every option leaves the answers bit-equal (the reference's standard for
 its option ladder: bit-identical logits).  ``TET_TORCH_COMPILER_OPTIONS``
 (a JSON object, e.g. the winner ``cli tune`` prints) overrides the default
-for every call site; ``{}`` is the plain program, as in the reference.  The
-JAX package's ``TET_COMPILER_OPTIONS`` carries XLA flags and is not read.
+for every served program; ``{}`` is the plain program, as in the reference.
+The trainer's steps read ``TET_TORCH_TRAIN_COMPILER_OPTIONS`` instead
+(:func:`train_default_options`, the counterpart of the reference's
+``TET_TRAIN_COMPILER_OPTIONS``), with the same rules and options.  The JAX
+package's ``TET_COMPILER_OPTIONS`` and ``TET_TRAIN_COMPILER_OPTIONS`` carry
+XLA flags and are not read.
+
+A train step updates state the program does not take as an input (the
+parameters, the optimizer's moments, the BN statistics): its graph updates
+those tensors in place at the addresses it was captured on, so a caller
+that comes to hold the state elsewhere drops the graphs
+(:meth:`Captured.clear`); its random draws come from ``generators``,
+registered with every graph, so a replay draws from each generator's seed
+and offset at the time of the replay.
 
 A capture that fails raises: there is no quiet fallback to the eager
 program, which would hide the graph's absence behind the same answers.
@@ -27,6 +40,7 @@ program, which would hide the graph's absence behind the same answers.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -43,6 +57,7 @@ from tumblr_emotions_torch._device import resolve_device
 log = logging.getLogger("tumblr_emotions_torch")
 
 ENV_VAR = "TET_TORCH_COMPILER_OPTIONS"
+TRAIN_ENV_VAR = "TET_TORCH_TRAIN_COMPILER_OPTIONS"
 # Option name -> the values it takes.
 OPTIONS: Dict[str, Sequence[str]] = {"cuda_graph": ("true", "false")}
 DEFAULT_OPTIONS: Dict[str, str] = {"cuda_graph": "true"}
@@ -55,6 +70,13 @@ def default_options() -> Dict[str, str]:
     """The options :func:`capture` applies when none are passed:
     ``TET_TORCH_COMPILER_OPTIONS`` if set, else :data:`DEFAULT_OPTIONS`."""
     return _options_from_env(ENV_VAR, DEFAULT_OPTIONS)
+
+
+def train_default_options() -> Dict[str, str]:
+    """The options of the trainer's captured steps (``Trainer.compile``):
+    ``TET_TORCH_TRAIN_COMPILER_OPTIONS`` if set, else :data:`DEFAULT_OPTIONS`
+    (the serving variable does not reach them, as in the reference)."""
+    return _options_from_env(TRAIN_ENV_VAR, DEFAULT_OPTIONS)
 
 
 def _options_from_env(var: str, default: Dict[str, str]) -> Dict[str, str]:
@@ -173,10 +195,13 @@ class _Graph:
 class Captured:
     """``fn`` served through CUDA graphs on ``device`` (see :func:`capture`)."""
 
-    def __init__(self, fn: Callable, options: Dict[str, str], device: torch.device):
+    def __init__(self, fn: Callable, options: Dict[str, str], device: torch.device,
+                 inference: bool = True, generators: Sequence[torch.Generator] = ()):
         self.fn = fn
         self.options = options
         self.device = device
+        self.inference = inference
+        self.generators = tuple(generators)
         self.graphed = device.type == "cuda" and options.get("cuda_graph") == "true"
         self._graphs: Dict[tuple, _Graph] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
@@ -187,6 +212,14 @@ class Captured:
     def _cache_size(self) -> int:
         return len(self._graphs)
 
+    def clear(self) -> None:
+        """Drop every graph (the next call of each signature captures again)."""
+        with self._lock:
+            self._graphs.clear()
+
+    def _mode(self):
+        return torch.inference_mode() if self.inference else contextlib.nullcontext()
+
     def kernel_nodes(self) -> List[Dict[str, int]]:
         """Per captured signature, in capture order: its graph's kernel
         nodes by kernel function name (what each replay launches) and its
@@ -194,15 +227,15 @@ class Captured:
         return [{"kernels": _graph_kernels(g.graph.raw_cuda_graph()), "replays": g.replays}
                 for g in self._graphs.values()]
 
-    def __call__(self, *args):
+    def __call__(self, *args, key: Any = ()):
         if not self.graphed:
-            with torch.inference_mode():
+            with self._mode():
                 return self.fn(*[_to_device(a, self.device) for a in args])
-        with self._lock, torch.inference_mode():
+        with self._lock, self._mode():
             stream = torch.cuda.current_stream(self.device)
             if self._done is not None:
                 stream.wait_event(self._done)
-            key = _signature(args)
+            key = (key, _signature(args))
             g = self._graphs.get(key)
             if g is None:
                 out = self._capture(key, args)
@@ -263,6 +296,8 @@ class Captured:
         # the graph itself is kept beside its executable form, so that
         # ``kernel_nodes`` can read what it launches
         graph = torch.cuda.CUDAGraph(keep_graph=True)
+        for gen in self.generators:
+            graph.register_generator_state(gen)
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             g.static_out = self.fn(*static_in)
         graph.instantiate()
@@ -272,7 +307,8 @@ class Captured:
 
 
 def capture(fn: Callable, *, options: Optional[Dict[str, str]] = None,
-            device="cuda") -> Captured:
+            device="cuda", inference: bool = True,
+            generators: Sequence[torch.Generator] = ()) -> Captured:
     """``fn`` (inputs: tensors, numpy arrays or None; outputs: tensors in
     tuples, lists or dicts) as one CUDA graph per input signature on
     ``device``: the counterpart of the reference's ``tpu_jit``.
@@ -289,13 +325,22 @@ def capture(fn: Callable, *, options: Optional[Dict[str, str]] = None,
     them) nor a replay's; ``.kernel_nodes()`` reads each graph's kernels
     and replays.
 
+    ``key`` (a keyword of the call, hashable) adds to the signature what
+    else the graph depends on (a train step's batch names).  ``inference``: run ``fn`` under
+    ``torch.inference_mode`` (the served programs); False for a program
+    that runs autograd or whose outputs feed tensors outside it (the
+    trainer's steps).  ``generators``: the generators ``fn`` draws from,
+    registered with each graph, so that a replay draws from each one's seed
+    and offset at the time of the replay (reseed one before a call to
+    repeat the eager call's draws), not the capture's.
+
     ``options`` default to :func:`default_options`; an unknown option is a
     ``ValueError``.  On the CPU (which the caller asks for), or with
     ``cuda_graph`` off, ``fn`` runs eagerly on the inputs moved to
     ``device``.  ``._cache_size()`` counts the graphs.
     """
     opts = check_options(default_options() if options is None else options)
-    return Captured(fn, opts, resolve_device(device))
+    return Captured(fn, opts, resolve_device(device), inference, generators)
 
 
 def _finish(device: torch.device) -> None:
@@ -317,7 +362,7 @@ def autotune(fn: Callable, example_args: Sequence[Any], *,
              cache_path: Optional[str] = None,
              key: Optional[str] = None,
              on_result: Optional[Callable[[Dict[str, str], float], None]] = None,
-             device=None) -> Dict[str, str]:
+             device=None, **capture_kwargs) -> Dict[str, str]:
     """Time each candidate option set for ``fn`` on ``example_args`` and
     return the fastest, with the reference's semantics.
 
@@ -325,7 +370,9 @@ def autotune(fn: Callable, example_args: Sequence[Any], *,
     is served through :func:`capture` (``device``: the card, or the first
     tensor argument's device), called once (warm-up and capture), then timed
     over ``repeats`` windows of ``steps`` calls, each window ended by a
-    synchronise; its time is the windows' median.  A candidate with an
+    synchronise; its time is the windows' median.  ``capture_kwargs`` go
+    to :func:`capture` (a train step's: ``inference=False`` and its
+    ``generators``).  A candidate with an
     unknown option, or whose first call raises, is skipped and logged.
     ``on_result(options, seconds)`` gets each timed candidate.
 
@@ -359,7 +406,7 @@ def autotune(fn: Callable, example_args: Sequence[Any], *,
     best_t = float("inf")
     for opts in cands:
         try:
-            program = capture(fn, options=opts, device=dev)
+            program = capture(fn, options=opts, device=dev, **capture_kwargs)
             program(*example_args)
             _finish(dev)
         except Exception as e:  # noqa: BLE001 -- a candidate that cannot run
