@@ -254,6 +254,7 @@ HOST_SIZE = 347
 HTTP_PROB_TOL = 1e-5
 PREDICT_TOL = 1e-5
 FIXTURES = "tests/data/jpeg"
+DCT_METHODS = ("islow", "ifast", "float")
 
 # Training (train_joint, train_image_frozen, train_text).  The card's step
 # against the same step on the CPU: the loss is a forward pass, f32 with TF32
@@ -976,24 +977,45 @@ def http_phase(dev, smi, calib):
     from tumblr_emotions_torch.train.predict import Predictor
     from tumblr_emotions_torch.utils.compile_opts import capture
 
-    # ---- the fixtures decode and resize here as the reference does ----
+    # ---- the fixtures and their arithmetic, crafted and corrupt variants
+    # decode here, under every dct_method, as the reference does (or are
+    # refused where it refuses them), and resize as PIL does ----
     root = Path(__file__).resolve().parent / FIXTURES
     manifest = _json.loads((root / "manifest.json").read_text())
-    names = sorted(manifest["files"])
-    bodies = [(root / n).read_bytes() for n in names]
+    entries = {**manifest["files"], **manifest["variants"]}
+    every = sorted(entries)
+    body_of = {n: (root / n).read_bytes() for n in every}
+    refused = [n for n in every if entries[n].get("refused")]
+    names = [n for n in every if not entries[n].get("refused")]
+    bodies = [body_of[n] for n in names]
 
     def sha(a):
         return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
-    decoded = {}
-    for name, body in zip(names, bodies):
-        img = jpeg.decode(body)
-        want = manifest["files"][name]
-        if sha(img) != want["decode_sha256"]:
-            fail(f"e2e_http: {name} decodes to another image than the reference's")
-        decoded[name] = _host_resize_uint8(img, HOST_SIZE)
-        if sha(decoded[name]) != want["resize_347_sha256"]:
-            fail(f"e2e_http: {name}'s {HOST_SIZE} px resize is not PIL's")
+    decoded, checked = {}, 0
+    for name in every:
+        want = entries[name]
+        for method in DCT_METHODS:
+            try:
+                img = jpeg.decode(body_of[name], dct_method=method)
+            except ValueError as e:
+                if not want.get("refused"):
+                    fail(f"e2e_http: {name} refused under {method} ({e}); the reference "
+                         f"decodes it")
+                checked += 1
+                continue
+            if want.get("refused"):
+                fail(f"e2e_http: {name} decodes under {method}; the reference refuses it")
+            if sha(img) != want["decode_sha256_by_method"][method]:
+                fail(f"e2e_http: {name} decodes under {method} to another image than the "
+                     f"reference's")
+            checked += 1
+            if method == "islow":
+                decoded[name] = _host_resize_uint8(img, HOST_SIZE)
+                if sha(decoded[name]) != want["resize_347_sha256"]:
+                    fail(f"e2e_http: {name}'s {HOST_SIZE} px resize is not PIL's")
+    host_decode_rates(smi, [body_of[n] for n in sorted(manifest["files"])],
+                      [body_of[n] for n in names if n.startswith("arith/")], checked)
 
     # ---- the served program: joint_finetune at full width, int8 tower ----
     rng = np.random.RandomState(SEED + 2)
@@ -1093,9 +1115,11 @@ def http_phase(dev, smi, calib):
         wave([(i, bodies[pick[i]], captions[i]) for i in range(n_posts)])
         wall = time.perf_counter() - t
         stats = get("/stats")
-        # A corrupt body among 15 good posts: its own 400, their answers.
-        extra = [(n_posts, b"\xff\xd8\xff\xdb corrupt", "sad")] + [
-            (n_posts + 1 + k, bodies[pick[k]], captions[k]) for k in range(15)]
+        # The bodies both decoders refuse among 15 good posts: their own
+        # 400s, the good posts their answers.
+        bad = [b"\xff\xd8\xff\xdb corrupt"] + [body_of[n] for n in refused]
+        extra = [(n_posts + j, body, "sad") for j, body in enumerate(bad)] + [
+            (n_posts + len(bad) + k, bodies[pick[k]], captions[k]) for k in range(15)]
         wave(extra)
         torch.cuda.synchronize()
         launches = all_launches()
@@ -1116,12 +1140,14 @@ def http_phase(dev, smi, calib):
         fail(f"e2e_http: /healthz {health}")
     if stats["batches"] < 3 or stats["errors"] or stats["responses"] != n_posts:
         fail(f"e2e_http: /stats after {n_posts} posts: {stats}")
-    if results[n_posts][0] != 400 or stats2["errors"] != 1:
-        fail(f"e2e_http: corrupt body answered {results[n_posts]}, /stats {stats2}")
+    bad_status = [results[n_posts + j][0] for j in range(len(bad))]
+    if any(st != 400 for st in bad_status) or stats2["errors"] != len(bad):
+        fail(f"e2e_http: refused bodies answered {bad_status}, /stats {stats2}")
 
-    # ---- every answer against the in-process runner on the same inputs ----
+    # ---- every answer against the in-process runner on the same inputs
+    # (the manifest-verified decode of each post, corrupt ones included) ----
     jobs = [(i, pick[i], captions[i]) for i in range(n_posts)] + \
-        [(n_posts + 1 + k, pick[k], captions[k]) for k in range(15)]
+        [(n_posts + len(bad) + k, pick[k], captions[k]) for k in range(15)]
     worst, agree = 0.0, 0
     for s in range(0, len(jobs), BATCH):
         chunk = jobs[s:s + BATCH]
@@ -1204,6 +1230,9 @@ def http_phase(dev, smi, calib):
           "vocab": vocab.size, "embed": cfg.text.embed_dim, "max_len": cfg.text.max_len,
           "batch": BATCH, "host_size": HOST_SIZE, "posts": n_posts, "clients": HTTP_CLIENTS,
           "max_delay_ms": HTTP_MAX_DELAY_MS, "fixtures": len(names),
+          "posted_variants": sum(names[f].startswith(("arith/", "corrupt/", "crafted/"))
+                                 for f in pick),
+          "refused_bodies_400": len(bad), "decodes_checked_against_manifest": checked,
           "fixture_hashes_equal_manifest": True, "setup_s": setup_s,
           "posts_per_s": n_posts / wall, "wall_s": wall, "stats": stats,
           "client_latency_ms": {p: 1e3 * q for p, q in zip(
@@ -1217,7 +1246,7 @@ def http_phase(dev, smi, calib):
           "stats_after_corrupt": stats2, "healthz": health, "device_batches": forwards,
           "launches": launches, "captured_program": captured, "answers_checked": agree,
           "prob_max_abs_diff_vs_in_process": worst, "prob_tol": HTTP_PROB_TOL,
-          "corrupt_body_status": results[n_posts][0],
+          "refused_body_status": bad_status,
           "predictor_max_abs_diff_vs_parity": pdiff, "predictor_tol": PREDICT_TOL,
           "predictor_cost": predictor_cost,
           "host_decode_resize_img_s_8_threads": rates,
@@ -1225,6 +1254,31 @@ def http_phase(dev, smi, calib):
           "host_has_jpeglib_h": os.path.exists("/usr/include/jpeglib.h"),
           "card": smi})
     return launches
+
+
+def host_decode_rates(smi, huffman, arith, checked):
+    """The host decoder's img/s at 8 threads (decode only, no resize): the
+    Huffman fixtures under each dct_method, and the arithmetic-coded ones;
+    the best of three calls over about 200 images."""
+    from tumblr_emotions_torch.data import jpeg
+
+    def rate(datas, method):
+        jpeg.decode_batch(datas, dct_method=method, num_threads=8)
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            jpeg.decode_batch(datas, dct_method=method, num_threads=8)
+            runs.append(len(datas) / (time.perf_counter() - t))
+        return runs
+
+    huffman = huffman * (-(-200 // len(huffman)))
+    arith = arith * (-(-200 // len(arith)))
+    rates = {m: rate(huffman, m) for m in DCT_METHODS}
+    rates["arith_islow"] = rate(arith, "islow")
+    emit({"phase": "host_decode", "threads": 8, "images": len(huffman),
+          "arith_images": len(arith), "img_s": rates,
+          "best_img_s": {k: max(v) for k, v in rates.items()},
+          "decodes_checked_against_manifest": checked, "card": smi})
 
 
 def tower_macs(cfg) -> float:
@@ -1622,7 +1676,39 @@ def divisions_phase(dev, smi, state):
     if out["adam"]["differ"] or out["sqrt"]["correctly_rounded_differ"]:
         fail(f"divisions: Adam's update on the card differs from the CPU's: {out['adam']}, "
              f"{out['sqrt']}")
+    out["dropout"] = dropout_row(dev, rng)
+    if out["dropout"]["f32_differ"] or out["dropout"]["bf16_differ"]:
+        fail(f"divisions: Dropout on the card differs from the CPU's: {out['dropout']}")
     emit({"phase": "divisions", **out, "card": smi})
+
+
+def dropout_row(dev, rng) -> dict:
+    """Dropout (keep 0.8) on one fixed uniform draw, f32 and bf16, the card
+    against the CPU: the port's form (a product with the f32 reciprocal, as
+    the reference's jitted step computes it) and, beside it, the old form
+    (``x / keep_prob`` by a Python float: the CPU divides, the card
+    multiplies by the reciprocal)."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch.models.layers import Dropout
+
+    x = torch.from_numpy((rng.normal(size=(64, 1, 1, 2048)) * 4).astype(np.float32))
+    u = torch.from_numpy(rng.uniform(size=x.shape).astype(np.float32))
+    row = {"elements": x.numel(), "keep_prob": 0.8}
+    drop = Dropout(0.8).train()
+    with mock.patch.object(torch, "rand", lambda *a, device=None, **k: u.to(device)):
+        for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            xd = x.to(dtype)
+            cpu, card = drop(xd), drop(xd.to(dev)).cpu()
+            row[f"{key}_differ"] = int((cpu != card).sum())
+            old_cpu = torch.where(u < 0.8, xd / 0.8, torch.zeros((), dtype=dtype))
+            old_card = torch.where(u.to(dev) < 0.8, xd.to(dev) / 0.8,
+                                   torch.zeros((), dtype=dtype, device=dev)).cpu()
+            row[f"{key}_old_form_differ"] = int((old_cpu != old_card).sum())
+    return row
 
 
 @contextlib.contextmanager

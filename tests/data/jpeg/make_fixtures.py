@@ -11,21 +11,41 @@ encoder here (float DCT, the standard Huffman tables taken from a PIL file)
 writes 4:4:0 (h1v2), 4:1:1, mixed chroma factors, grayscale with 2x2
 factors and an RGB (no colour transform) file.
 
-``manifest.json`` records, per file, its layout, the sha256 of the JAX
-package's decode (``tumblr_emotions_tpu.data.jpeg.decode``, libjpeg, islow,
-fancy upsampling) and the sha256 of PIL's BILINEAR resize of that decode to
-347x347 (``tumblr_emotions_tpu.data.pipeline._host_resize_uint8``).  The
-port's tests and ``chip_smoke.py`` hold the port's decoder and resize to
-these hashes.  This is the one file that imports PIL and the JAX package.
+Beside them, in subdirectories (so the tests that take every ``*.jpg`` of
+this directory as a data set keep theirs):
+
+- ``arith/``: arithmetic-coded files (sequential 4:2:0, 4:4:4 with restarts
+  and DAC conditioning, progressive 4:2:0, grayscale), transcoded from the
+  fixtures above with ``arith_code`` set, as ``jpegtran -arithmetic`` does,
+  by a small C helper compiled here against this machine's ``jpeglib.h``;
+- ``crafted/``: coefficients and quantizers that overflow the 16-bit SIMD
+  IDCTs, a sequential file without DHT (the standard tables), and a stray
+  FF in a scan (libjpeg's fast Huffman path and its fall-back);
+- ``corrupt/``: a seeded set of corrupt variants of the fixtures: cuts
+  inside the scans, no EOI, removed and duplicated restart markers, garbage
+  before markers, byte flips, and forms the reference refuses.
+
+``manifest.json`` records, per file, its layout and either that the JAX
+package's decoder (``tumblr_emotions_tpu.data.jpeg.decode``, libjpeg-turbo,
+fancy upsampling) refuses it, or the sha256 of its decode under each
+``dct_method`` (``decode_sha256`` is islow's) and of PIL's BILINEAR resize of
+the islow decode to 347x347
+(``tumblr_emotions_tpu.data.pipeline._host_resize_uint8``).  The port's
+tests and ``chip_smoke.py`` hold the port's decoder and resize to these
+hashes.  This is the one file that imports PIL and the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import io
 import json
 import math
+import re
+import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +58,8 @@ from tumblr_emotions_tpu.data import jpeg as ref_jpeg  # noqa: E402
 from tumblr_emotions_tpu.data.pipeline import _host_resize_uint8  # noqa: E402
 
 HOST_SIZE = 347
+METHODS = ("islow", "ifast", "float")
+SUBDIRS = ("arith", "crafted", "corrupt")
 NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
            41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15,
            23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63]
@@ -269,25 +291,271 @@ def fixtures():
     return out
 
 
+# ---- transcoding with libjpeg (arithmetic coding, crafted coefficients) ----
+
+HELPER = r"""
+#include <setjmp.h>
+#include <stdio.h>
+#include <stdlib.h>
+#include <string.h>
+#include <jpeglib.h>
+
+struct err { struct jpeg_error_mgr pub; jmp_buf jb; };
+static void on_error(j_common_ptr c) { longjmp(((struct err*)c->err)->jb, 1); }
+static void quiet(j_common_ptr c, int l) { (void)c; (void)l; }
+
+/* Rewrite a JPEG's coefficients, as jpegtran does: arith sets arith_code,
+   progressive the standard progression, restart_rows a restart interval,
+   dac (L, U, K) the arithmetic conditioning of every table; coefs, when
+   given, replaces every block (component by component, row by row, 64
+   quantized values in natural order) and quant every nonzero quantizer
+   (table slot by slot).  Returns 0 and a malloc'd buffer. */
+int transcode(const unsigned char* in, unsigned long insize, int arith, int progressive,
+              int restart_rows, const int* dac, const short* coefs,
+              const unsigned short* quant, unsigned char** out, unsigned long* outsize) {
+  struct jpeg_decompress_struct src;
+  struct jpeg_compress_struct dst;
+  struct err e1, e2;
+  src.err = jpeg_std_error(&e1.pub);
+  e1.pub.error_exit = on_error;
+  e1.pub.emit_message = quiet;
+  dst.err = jpeg_std_error(&e2.pub);
+  e2.pub.error_exit = on_error;
+  e2.pub.emit_message = quiet;
+  *out = NULL;
+  *outsize = 0;
+  jpeg_create_decompress(&src);
+  jpeg_create_compress(&dst);
+  if (setjmp(e1.jb) || setjmp(e2.jb)) {
+    jpeg_destroy_decompress(&src);
+    jpeg_destroy_compress(&dst);
+    return 1;
+  }
+  jpeg_mem_src(&src, (unsigned char*)in, insize);
+  jpeg_read_header(&src, TRUE);
+  jvirt_barray_ptr* arrays = jpeg_read_coefficients(&src);
+  jpeg_copy_critical_parameters(&src, &dst);
+  if (quant)
+    for (int t = 0; t < 4; t++)
+      if (dst.quant_tbl_ptrs[t])
+        for (int k = 0; k < 64; k++)
+          if (quant[t * 64 + k]) dst.quant_tbl_ptrs[t]->quantval[k] = quant[t * 64 + k];
+  if (coefs) {
+    long at = 0;
+    for (int ci = 0; ci < src.num_components; ci++) {
+      jpeg_component_info* c = &src.comp_info[ci];
+      for (JDIMENSION r = 0; r < c->height_in_blocks; r++) {
+        JBLOCKARRAY row = (*src.mem->access_virt_barray)((j_common_ptr)&src, arrays[ci], r, 1,
+                                                          TRUE);
+        for (JDIMENSION b = 0; b < c->width_in_blocks; b++, at += 64)
+          memcpy(row[0][b], coefs + at, 64 * sizeof(short));
+      }
+    }
+  }
+  dst.arith_code = arith ? TRUE : FALSE;
+  dst.optimize_coding = arith ? FALSE : TRUE;
+  if (dac)
+    for (int t = 0; t < 16; t++) {
+      dst.arith_dc_L[t] = (UINT8)dac[0];
+      dst.arith_dc_U[t] = (UINT8)dac[1];
+      dst.arith_ac_K[t] = (UINT8)dac[2];
+    }
+  if (progressive) jpeg_simple_progression(&dst);
+  dst.restart_in_rows = restart_rows;
+  jpeg_mem_dest(&dst, out, outsize);
+  jpeg_write_coefficients(&dst, arrays);
+  jpeg_finish_compress(&dst);
+  jpeg_destroy_compress(&dst);
+  jpeg_finish_decompress(&src);
+  jpeg_destroy_decompress(&src);
+  return 0;
+}
+
+void release(unsigned char* p) { free(p); }
+"""
+
+
+def helper(tmp: Path) -> ctypes.CDLL:
+    """The transcoding helper, compiled against this machine's libjpeg."""
+    (tmp / "transcode.c").write_text(HELPER)
+    subprocess.run(["cc", "-O2", "-shared", "-fPIC", "-o", str(tmp / "libtranscode.so"),
+                    str(tmp / "transcode.c"), "-ljpeg"], check=True)
+    lib = ctypes.CDLL(str(tmp / "libtranscode.so"))
+    p = ctypes.c_void_p
+    lib.transcode.argtypes = [ctypes.c_char_p, ctypes.c_ulong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, p, p, p, ctypes.POINTER(p),
+                              ctypes.POINTER(ctypes.c_ulong)]
+    lib.release.argtypes = [p]
+    return lib
+
+
+def transcode(lib, data: bytes, arith=False, progressive=False, restart_rows=0, dac=None,
+              coefs=None, quant=None) -> bytes:
+    out, size = ctypes.c_void_p(), ctypes.c_ulong()
+    dac_a = None if dac is None else np.asarray(dac, np.int32)
+    args = [None if a is None else a.ctypes.data for a in (dac_a, coefs, quant)]
+    if lib.transcode(data, len(data), int(arith), int(progressive), restart_rows, *args,
+                     ctypes.byref(out), ctypes.byref(size)):
+        raise RuntimeError("libjpeg refused the transcode")
+    body = ctypes.string_at(out, size.value)
+    lib.release(out)
+    return body
+
+
+def blocks_of(data: bytes) -> int:
+    """Blocks of every component (width_in_blocks x height_in_blocks)."""
+    m = next((m, p) for m, p in segments(data) if m in (0xC0, 0xC1, 0xC2))[1]
+    h, w, n = int.from_bytes(m[1:3], "big"), int.from_bytes(m[3:5], "big"), m[5]
+    hv = [(m[7 + 3 * k] >> 4, m[7 + 3 * k] & 15) for k in range(n)]
+    hmax, vmax = max(a for a, _ in hv), max(b for _, b in hv)
+    return sum(math.ceil(math.ceil(w * a / hmax) / 8) * math.ceil(math.ceil(h * b / vmax) / 8)
+               for a, b in hv)
+
+
+def coded(lib, base):
+    """The arithmetic-coded and crafted files, from the fixtures ``base``."""
+    rng = np.random.RandomState(1)
+    out = {
+        "arith/seq_420_96x80.jpg": ("arithmetic sequential 4:2:0", transcode(
+            lib, base["restart4_420_96x80.jpg"], arith=True)),
+        "arith/seq_444_restart_dac_64x48.jpg": (
+            "arithmetic sequential 4:4:4, restart every MCU row, DAC conditioning "
+            "(L=1, U=4, K=10)", transcode(lib, base["baseline_444_64x48.jpg"], arith=True,
+                                          restart_rows=1, dac=(1, 4, 10))),
+        "arith/progressive_420_161x97.jpg": ("arithmetic progressive 4:2:0", transcode(
+            lib, base["progressive_420_161x97.jpg"], arith=True, progressive=True)),
+        "arith/gray_31x23.jpg": ("arithmetic sequential grayscale", transcode(
+            lib, base["gray_31x23.jpg"], arith=True)),
+    }
+    gray = base["gray_31x23.jpg"]
+    coefs = rng.randint(-1023, 1024, blocks_of(gray) * 64).astype(np.int16)
+    coefs.reshape(-1, 64)[::3, 8:] = 0                # some blocks DC-row only
+    coefs.reshape(-1, 64)[:, 0] = rng.randint(-1000, 1000, blocks_of(gray))
+    quant = rng.randint(1, 65536, 256).astype(np.uint16)
+    out["crafted/extreme_coefficients_gray_31x23.jpg"] = (
+        "huge coefficients and 16-bit quantizers: the SIMD IDCTs' 16-bit wrap and "
+        "saturation", transcode(lib, gray, coefs=coefs, quant=quant))
+    out["crafted/extreme_coefficients_420_17x9.jpg"] = (
+        "huge coefficients and 8-bit quantizers, 4:2:0", transcode(
+            lib, base["odd_420_17x9.jpg"], quant=rng.randint(100, 256, 256).astype(np.uint16),
+            coefs=rng.randint(-400, 400, blocks_of(base["odd_420_17x9.jpg"]) * 64)
+            .astype(np.int16)))
+    d = base["baseline_444_64x48.jpg"]
+    j = d.index(b"\xff\x00", scan_span(d)[0])
+    out["crafted/stray_ff_444_64x48.jpg"] = (
+        "an FF inserted before an FF 00 of the scan: libjpeg's fast Huffman path reads a "
+        "marker there and the slow path decodes the MCU again over its writes",
+        d[:j] + b"\xff" + d[j:])
+    d = base["baseline_422_57x41.jpg"]
+    for m, p in list(segments(d)):
+        if m == 0xC4:
+            d = d.replace(b"\xff\xc4" + (len(p) + 2).to_bytes(2, "big") + p, b"", 1)
+    out["crafted/no_dht_422_57x41.jpg"] = (
+        "baseline 4:2:2 without DHT: the standard Huffman tables", d)
+    return out
+
+
+def scan_span(data: bytes):
+    """(start, end) of the entropy-coded data after the first SOS."""
+    i = data.index(b"\xff\xda")
+    return i + 2 + int.from_bytes(data[i + 2:i + 4], "big"), len(data) - 2
+
+
+def corrupt(files):
+    """Seeded corrupt variants of ``files``: {name: (layout, bytes)}."""
+    rng = np.random.RandomState(2)
+    out = {}
+
+    def add(name, layout, body):
+        out["corrupt/" + name] = (layout, bytes(body))
+
+    for src, stem in (("restart4_420_96x80.jpg", "restart4_420"),
+                      ("progressive_420_161x97.jpg", "progressive_420"),
+                      ("arith/progressive_420_161x97.jpg", "arith_progressive_420"),
+                      ("h1v2_440_37x29.jpg", "h1v2_440")):
+        d = files[src][1]
+        s, e = scan_span(d)
+        for frac in (0.3, 0.75):
+            add(f"{stem}_cut{int(frac * 100)}.jpg", f"{src} cut at {frac:.0%} of its data",
+                d[:s + int((e - s) * frac)])
+    for src, stem in (("baseline_422_57x41.jpg", "baseline_422"),
+                      ("arith/seq_420_96x80.jpg", "arith_seq_420")):
+        add(f"{stem}_no_eoi.jpg", f"{src} without its EOI", files[src][1][:-2])
+    for src, stem in (("restart4_420_96x80.jpg", "restart4_420"),
+                      ("gray_progressive_restart_40x24.jpg", "gray_progressive_restart"),
+                      ("arith/seq_444_restart_dac_64x48.jpg", "arith_seq_444_restart")):
+        d = files[src][1]
+        rst = [m.start() for m in re.finditer(b"\xff[\xd0-\xd7]", d)]
+        i = rst[len(rst) // 2]
+        add(f"{stem}_rst_removed.jpg", f"{src} with a restart marker removed", d[:i] + d[i + 2:])
+        i = rst[len(rst) // 3]
+        add(f"{stem}_rst_duplicated.jpg", f"{src} with a restart marker duplicated",
+            d[:i] + d[i:i + 2] + d[i:])
+    for src, stem in (("baseline_444_64x48.jpg", "baseline_444"),
+                      ("progressive_444_49x35.jpg", "progressive_444")):
+        d = files[src][1]
+        marks = [m.start() for m in re.finditer(b"\xff[\xc4\xda\xd9]", d)]
+        for k, i in enumerate((marks[len(marks) // 2], marks[-1])):
+            junk = bytes(rng.randint(0, 255, 5).astype(np.uint8))
+            add(f"{stem}_garbage{k}.jpg", f"{src} with bytes before a marker",
+                d[:i] + junk + d[i:])
+    for src, stem in (("restart4_420_96x80.jpg", "restart4_420"),
+                      ("mixed_y22_cb12_cr21_33x19.jpg", "mixed"),
+                      ("arith/gray_31x23.jpg", "arith_gray")):
+        d = bytearray(files[src][1])
+        s, e = scan_span(bytes(d))
+        for _ in range(3):
+            d[rng.randint(s, e)] ^= 1 << rng.randint(8)
+        add(f"{stem}_flipped.jpg", f"{src} with three bits of its data flipped", d)
+    base = files["baseline_444_64x48.jpg"][1]
+    add("refused_cut_in_headers.jpg", "baseline_444_64x48.jpg cut inside its headers",
+        base[:120])
+    sof = base.index(b"\xff\xc0")
+    add("refused_lossless.jpg", "baseline_444_64x48.jpg marked lossless (SOF3)",
+        base[:sof + 1] + b"\xc3" + base[sof + 2:])
+    add("refused_12bit.jpg", "baseline_444_64x48.jpg marked 12-bit",
+        base[:sof + 4] + b"\x0c" + base[sof + 5:])
+    return out
+
+
 def sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def entry(layout: str, data: bytes) -> dict:
+    try:
+        img = ref_jpeg.decode(data)
+    except ValueError:
+        return {"layout": layout, "refused": True}
+    by_method = {m: sha(ref_jpeg.decode(data, dct_method=m)) for m in METHODS}
+    return {"layout": layout, "shape": list(img.shape), "decode_sha256": by_method["islow"],
+            "decode_sha256_by_method": by_method,
+            "resize_347_sha256": sha(_host_resize_uint8(img, HOST_SIZE))}
+
+
 def main():
-    manifest = {"host_size": HOST_SIZE, "files": {}}
+    manifest = {"host_size": HOST_SIZE, "files": {}, "variants": {}}
     for old in HERE.glob("*.jpg"):
         old.unlink()
-    for name, (layout, data) in fixtures().items():
+    for sub in SUBDIRS:
+        (HERE / sub).mkdir(exist_ok=True)
+        for old in (HERE / sub).glob("*.jpg"):
+            old.unlink()
+    files = fixtures()
+    for name, (layout, data) in files.items():
         (HERE / name).write_bytes(data)
-        img = ref_jpeg.decode(data)
-        manifest["files"][name] = {
-            "layout": layout, "shape": list(img.shape),
-            "decode_sha256": sha(img),
-            "resize_347_sha256": sha(_host_resize_uint8(img, HOST_SIZE)),
-        }
+        manifest["files"][name] = entry(layout, data)
+    with tempfile.TemporaryDirectory() as tmp:
+        more = coded(helper(Path(tmp)), {n: d for n, (_, d) in files.items()})
+    files.update(more)
+    more.update(corrupt(files))
+    for name, (layout, data) in more.items():
+        (HERE / name).write_bytes(data)
+        manifest["variants"][name] = entry(layout, data)
     (HERE / "manifest.json").write_text(json.dumps(manifest, indent=1, sort_keys=True) + "\n")
-    total = sum(p.stat().st_size for p in HERE.iterdir())
-    print(f"{len(manifest['files'])} fixtures, {total} bytes in {HERE}")
+    sizes = [p.stat().st_size for sub in SUBDIRS for p in (HERE / sub).glob("*.jpg")]
+    print(f"{len(manifest['files'])} fixtures and {len(manifest['variants'])} variants "
+          f"({sum(sizes)} bytes in the subdirectories)")
 
 
 if __name__ == "__main__":

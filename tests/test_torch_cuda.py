@@ -1514,3 +1514,18 @@ def test_v1_fixture_warm_starts_a_model_on_the_card(dev):
         np.testing.assert_array_equal(
             warm[key].cpu().numpy(),
             convert.to_port_leaf(tuple(name.split("/")[1:]), want[name]).numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_on_the_card_is_the_cpu_bit_for_bit(dev, dtype, monkeypatch):
+    """The port's Dropout (f32, and bf16 as perf mode runs it) on one draw:
+    the card's output bit-equal to the CPU's."""
+    from tumblr_emotions_torch.models.layers import Dropout
+
+    gen = torch.Generator().manual_seed(0)
+    x = (torch.randn(64, 1, 1, 2048, generator=gen) * 4).to(getattr(torch, dtype))
+    u = torch.rand(x.shape, generator=gen)
+    monkeypatch.setattr(torch, "rand", lambda *a, device=None, **k: u.to(device))
+    drop = Dropout(0.8).train()
+    cpu, card = drop(x), drop(x.to(dev)).cpu()
+    assert card.dtype == cpu.dtype and torch.equal(card, cpu)

@@ -6,7 +6,8 @@ The reference's own tests are the model: ``tests/test_distributed.py``
 process over the same global batches) and ``tests/test_eval_loop.py``
 (ragged sharded eval equal to the full eval).  Children are this file run
 as a script (``python tests/test_torch_distributed.py <mode> <rank>
-<world> <address> <workdir>``), one thread each, on a free local port.
+<world> <address> <workdir>``), one thread each, meeting through a
+file in the work directory.
 Sizes are small: the joint model at depth 0.25 and 75 px without the aux
 head, 4 rows per process, records of the fixture JPEGs resized to 100 px.
 """
@@ -14,9 +15,9 @@ head, 4 rows per process, records of the fixture JPEGs resized to 100 px.
 import json
 import os
 import re
-import socket
 import subprocess
 import sys
+import uuid
 from pathlib import Path
 
 import numpy as np
@@ -156,10 +157,12 @@ def _child(mode, rank, world, address, workdir):
 # Helpers of the parent
 # ---------------------------------------------------------------------------
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _rendezvous(workdir):
+    """A fresh ``file://`` init method in ``workdir``: the processes meet
+    through a file, so no port is chosen before the children bind it (a
+    port probed free and closed again could be taken by another test
+    process in between)."""
+    return f"file://{Path(workdir).resolve() / ('rendezvous.' + uuid.uuid4().hex)}"
 
 
 def _env():
@@ -186,7 +189,7 @@ def _wait(procs):
 
 
 def _spawn(mode, workdir, world=2):
-    address = f"127.0.0.1:{_free_port()}"
+    address = _rendezvous(workdir)
     procs = [subprocess.Popen([sys.executable, __file__, mode, str(r), str(world), address,
                                str(workdir)], env=_env(), cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT) for r in range(world)]
@@ -433,7 +436,7 @@ def test_two_process_cli_train_and_eval_equal_one_process(workdir):
     common = ["--preset", "text_only", "--model", "text", "--vocab", str(data / "vocab.txt"),
               "--batch-size", str(LOCAL_B), "--max-len", "8", "--device", "cpu",
               "--checkpoint-dir", str(workdir / "ck_cli")]
-    address = f"127.0.0.1:{_free_port()}"
+    address = _rendezvous(workdir)
 
     def two(command, extra):
         return _wait([subprocess.Popen(

@@ -118,6 +118,34 @@ def test_batches_equal_the_reference_pipeline(data, name, consumer):
         assert b["weight"].min() == 0       # the last batch is padded
 
 
+@pytest.mark.parametrize("method", ["islow", "ifast", "float"])
+def test_dct_methods_and_cut_jpegs_give_the_reference_batches(tmp_path, method):
+    """``PipelineConfig.dct_method`` "ifast" and "float" work, and records
+    holding a JPEG cut inside its scan, one without EOI and arithmetic-coded
+    ones are assembled as the reference assembles them: the batches'
+    bytes are the reference pipeline's."""
+    names = ["corrupt/progressive_420_cut30.jpg", "corrupt/restart4_420_cut75.jpg",
+             "corrupt/baseline_422_no_eoi.jpg", "arith/seq_420_96x80.jpg",
+             "arith/progressive_420_161x97.jpg", "baseline_420_403x301.jpg"]
+    texts = _texts(12, seed=6)
+    exs = [trec.post_to_example((FIXTURES / names[i % len(names)]).read_bytes(), texts[i],
+                                i % 15, post_id=str(i)) for i in range(12)]
+    trec.write_sharded_tfrecords(exs, str(tmp_path), "train", 2)
+    pattern = str(tmp_path / "train-*.tfrecord")
+    kw = dict(batch_size=4, host_size=41, max_len=6, decode_threads=3, num_epochs=1,
+              dct_method=method)
+    want = list(jp.batches(pattern, None, jp.PipelineConfig(**kw)))
+    got = list(tp.batches(pattern, None, tp.PipelineConfig(**kw)))
+    assert len(got) == len(want) == 3
+    for a, b in zip(want, got):
+        assert list(a) == list(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    item = tp.make_dataset(pattern, None, tp.PipelineConfig(**kw))[0]
+    np.testing.assert_array_equal(item["image"], jp.make_dataset(
+        pattern, None, jp.PipelineConfig(**kw))[0]["image"])
+
+
 def test_make_dataset_items_equal_the_reference(data):
     pattern, jv, tv = data
     kw = dict(batch_size=4, host_size=37, max_len=6, num_epochs=2)

@@ -449,3 +449,50 @@ def test_batched_predictor_matches_the_jax_server(model):
     for g, w in zip(got, want):
         assert g["top"] == w["top"]
         assert max(abs(g["probs"][e] - w["probs"][e]) for e in EMOTIONS) <= PROB_ATOL
+
+
+def test_cut_arithmetic_and_undecodable_posts_get_the_jax_servers_answers():
+    """One batch mixing a JPEG cut inside its scan, one without EOI, an
+    arithmetic-coded one, an undecodable one and a good one: each post gets
+    the reference server's answer (the same probabilities, or "bad image"
+    where both decoders refuse the body)."""
+    jcfg, cfg = _configs("image")
+    state = _state(cfg)
+    jm, jfwd = jax_build_model(jcfg)
+    jrun = jserving.build_forward(jcfg, types.SimpleNamespace(forward=jfwd, model=jm),
+                                  convert.to_variables(state),
+                                  create_mesh(devices=jax.devices()[:1]), engine="parity")
+    run = build_forward(cfg, state, engine="parity", device="cpu")
+    kw = dict(batch_size=8, host_size=HOST, needs_image=True, max_len=8, max_delay_ms=200.0,
+              decode_threads=3)
+    jp = jserver.BatchedPredictor(lambda i, t, l: np.asarray(jrun(jnp.asarray(i), None, None)),
+                                  **kw)
+    tp = BatchedPredictor(run, **kw)
+    names = ["corrupt/progressive_420_cut30.jpg", "corrupt/baseline_422_no_eoi.jpg",
+             "arith/progressive_420_161x97.jpg", "corrupt/refused_cut_in_headers.jpg",
+             "corrupt/restart4_420_rst_removed.jpg", "baseline_444_64x48.jpg"]
+    bodies = [(FIXTURES / n).read_bytes() for n in names]
+
+    def answers(pred):
+        futs = [pred.submit(image=b) for b in bodies]
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result(timeout=120))
+            except ValueError as e:
+                out.append(str(e))
+        return out
+
+    try:
+        want, got = answers(jp), answers(tp)
+    finally:
+        jp.close()
+        tp.close()
+    for name, g, w in zip(names, got, want):
+        if name.startswith("corrupt/refused"):
+            assert isinstance(w, str) and isinstance(g, str) and g.startswith("bad image"), (g, w)
+            continue
+        assert isinstance(g, dict) and isinstance(w, dict), (name, g, w)
+        assert g["top"] == w["top"], name
+        assert max(abs(g["probs"][e] - w["probs"][e]) for e in EMOTIONS) <= PROB_ATOL, name
+    assert tp.stats.snapshot(8)["errors"] == 1

@@ -155,7 +155,11 @@ def test_port_imports_with_jax_blocked():
             "import tumblr_emotions_torch.train.noise_floor\n"
             "import tumblr_emotions_torch.utils.compile_opts, tumblr_emotions_torch.analysis\n"
             "import tumblr_emotions_torch.data.word2vec, tumblr_emotions_torch.data.scraper\n"
-            "print('ok')\n" % (FORBIDDEN,))
+            "import tumblr_emotions_torch.models.layers\n"
+            "from tumblr_emotions_torch.data import jpeg\n"
+            "for m in ('islow', 'ifast', 'float'):\n"
+            "    assert jpeg.decode(open(%r, 'rb').read(), dct_method=m).shape == (97, 161, 3)\n"
+            "print('ok')\n" % (FORBIDDEN, str(ROOT / "tests/data/jpeg/arith/progressive_420_161x97.jpg")))
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                        text=True, timeout=300)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

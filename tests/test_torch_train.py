@@ -457,21 +457,56 @@ def test_same_avg_pool_backward_is_the_adjoint(window, hw):
 
 @pytest.mark.parametrize("keep", [0.8, 0.5])
 def test_dropout_keeps_a_binomial_share_scaled_by_keep(keep):
-    """flax semantics: every element is 0 or x/keep; the kept share of n
-    elements lies within 5 binomial standard deviations of keep."""
+    """flax semantics: every element is 0 or x/keep (as the reference's
+    jitted step computes it, x times the f32 reciprocal of keep); the kept
+    share of n elements lies within 5 binomial standard deviations of
+    keep."""
     n = 200_000
     x = torch.rand(n) + 0.5
     drop = Dropout(keep)
     drop.train()
     y = drop(x, torch.Generator().manual_seed(0))
     kept = y != 0
-    torch.testing.assert_close(y[kept], x[kept] / keep, rtol=0, atol=0)
+    torch.testing.assert_close(y[kept], x[kept] * float(np.float32(1) / np.float32(keep)),
+                               rtol=0, atol=0)
     share = kept.float().mean().item()
     assert abs(share - keep) <= 5 * np.sqrt(keep * (1 - keep) / n), share
     drop.eval()
     assert drop(x) is x
     drop.train()
     assert Dropout(1.0).train()(x) is x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dropout_is_flax_dropout_jitted_bit_for_bit(dtype, monkeypatch):
+    """On one draw, the port's Dropout in f32 and in bf16 (perf mode) is
+    bit-equal to flax's ``nn.Dropout`` run jitted by the JAX package (the
+    reference's train step is jitted: XLA multiplies by the reciprocal)."""
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+
+    keep = 0.8
+
+    class Drop(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return fnn.Dropout(rate=1.0 - keep, deterministic=False)(x)
+
+    rng = np.random.RandomState(3)
+    x = (rng.normal(size=(16, 1, 1, 512)) * 4).astype(np.float32)
+    x[x == 0] = 1.0
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    want = np.asarray(jax.jit(lambda v: Drop().apply({}, v, rngs={"dropout": jax.random.PRNGKey(5)}))(
+        jx).astype(jnp.float32))
+    kept = want != 0
+    assert 0.7 < kept.mean() < 0.9
+    u = torch.from_numpy(np.where(kept, 0.25, 0.95).astype(np.float32))
+    monkeypatch.setattr(torch, "rand", lambda *a, **k: u)
+    drop = Dropout(keep).train()
+    got = drop(torch.from_numpy(np.array(jx.astype(jnp.float32))).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def test_joint_model_dropout_acts_before_the_fused_feature():

@@ -2,24 +2,31 @@
 or PIL.
 
 The port's counterpart of ``tumblr_emotions_tpu/data/jpeg.py`` (the
-reference's C++ decoder over libjpeg) and of the PIL bilinear resize in
-``tumblr_emotions_tpu/data/pipeline.py::_host_resize_uint8``.  Both run in
-``csrc/jpeg_decode.cc``, a self-contained C++ decoder that reproduces
-libjpeg-turbo's islow IDCT, fancy upsampling and colour conversion bit for
-bit, and Pillow's bilinear resample.  It has a plain C interface bound with
-ctypes.
+reference's C++ decoder over libjpeg-turbo 2.1.5) and of the PIL bilinear
+resize in ``tumblr_emotions_tpu/data/pipeline.py::_host_resize_uint8``.  Both
+run in ``csrc/jpeg_decode.cc``, a self-contained C++ decoder that follows
+libjpeg-turbo bit for bit, and Pillow's bilinear resample.  It has a plain C
+interface bound with ctypes.
+
+The decoder takes what libjpeg-turbo 2.1.5 takes, and gives its bytes:
+baseline, extended and progressive JPEG, Huffman or arithmetic coded, with
+restart intervals, every integral sampling layout, and the three IDCTs
+(``dct_method`` ``"islow"``, ``"ifast"``, ``"float"``, each as the library's
+x86-64 SIMD code computes it).  Where libjpeg warns and goes on, so does it:
+data cut short or corrupt (the rest of a segment decodes as libjpeg pads
+it), missing or misplaced restart markers, bytes before a marker, no EOI, a
+progressive file cut before its last scan (block-smoothed as libjpeg does).
+What libjpeg refuses raises ``ValueError`` with the decoder's reason: 12-bit
+samples, lossless and hierarchical JPEG, CMYK/YCCK, a cut inside the
+headers, and every other fatal error.  ``fancy`` is libjpeg's fancy
+upsampling (or plain replication); ``scale_num`` must be 8 (full size).
 
 The library is built at first use by the host C++ compiler (``c++`` or
 ``g++`` on ``PATH``; no nvcc) into ``build/host_jpeg/`` beside the package,
 named by a hash of the source and the flags, and written by an atomic
-rename, so concurrent processes may build at once.  There is no fallback: a
-failed build raises.
-
-Decoding knobs are the reference's: ``dct_method`` (``"islow"`` only; the
-reference also takes ``"ifast"`` and ``"float"``), ``fancy`` (libjpeg's fancy
-upsampling, or plain replication) and ``scale_num`` (8 only: full size).
-A corrupt, truncated or unsupported image (arithmetic coding, 12-bit
-samples, CMYK/YCCK) raises ``ValueError`` with the decoder's reason.
+rename, so concurrent processes may build at once.  It is built with
+``-ffp-contract=off``: the float IDCT must not fuse products and sums.  There
+is no fallback: a failed build raises.
 """
 
 from __future__ import annotations
@@ -35,7 +42,8 @@ from tumblr_emotions_torch.utils import host_lib
 
 SOURCE = host_lib.PKG / "csrc" / "jpeg_decode.cc"
 BUILD_DIR = host_lib.BUILD_ROOT / "host_jpeg"
-FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread", "-ffp-contract=off"]
+DCT_METHODS = {"islow": 0, "ifast": 1, "float": 2}
 _ERRLEN = 256
 _compiler = host_lib.compiler
 
@@ -43,10 +51,10 @@ _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "jd_decode_size": [_P, _S, _IP, _IP, _IP, ctypes.c_char_p, _I],
-    "jd_decode": [_P, _S, _I, _P, _S, _IP, _IP, ctypes.c_char_p, _I],
-    "jd_decode_batch": [_P, _P, _I, _I, _P, _P, _IP, _IP, _I, _IP, ctypes.c_char_p, _I],
+    "jd_decode": [_P, _S, _I, _I, _P, _S, _IP, _IP, ctypes.c_char_p, _I],
+    "jd_decode_batch": [_P, _P, _I, _I, _I, _P, _P, _IP, _IP, _I, _IP, ctypes.c_char_p, _I],
     "jd_resize_bilinear": [_P, _I, _I, _P, _I, _I, ctypes.c_char_p, _I],
-    "jd_decode_resize_batch": [_P, _P, _I, _I, _P, _I, _IP, ctypes.c_char_p, _I],
+    "jd_decode_resize_batch": [_P, _P, _I, _I, _I, _P, _I, _IP, ctypes.c_char_p, _I],
 }
 
 
@@ -65,13 +73,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check_knobs(dct_method: str, scale_num: int) -> None:
-    if dct_method != "islow":
-        raise ValueError(f"dct_method={dct_method!r} is not supported: the port "
-                         "decodes with libjpeg's islow IDCT only")
+def _dct(dct_method: str, scale_num: int = 8) -> int:
+    """The C ABI's code of ``dct_method``; unknown names and ``scale_num``
+    other than 8 raise ``ValueError``."""
+    if dct_method not in DCT_METHODS:
+        raise ValueError(f"dct_method={dct_method!r} is not one of {sorted(DCT_METHODS)}")
     if scale_num != 8:
         raise ValueError(f"scale_num={scale_num} is not supported: the port decodes "
                          "at full size (scale_num=8) only")
+    return DCT_METHODS[dct_method]
 
 
 def _bytes(data) -> bytes:
@@ -94,13 +104,13 @@ def decode_size(data: bytes) -> Tuple[int, int, int]:
 def decode(data: bytes, dct_method: str = "islow", fancy: bool = True,
            scale_num: int = 8) -> np.ndarray:
     """Decode one JPEG to an RGB uint8 array [H, W, 3]."""
-    _check_knobs(dct_method, scale_num)
+    dct = _dct(dct_method, scale_num)
     data = _bytes(data)
     h0, w0, _ = decode_size(data)
     out = np.empty((h0, w0, 3), np.uint8)
     h, w = ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERRLEN)
-    if library().jd_decode(data, len(data), int(fancy), out.ctypes.data, out.nbytes,
+    if library().jd_decode(data, len(data), int(fancy), dct, out.ctypes.data, out.nbytes,
                            ctypes.byref(h), ctypes.byref(w), err, _ERRLEN):
         raise ValueError(f"JPEG decode failed: {err.value.decode()}")
     return out
@@ -125,7 +135,7 @@ def decode_batch(datas: Sequence[bytes], dct_method: str = "islow",
     """Decode a batch of JPEGs on ``num_threads`` threads -> list of
     [H, W, 3] uint8.  Any failure raises one ``ValueError`` that counts the
     failures and names the first bad index, as the reference does."""
-    _check_knobs(dct_method, scale_num)
+    dct = _dct(dct_method, scale_num)
     n = len(datas)
     if n == 0:
         return []
@@ -141,7 +151,7 @@ def decode_batch(datas: Sequence[bytes], dct_method: str = "islow",
     caps = (ctypes.c_size_t * n)(*[o.nbytes for o in outs])
     hs, ws, rc = (ctypes.c_int * n)(), (ctypes.c_int * n)(), (ctypes.c_int * n)()
     errs = ctypes.create_string_buffer(_ERRLEN * n)
-    failures = library().jd_decode_batch(ptrs, sizes, n, int(fancy), out_p, caps, hs, ws,
+    failures = library().jd_decode_batch(ptrs, sizes, n, int(fancy), dct, out_p, caps, hs, ws,
                                          int(num_threads), rc, errs, _ERRLEN)
     if failures:
         bad = [i for i in range(n) if rc[i]]
@@ -151,12 +161,14 @@ def decode_batch(datas: Sequence[bytes], dct_method: str = "islow",
 
 
 def decode_resize_batch(datas: Sequence[bytes], size: int, out: np.ndarray,
-                        num_threads: int = 8) -> List[Optional[str]]:
-    """Decode each JPEG and resize it to ``size`` x ``size`` (PIL bilinear,
-    as :func:`resize_bilinear`) into ``out[i]``, in one call on
-    ``num_threads`` threads.  ``out`` is a C-contiguous uint8 array [>= n,
-    size, size, 3].  Returns, per image, None or the reason it failed (its
-    row of ``out`` is then unspecified)."""
+                        num_threads: int = 8, dct_method: str = "islow") -> List[Optional[str]]:
+    """Decode each JPEG (fancy upsampling, ``dct_method``) and resize it to
+    ``size`` x ``size`` (PIL bilinear, as :func:`resize_bilinear`) into
+    ``out[i]``, in one call on ``num_threads`` threads.  ``out`` is a
+    C-contiguous uint8 array [>= n, size, size, 3].  Returns, per image,
+    None or the reason it failed (its row of ``out`` is then
+    unspecified)."""
+    dct = _dct(dct_method)
     n = len(datas)
     if out.dtype != np.uint8 or out.ndim != 4 or out.shape[1:] != (size, size, 3) \
             or out.shape[0] < n or not out.flags.c_contiguous:
@@ -168,7 +180,7 @@ def decode_resize_batch(datas: Sequence[bytes], size: int, out: np.ndarray,
     out_p = (ctypes.c_void_p * n)(*[out[i].ctypes.data for i in range(n)])
     rc = (ctypes.c_int * n)()
     errs = ctypes.create_string_buffer(_ERRLEN * n)
-    library().jd_decode_resize_batch(ptrs, sizes, n, int(size), out_p, int(num_threads),
+    library().jd_decode_resize_batch(ptrs, sizes, n, int(size), dct, out_p, int(num_threads),
                                      rc, errs, _ERRLEN)
     return _errors(rc, errs.raw, n)
 

@@ -316,12 +316,10 @@ class RecordBatches:
 
     def _assemble(self, examples) -> Dict[str, np.ndarray]:
         s = self.cfg.host_size
-        if self.cfg.dct_method != "islow":
-            raise ValueError(f"dct_method={self.cfg.dct_method!r} is not supported: the "
-                             "port decodes with libjpeg's islow IDCT only")
         image = np.empty((len(examples), s, s, 3), np.uint8)
         errors = jpeg.decode_resize_batch([e["image_bytes"] for e in examples], s, image,
-                                          num_threads=self.cfg.decode_threads)
+                                          num_threads=self.cfg.decode_threads,
+                                          dct_method=self.cfg.dct_method)
         bad = [i for i, e in enumerate(errors) if e is not None]
         if bad:
             raise ValueError(f"JPEG decode failed for {len(bad)} images (first index "

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -305,11 +306,11 @@ class Dropout(nn.Module):
     """flax ``nn.Dropout`` in train mode: each element is kept with
     probability ``keep_prob`` (``rand < keep_prob``, drawn from
     ``generator``, torch's default generator of the tensor's device when
-    None) and scaled by ``1 / keep_prob`` in the input's dtype; the others
-    are 0.  The identity in eval mode or when ``keep_prob >= 1``.  Under
-    data parallelism (``world`` > 1) the mask is drawn for the global batch
-    and rows ``[rank*b, (rank+1)*b)`` are kept, as the reference draws over
-    the global array."""
+    None) and scaled as :func:`dropout_scale` scales it; the others are 0.
+    The identity in eval mode or when ``keep_prob >= 1``.  Under data
+    parallelism (``world`` > 1) the mask is drawn for the global batch and
+    rows ``[rank*b, (rank+1)*b)`` are kept, as the reference draws over the
+    global array."""
 
     def __init__(self, keep_prob: float):
         super().__init__()
@@ -323,8 +324,24 @@ class Dropout(nn.Module):
         u = torch.rand((b * self.world,) + tuple(x.shape[1:]), generator=generator,
                        device=x.device)
         keep = u[self.rank * b:(self.rank + 1) * b] < self.keep_prob
-        return torch.where(keep, x / self.keep_prob, torch.zeros((), dtype=x.dtype,
-                                                                 device=x.device))
+        return torch.where(keep, dropout_scale(x, self.keep_prob),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def dropout_scale(x: torch.Tensor, keep_prob: float) -> torch.Tensor:
+    """flax's ``inputs / keep_prob`` as the reference's jitted step computes
+    it.  XLA rewrites the division by the constant into a product with its
+    f32 reciprocal (the compiled HLO on the CPU: ``multiply(x, 1.25)`` for
+    0.8): in f32, ``x * (1 / f32(keep_prob))``; in bf16 (perf mode), where
+    ``keep_prob`` is weakly typed to bf16 (0.8 -> 0.80078125), ``x`` is
+    widened to f32, multiplied by ``1 / f32(bf16(keep_prob))`` and the
+    product rounded once to bf16.  A product of two f32 values rounds the
+    same on the card and on the CPU (a division by a Python float does not:
+    the CPU divides, the card multiplies by the reciprocal)."""
+    if x.dtype == torch.bfloat16:
+        kp = np.float32(torch.tensor(keep_prob, dtype=torch.bfloat16).float())
+        return (x.float() * float(np.float32(1) / kp)).to(torch.bfloat16)
+    return x * float(np.float32(1) / np.float32(keep_prob))
 
 
 class ConvBN(nn.Module):

@@ -73,13 +73,16 @@ def process_device(device, rank: int, local_world: int) -> torch.device:
 def init_group(address: str, num_processes: int, process_id: int,
                device="cuda", backend: Optional[str] = None) -> torch.device:
     """``init_process_group`` at ``tcp://address`` (``env://`` when address
-    is ``"env"``) with the rule's backend; returns this process's device."""
+    is ``"env"``; an address with a scheme, such as ``file:///shared/path``,
+    is the init method itself) with the rule's backend; returns this
+    process's device."""
     local = local_world_size(num_processes)
     dev = process_device(device, process_id, local)
     backend = backend or backend_for(dev, local)
     if backend == "nccl":
         torch.cuda.set_device(dev)
-    init = "env://" if address == "env" else f"tcp://{address}"
+    init = "env://" if address == "env" else address if "://" in address else \
+        f"tcp://{address}"
     dist.init_process_group(backend, init_method=init, world_size=num_processes,
                             rank=process_id)
     log.info("distributed: process %d/%d on %s over %s", process_id, num_processes,

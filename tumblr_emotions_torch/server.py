@@ -15,7 +15,7 @@ concurrent posts into fixed-size device batches for a runner from
   length is 1).
 - **Host decode off the device path.**  The batcher thread decodes and
   resizes a batch's JPEGs in one threaded call of the port's own decoder
-  (``data/jpeg.decode_resize_batch``: libjpeg's islow decode and PIL's
+  (``data/jpeg.decode_resize_batch``: libjpeg-turbo's decode and PIL's
   bilinear resize, bit for bit) into one reused host buffer; request
   threads only enqueue.
 - **Latency bound.**  Requests are coalesced until the batch is full or
