@@ -317,6 +317,9 @@ CLI_STEPS = 6
 CLI_CKPT_EVERY = 3
 CLI_SERVE_POSTS = 64
 CLI_TIMEOUT_S = 600           # each CLI subprocess
+# workers: the record pipeline at each worker count, over this many batches
+WORKER_COUNTS = (0, 2, 4)
+WORKER_BATCHES = 24
 # analyze's circumplex (printed to 4 decimals) against the one of the CPU's
 # probabilities over the same split: rounding plus the card's f32 forward
 ANALYZE_TOL = 1e-3
@@ -2900,15 +2903,27 @@ def cli_phase(dev, smi, held):
                  f"{INT8_PROB_TOL}")
         del kern, plain, plain_srv, model, infer_batches
 
+        # ---- infer --dp: every card of the machine, equal to the run above ----
+        out = io.StringIO()
+        with redirect_stdout(out):
+            cli.main(["infer", *common, "--records", train_glob, "--checkpoint-dir",
+                      str(tmp / "A"), "--engine", "int8", "--front", "s2d", "--dp",
+                      "--probs-out", str(tmp / "probs_dp.npy")])
+        inf_dp = _json.loads(out.getvalue().splitlines()[-1])
+        if inf_dp["devices"] != torch.cuda.device_count() or inf["devices"] != 1 or \
+                not np.array_equal(np.load(tmp / "probs_dp.npy"), got):
+            fail(f"cli: infer --dp took {inf_dp['devices']} devices of "
+                 f"{torch.cuda.device_count()}, or its probabilities differ from infer's")
+
         # ---- serve --engine int8 --port 0, in process through cli.build_server,
         # counted from the server's start (its warm-up, which captures the
         # runner) ----
         t0 = time.perf_counter()
         reset_all_launches()
-        sargs = cli.parser().parse_args(
-            ["serve", *common, "--records", val_glob, "--checkpoint-dir", str(tmp / "A"),
-             "--engine", "int8", "--host", "127.0.0.1", "--port", "0",
-             "--max-delay-ms", str(HTTP_MAX_DELAY_MS)])
+        sargs_argv = ["serve", *common, "--records", val_glob, "--checkpoint-dir",
+                      str(tmp / "A"), "--engine", "int8", "--host", "127.0.0.1", "--port",
+                      "0", "--max-delay-ms", str(HTTP_MAX_DELAY_MS)]
+        sargs = cli.parser().parse_args(sargs_argv)
         httpd, info = cli.build_server(sargs)
         runner = info["runner"]
         pick = [(fixtures[i % len(fixtures)], captions[i]) for i in range(CLI_SERVE_POSTS)]
@@ -2958,6 +2973,20 @@ def cli_phase(dev, smi, held):
                  f"{HTTP_PROB_TOL}")
         del runner, httpd, info
 
+        # ---- serve --dp: the stack over every card, its runner equal to serve's ----
+        dp_httpd, dp_info = cli.build_server(cli.parser().parse_args(
+            [*sargs_argv, "--dp"]))
+        try:
+            dp_httpd.serve_background()
+            dp_answer = dp_info["runner"](imgs, tok, lens).cpu().numpy()
+        finally:
+            dp_httpd.close()
+        if dp_info["devices"] != torch.cuda.device_count() or \
+                not np.array_equal(dp_answer, in_process):
+            fail(f"cli: serve --dp took {dp_info['devices']} devices of "
+                 f"{torch.cuda.device_count()}, or its runner's answers differ from serve's")
+        del dp_httpd, dp_info
+
         # ---- predict (run above) against the Predictor on the checkpoint ----
         got_p = _json.loads(pred_out[pred_out.index("{"):pred_out.rindex("}") + 1])
         want_p = Predictor(cfg, w_dev, vocab=vocab, device=dev).predict(body.read_bytes(), text)
@@ -2984,6 +3013,8 @@ def cli_phase(dev, smi, held):
                 any(f"## {e}" not in report for e in EMOTIONS) or "Confusion pairs" not in report:
             fail(f"analyze: circumplex {analyze_diff} from the CPU's, or a section missing "
                  f"from the report:\n{out.getvalue()[-2000:]}")
+        arrayrecord_phase(smi, tmp, run, common, log_b1, np.load(tmp / "probs.npy"))
+        workers_phase(smi, train_glob, vocab)
         emit({"phase": "analyze", "config": "joint_finetune", "depth": DEPTH,
               "posts": int(len(cpu_labels)), "explained_variance": lines[0],
               "coords_max_abs_diff_vs_cpu": analyze_diff, "tol": ANALYZE_TOL,
@@ -3004,7 +3035,9 @@ def cli_phase(dev, smi, held):
           "eval": {"count": ev["count"], "accuracy": ev["accuracy"], "loss": ev["loss"],
                    "equal_to_cpu": True},
           "exported_tower_tensors": len(tower_names),
-          "infer": {k: inf[k] for k in ("examples", "accuracy", "images_per_sec", "forwards")},
+          "infer": {k: inf[k] for k in ("examples", "accuracy", "images_per_sec", "forwards",
+                                        "devices")},
+          "infer_dp": {k: inf_dp[k] for k in ("images_per_sec", "devices")},
           "infer_launches": infer_launches, "infer_graphs": GRAPH_RUNS["cli_infer"],
           "infer_prob_max_abs_diff_vs_plain": infer_diff,
           "serve": {"posts": CLI_SERVE_POSTS, "device_batches": stats["batches"],
@@ -3173,6 +3206,193 @@ def captured_phase(dev, smi, state, batches, calib):
         emit({"phase": "captured", "runner": kind, "batch": BATCH, "src_hw": SRC_HW,
               **results[kind], "card": smi})
         del prog, eager, got, want
+    return paths
+
+
+def arrayrecord_phase(smi, tmp, run, common, log_b1, probs_tf):
+    """Phase arrayrecord, inside cli: ``convert-dataset --format
+    arrayrecord`` over the cli phase's posts: the same Examples in the same
+    shards as its TFRecords, every chunk of every shard walked with its
+    hashes checked; ``train`` (subprocess) 3 steps from the .arrayrecord
+    shards, its logged losses and its step-3 checkpoint equal to run B's
+    first process (the same steps from the TFRecords); ``infer --engine
+    int8`` (in process) from them equal to infer's probabilities from the
+    TFRecords (``probs_tf``)."""
+    import io
+    import re
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from tumblr_emotions_torch import cli
+    from tumblr_emotions_torch.data import records
+    from tumblr_emotions_torch.utils import zstd
+    from tumblr_emotions_torch.utils.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    ar = tmp / "data_ar"
+    with redirect_stdout(io.StringIO()):
+        cli.main(["convert-dataset", "--csv", str(tmp / "posts.csv"), "--images-dir",
+                  str(tmp / "images"), "--out", str(ar), "--num-shards", str(CLI_SHARDS),
+                  "--valid-fraction", str(CLI_VALID), "--format", "arrayrecord"])
+    chunks, n_records, n_bytes = {}, 0, 0
+    for split in ("train", "validation"):
+        tf_paths = sorted((tmp / "data").glob(f"{split}-*.tfrecord"))
+        ar_paths = sorted(ar.glob(f"{split}-*.arrayrecord"))
+        if [p.stem for p in tf_paths] != [p.stem for p in ar_paths] or not ar_paths:
+            fail(f"arrayrecord: shards {[p.name for p in ar_paths]} beside "
+                 f"{[p.name for p in tf_paths]}")
+        for tf_path, ar_path in zip(tf_paths, ar_paths):
+            with records.ArrayRecordReader(str(ar_path)) as r:
+                for k, v in r.verify().items():
+                    chunks[k] = chunks.get(k, 0) + v
+                if r.read() != list(records.read_tfrecords(str(tf_path))):
+                    fail(f"arrayrecord: {ar_path.name} does not hold {tf_path.name}'s records")
+                n_records += len(r)
+            n_bytes += ar_path.stat().st_size
+    convert_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log_c = run("train_ar", "train", *common, "--records", str(ar / "train-*.arrayrecord"),
+                "--log-every", "1", "--checkpoint-every", str(CLI_CKPT_EVERY),
+                "--steps", str(CLI_CKPT_EVERY), "--checkpoint-dir", str(tmp / "C"))
+    train_s = time.perf_counter() - t0
+    pattern = r"step \d+ loss (\S+)"
+    losses_ar, losses_tf = re.findall(pattern, log_c), re.findall(pattern, log_b1)
+    if len(losses_ar) != CLI_CKPT_EVERY or losses_ar != losses_tf:
+        fail(f"arrayrecord: train losses {losses_ar}, from the TFRecords {losses_tf}")
+    rb = CheckpointManager(str(tmp / "B")).reader(CLI_CKPT_EVERY)
+    rc = CheckpointManager(str(tmp / "C")).reader(CLI_CKPT_EVERY)
+    if sorted(rb.keys()) != sorted(rc.keys()) or any(
+            not np.array_equal(rb.get_tensor(k), rc.get_tensor(k)) for k in rb.keys()):
+        fail("arrayrecord: the step-3 checkpoint differs from the TFRecord run's")
+
+    with redirect_stdout(io.StringIO()):
+        cli.main(["infer", *common, "--records", str(ar / "train-*.arrayrecord"),
+                  "--checkpoint-dir", str(tmp / "A"), "--engine", "int8", "--front", "s2d",
+                  "--probs-out", str(tmp / "probs_ar.npy")])
+    probs_ar = np.load(tmp / "probs_ar.npy")
+    if not np.array_equal(probs_ar, probs_tf):
+        fail("arrayrecord: infer's probabilities from the .arrayrecord shards differ from "
+             "the TFRecords'")
+    emit({"phase": "arrayrecord", "records": n_records, "shard_bytes": n_bytes,
+          "chunks_checked": chunks, "zstd": f"{zstd.LIBRARY} {zstd.version()}",
+          "train_losses": losses_ar, "train_losses_equal_tfrecord": True,
+          "step3_checkpoint_equal_tfrecord": True, "infer_rows": int(len(probs_ar)),
+          "infer_probs_equal_tfrecord": True,
+          "seconds": {"convert_and_check": convert_s, "train": train_s}, "card": smi})
+
+
+def workers_phase(smi, pattern, vocab):
+    """Phase workers, inside cli: the record pipeline (``data/pipeline.batches``,
+    8 decode threads in each process) over the cli phase's train records at
+    ``worker_count`` 0, 2 and 4 (spawned processes): the first
+    WORKER_BATCHES batches byte-identical, and no process left after
+    ``close``; the host feed's img/s of each after its first batch, and the
+    first batch's seconds (the workers' start)."""
+    import multiprocessing
+
+    import numpy as np
+
+    from tumblr_emotions_torch.data import pipeline
+
+    base, rates = None, {}
+    for n in WORKER_COUNTS:
+        it = pipeline.batches(pattern, vocab, pipeline.PipelineConfig(
+            batch_size=CLI_BATCH, max_len=50, decode_threads=8, worker_count=n))
+        t0 = time.perf_counter()
+        got = [next(it)]
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got += [next(it) for _ in range(WORKER_BATCHES - 1)]
+        rates[n] = {"img_s": (WORKER_BATCHES - 1) * CLI_BATCH / (time.perf_counter() - t0),
+                    "first_batch_s": first_s}
+        it.close()
+        left = multiprocessing.active_children()
+        if left:
+            fail(f"workers: {len(left)} processes left after close at worker_count {n}")
+        if base is None:
+            base = got
+        elif any(sorted(a) != sorted(b) or any(not np.array_equal(a[k], b[k]) for k in a)
+                 for a, b in zip(base, got)):
+            fail(f"workers: the batches at worker_count {n} differ from those at 0")
+    emit({"phase": "workers", "batch": CLI_BATCH, "batches": WORKER_BATCHES,
+          "decode_threads": 8, "byte_identical": True,
+          "feed": {str(k): v for k, v in rates.items()},
+          "note": "the cli phase's fixture JPEGs (small images)", "card": smi})
+
+
+def dp_serve_phase(dev, smi, state, batches, calib):
+    """Phase dp_serve: the int8 s2d image runner and the joint int8 runner
+    at full width, batch 64, split over two runners on the one card
+    (``build_forward(..., devices=[dev, dev])``, 32 rows each), bit-equal to
+    the one-device runner on the 3 batches; each runner's program counted
+    from its first call (66 conv_int8 and 4 maxpool3x3s2_int8 graph nodes
+    per runner's graph); img/s of the split beside the one runner's,
+    interleaved.  Returns {path: launches} of the split runs."""
+    import numpy as np
+    import torch
+
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops.serving import build_forward
+
+    img = get_preset("fused_inference")
+    img = img.replace(image=img.image.replace(depth_multiplier=DEPTH))
+    joint = get_preset("joint_finetune")
+    joint = joint.replace(image=joint.image.replace(depth_multiplier=DEPTH))
+    rng = np.random.RandomState(SEED + 11)
+    tokens = [torch.from_numpy(synthetic_ids(rng, BATCH, TEXT_T, joint.text.vocab_size))
+              .to(dev) for _ in batches]
+    joint_state = joint_model.init_state(build_model(joint, device="meta"), SEED)
+    paths = {}
+    for kind, cfg, st in (("int8_s2d", img, state), ("joint_int8", joint, joint_state)):
+        def args(i, kind=kind):
+            return (batches[i],) if kind == "int8_s2d" else (batches[i], tokens[i], None)
+
+        one = build_forward(cfg, st, engine="int8", calib_images=calib, devices=[dev])
+        two = build_forward(cfg, st, engine="int8", calib_images=calib, devices=[dev, dev])
+        if len(two.programs) != 2:
+            fail(f"dp_serve: {kind} split has {len(two.programs)} programs")
+        # two calibrations of one batch on the card: the split is held to the
+        # one runner on the same scales (their equality is reported)
+        scales_equal = two.engine.scales == one.engine.scales
+        two.engine.scales = one.engine.scales
+        want = [one(*args(i)) for i in range(N_BATCHES)]
+        torch.cuda.synchronize()
+        reset_all_launches()
+        got = [two(*args(i)) for i in range(N_BATCHES)]
+        torch.cuda.synchronize()
+        launches = all_launches()
+        graphs = [g for p in two.programs for g in p.kernel_nodes()]
+        # each runner: its first call eager (the warm-up), then two replays
+        GRAPH_RUNS[f"dp_serve_{kind}"] = served_launches(
+            f"dp_serve {kind}", launches, graphs, 2 * N_BATCHES, INT8_PER_FORWARD)
+        paths[f"dp_serve_{kind}"] = launches
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.shape != (BATCH, 15) or a.device != dev or not torch.equal(a, b):
+                fail(f"dp_serve: {kind} batch {i} split over two runners differs from one "
+                     f"runner by {(a.float() - b.float()).abs().max().item()} "
+                     f"({tuple(a.shape)} on {a.device})")
+        rates = {"one_runner": [], "two_runners": []}
+        for _ in range(CAPTURED_WINDOWS):
+            for name, r in (("one_runner", one), ("two_runners", two)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(CAPTURED_PASSES):
+                    for i in range(N_BATCHES):
+                        r(*args(i))
+                torch.cuda.synchronize()
+                rates[name].append(CAPTURED_PASSES * N_BATCHES * BATCH
+                                   / (time.perf_counter() - t))
+        emit({"phase": "dp_serve", "runner": kind, "batch": BATCH, "src_hw": SRC_HW,
+              "devices": [str(d) for d in two.devices], "rows_per_runner": BATCH // 2,
+              "bit_equal_batches": N_BATCHES, "calibrations_equal": scales_equal,
+              "launches": launches, "graphs": GRAPH_RUNS[f"dp_serve_{kind}"], "img_s": rates,
+              "img_s_median": {k: float(np.median(v)) for k, v in rates.items()},
+              "card": smi})
+        del one, two, got, want
     return paths
 
 
@@ -3701,6 +3921,9 @@ def main() -> int:
     # ---- captured: every runner as one CUDA graph per batch (this slice's
     # main path) ----
     paths.update(captured_phase(dev, smi, state, batches, calib))
+
+    # ---- dp_serve: one batch split over two runners on the card ----
+    paths.update(dp_serve_phase(dev, smi, state, batches, calib))
 
     # ---- 12. e2e_http: posts over HTTP, on the captured program ----
     paths["e2e_http"] = http_phase(dev, smi, calib)

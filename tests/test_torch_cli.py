@@ -1,7 +1,7 @@
 """The port's CLI (``python -m tumblr_emotions_torch.cli``) on the CPU,
 against the JAX package's CLI on the same state: train and resume, eval,
-infer, serve, predict, export, and the refused flags (the tooling commands:
-``tests/test_torch_tooling.py``)."""
+infer (also ``--dp``), serve, predict, export, ArrayRecord shards, and the
+flags once refused (the tooling commands: ``tests/test_torch_tooling.py``)."""
 
 import contextlib
 import csv
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from tumblr_emotions_torch import cli as tcli
-from tumblr_emotions_torch.data.pipeline import TFRecordIndex
+from tumblr_emotions_torch.data.pipeline import TFRecordIndex, record_source
 from tumblr_emotions_torch.utils import checkpoint as ck
 from tumblr_emotions_tpu import cli as jcli
 from tumblr_emotions_tpu import config as jconfig
@@ -194,11 +194,11 @@ def test_joint_train_from_records_stopped_and_resumed_equals_a_straight_run(join
         {"epoch": epoch, "index": index}
 
 
-def test_joint_infer_parity_within_1e4_of_the_reference_cli(joint_run):
-    tmp, common, val = joint_run
-    out = tmp / "port.jsonl"
-    summary = json.loads(_run(tcli.main, ["infer", *common, "--records", val,
-                                          "--engine", "parity", "--out", str(out)]))
+@pytest.fixture(scope="module")
+def jax_common(joint_run):
+    """The JAX CLI's arguments for ``joint_run``'s checkpoint, written as the
+    JAX trainer's orbax checkpoint."""
+    tmp, common, _ = joint_run
     jcfg = jcli._build_config(_namespace(common))
     jcfg = jcfg.replace(text=jcfg.text.replace(
         vocab_size=JVocabulary.load(common[common.index("--vocab") + 1]).size))
@@ -208,6 +208,15 @@ def test_joint_infer_parity_within_1e4_of_the_reference_cli(joint_run):
     _to_orbax(jcfg, str(tmp / "ck"), 1, str(tmp / "jck"), sample)
     jcommon = [c for c in common if c not in ("--device", "cpu")]
     jcommon[jcommon.index("--checkpoint-dir") + 1] = str(tmp / "jck")
+    return jcommon
+
+
+def test_joint_infer_parity_within_1e4_of_the_reference_cli(joint_run, jax_common):
+    tmp, common, val = joint_run
+    out = tmp / "port.jsonl"
+    summary = json.loads(_run(tcli.main, ["infer", *common, "--records", val,
+                                          "--engine", "parity", "--out", str(out)]))
+    jcommon = jax_common
     ref = tmp / "ref.jsonl"
     want = json.loads(_run(jcli.main, ["infer", *jcommon, "--records", val,
                                        "--engine", "parity", "--out", str(ref)]))
@@ -259,23 +268,95 @@ def test_joint_infer_int8_serve_predict_and_export_on_the_cpu(joint_run):
         np.testing.assert_array_equal(tower.get_tensor(n.split("/", 1)[1]), step.get_tensor(n))
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["infer", "--num-processes", "2", "--device", "cpu"], "6\\(h\\)"),
-    (["infer", "--dp", "--device", "cpu"], "6\\(h\\)"),
-    (["serve", "--dp", "--device", "cpu"], "6\\(h\\)"),
+# The ``infer`` and ``serve`` flags the port once refused: they run, one
+# process without a group (the process-group flags taken and not acted on,
+# as the reference's infer and serve take them), and --dp over every card
+# (the one CPU with --device cpu), each answering as the run without them.
+@pytest.mark.parametrize("command,extra", [
+    ("infer", ["--num-processes", "2", "--process-id", "1",
+               "--coordinator-address", "127.0.0.1:1"]),
+    ("infer", ["--dp"]),
+    ("serve", ["--dp"]),
 ])
-def test_refused_commands_and_flags_name_their_roadmap_item(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        tcli.main(argv)
+def test_refused_commands_and_flags_name_their_roadmap_item(joint_run, command, extra):
+    import torch.distributed as dist
+
+    tmp, common, val = joint_run
+    if command == "infer":
+        probs = {}
+        for name, flags in (("plain", []), ("flags", extra)):
+            summary = json.loads(_run(tcli.main, [
+                "infer", *common, "--records", val, "--engine", "int8", *flags,
+                "--probs-out", str(tmp / f"{name}.npy")]))
+            assert summary["devices"] == 1 and not dist.is_initialized()
+            probs[name] = np.load(tmp / f"{name}.npy")
+        np.testing.assert_array_equal(probs["flags"], probs["plain"])
+        return
+    answers = {}
+    for name, flags in (("plain", []), ("dp", extra)):
+        httpd, info = tcli.build_server(tcli.parser().parse_args(
+            ["serve", *common, "--records", val, "--host", "127.0.0.1", "--port", "0",
+             "--serve-batch-size", "4", "--host-size", "64", *flags]))
+        try:
+            httpd.serve_background()
+            assert info["devices"] == 1 and info["runner"].devices == [torch.device("cpu")]
+            body = (FIXTURES / "baseline_444_64x48.jpg").read_bytes()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{info['port']}/predict?text=so+happy", data=body)
+            with urllib.request.urlopen(req, timeout=60) as r:
+                answers[name] = json.loads(r.read())
+        finally:
+            httpd.close()
+    assert answers["dp"] == answers["plain"]
+
+
+def test_joint_infer_dp_against_the_reference_cli(joint_run, jax_common):
+    """``infer --dp`` (the int8 engine): the port on the one CPU against the
+    reference's over its 8 virtual CPU devices (the batch of 64 split 8
+    ways), each calibrated by its own package, within the int8 engines'
+    tolerance."""
+    tmp, common, val = joint_run
+    got = json.loads(_run(tcli.main, ["infer", *common, "--records", val, "--dp",
+                                      "--out", str(tmp / "dp_port.jsonl")]))
+    want = json.loads(_run(jcli.main, ["infer", *jax_common, "--records", val, "--dp",
+                                       "--out", str(tmp / "dp_ref.jsonl")]))
+    assert got["examples"] == want["examples"] > 0 and jax.device_count() == 8
+    for g, w in zip(*[[json.loads(line) for line in (tmp / f).read_text().splitlines()]
+                      for f in ("dp_port.jsonl", "dp_ref.jsonl")]):
+        assert g["label"] == w["label"] and list(g["probs"]) == list(w["probs"])
+        np.testing.assert_allclose(list(g["probs"].values()), list(w["probs"].values()),
+                                   atol=INT8_PROB_ATOL)
+
+
+# each package's int8 engine calibrated by itself (tests/test_torch_serving.py)
+INT8_PROB_ATOL = 2e-2
 
 
 def test_refused_record_formats(tmp_path):
-    with pytest.raises(NotImplementedError, match="array_record"):
-        tcli.main(["convert-dataset", "--csv", "x.csv", "--out", str(tmp_path),
-                   "--format", "arrayrecord"])
-    with pytest.raises(NotImplementedError, match="array_record"):
-        tcli.main(["train", "--records", str(tmp_path / "t-*.arrayrecord"), "--vocab",
-                   _vocab(tmp_path), "--device", "cpu"])
+    """ArrayRecord shards, once refused: ``convert-dataset --format
+    arrayrecord`` writes the same records as the TFRecord conversion, and
+    ``train`` from them takes the step it takes from the TFRecords."""
+    csv_path = _posts(tmp_path, 24, images=True)
+    for fmt in ("tfrecord", "arrayrecord"):
+        _run(tcli.main, ["convert-dataset", "--csv", csv_path, "--images-dir",
+                         str(tmp_path / "images"), "--out", str(tmp_path / fmt),
+                         "--num-shards", "2", "--format", fmt])
+    tf_recs = list(TFRecordIndex(str(tmp_path / "tfrecord" / "train-*.tfrecord"))[i]
+                   for i in range(len(TFRecordIndex(str(tmp_path / "tfrecord" /
+                                                          "train-*.tfrecord")))))
+    ar = record_source(str(tmp_path / "arrayrecord" / "train-*.arrayrecord"))
+    assert [ar[i] for i in range(len(ar))] == tf_recs
+    base = ["train", "--preset", "joint_finetune", "--vocab",
+            str(tmp_path / "tfrecord" / "vocab.txt"), "--depth-multiplier", "0.25",
+            "--image-size", "139", "--batch-size", "4", "--steps", "1", "--device", "cpu"]
+    for fmt in ("tfrecord", "arrayrecord"):
+        _run(tcli.main, [*base, "--records", str(tmp_path / fmt / f"train-*.{fmt}"),
+                         "--checkpoint-dir", str(tmp_path / f"ck_{fmt}")])
+    a, b = (ck.CheckpointManager(str(tmp_path / f"ck_{f}")).reader(1)
+            for f in ("tfrecord", "arrayrecord"))
+    assert sorted(a.keys()) == sorted(b.keys())
+    for n in a.keys():
+        np.testing.assert_array_equal(a.get_tensor(n), b.get_tensor(n), err_msg=n)
 
 
 def _vocab(tmp_path):

@@ -126,7 +126,7 @@ def _fake_card(monkeypatch):
     recording = {}
 
     @contextlib.contextmanager
-    def graph(g, pool=None, capture_error_mode=None):
+    def graph(g, pool=None, stream=None, capture_error_mode=None):
         recording["g"] = g
         yield
 

@@ -1295,6 +1295,42 @@ def test_every_captured_runner_is_bit_equal_to_eager(dev, int8_engines):
             assert [g[:2] for g in _graph_int8(runner.program)] == [(66, 4)] * graphs, name
 
 
+@pytest.mark.parametrize("name", ["int8_s2d", "int8_uint8", "bf16_cudnn", "joint_int8"])
+def test_a_batch_split_over_two_runners_on_the_card_is_one_runners(dev, int8_engines, name):
+    """``build_forward(..., devices=[card, card])``: each runner a captured
+    program of its own (66 int8 conv and 4 pool nodes per graph), the rows
+    split 2 and 2, the answers bit for bit the one runner's, from card
+    and from host (numpy, the pinned staging) inputs alike."""
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops.serving import build_forward
+
+    cfg = get_preset("joint_finetune" if name == "joint_int8" else "fused_inference")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=0.5),
+                      text=cfg.text.replace(vocab_size=1000, embed_dim=32))
+    state = (joint_model.init_state(build_model(cfg, device="meta"), 0) if cfg.model == "joint"
+             else init_state(InceptionV3(depth_multiplier=0.5, device="meta"), seed=0))
+    engine, _, front = name.partition("_")
+    kw = dict(engine="int8" if engine == "joint" else engine,
+              front=front if front in ("s2d", "uint8") else "s2d",
+              calib_images=preprocess_for_eval(int8_engines[2]))
+    one = build_forward(cfg, state, device=dev, **kw)
+    two = build_forward(cfg, state, devices=[dev, dev], **kw)
+    if kw["engine"] == "int8":          # two calibrations on the card: one set of scales
+        two.engine.scales = one.engine.scales
+    for seed, host in ((1, False), (2, False), (3, True)):
+        raw, tok = _batch(dev, 4, seed)
+        args = (raw.cpu().numpy() if host else raw,) + ((tok,) if cfg.model == "joint" else ())
+        got, want = two(*args), one(*args)
+        torch.cuda.synchronize()
+        assert got.device == dev and torch.equal(got, want), (seed, (got - want).abs().max())
+    for program in two.programs:          # card inputs: a capture and a replay; host: one
+        assert program.replays == 1 and program._cache_size() == 2
+        if kw["engine"] == "int8":
+            assert [g[:2] for g in _graph_int8(program)] == [(66, 4)] * 2
+
+
 def test_captured_answers_survive_the_next_replay(dev, int8_engines):
     """The batcher hands out rows of one answer while the next batch runs:
     the runner returns copies, so a later replay leaves an earlier answer

@@ -1,10 +1,15 @@
 """The port's record pipeline against the JAX package's grain pipeline:
-grain's index_shuffle, the batches (record for record, array-equal), the
-.idx cache, resume at the exact batch, the device prefetcher and the CSV
-text batches."""
+grain's index_shuffle, the batches (record for record, array-equal) over
+TFRecord and ArrayRecord shards, the .idx cache, resume at the exact
+batch, the worker processes (against grain's ``mp_prefetch``), the device
+prefetcher and the CSV text batches."""
 
+import contextlib
+import dataclasses
+import gc
 import itertools
 import random
+import signal
 import threading
 from pathlib import Path
 
@@ -251,12 +256,149 @@ def test_device_prefetch_reraises_producer_errors():
         tp.DevicePrefetchIterator(iter([]), device="cpu").get_state()
 
 
-def test_refused_pipeline_options(data):
+def test_refused_pipeline_options(data, ar_data):
+    """The options the port once refused run: ``worker_count = 2`` gives the
+    in-process batches, and an ``.arrayrecord`` pattern reads the records
+    of the TFRecords they were written from."""
     pattern, _, tv = data
-    with pytest.raises(NotImplementedError, match="worker_count"):
-        tp.batches(pattern, tv, tp.PipelineConfig(worker_count=2))
-    with pytest.raises(NotImplementedError, match="array_record"):
-        tp.TFRecordIndex("data/train-*.arrayrecord")
+    cfg = dict(batch_size=4, host_size=37, max_len=6, num_epochs=1)
+    with time_limit(WORKER_TEST_S):
+        _assert_same_batches(list(tp.batches(pattern, tv, tp.PipelineConfig(worker_count=2,
+                                                                             **cfg))),
+                             list(tp.batches(pattern, tv, tp.PipelineConfig(**cfg))))
+    ar = tp.record_source(ar_data[0])
+    tf = tp.record_source(pattern)
+    assert isinstance(ar, tp.ArrayRecordSource) and isinstance(tf, tp.TFRecordIndex)
+    assert sorted(ar[i] for i in range(len(ar))) == sorted(tf[i] for i in range(len(tf)))
+
+
+@pytest.fixture
+def ar_data(data, tmp_path):
+    """The ``data`` fixture's records as 3 ArrayRecord shards, written by
+    the port, beside a copy written by the reference's writer."""
+    from tumblr_emotions_tpu.data import records as jrec
+
+    pattern, jv, tv = data
+    exs = list(trec.read_sharded(pattern))
+    trec.write_sharded_arrayrecords(exs, str(tmp_path / "port"), "train", 3)
+    jrec.write_sharded_arrayrecords(exs, str(tmp_path / "ref"), "train", 3)
+    return str(tmp_path / "port" / "train-*.arrayrecord"), \
+        str(tmp_path / "ref" / "train-*.arrayrecord"), jv, tv
+
+
+def _assert_same_batches(got, want):
+    assert len(got) == len(want) > 0
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_arrayrecord_batches_equal_the_reference_pipeline(ar_data, name, writer):
+    """``batches`` over .arrayrecord shards (written by either package)
+    against the reference's grain pipeline over its ArrayRecordDataSource,
+    byte for byte, and against the port's own batches over the TFRecords."""
+    port_pat, ref_pat, jv, tv = ar_data
+    pattern = port_pat if writer == "port" else ref_pat
+    kw = dict(batch_size=4, host_size=37, max_len=6, decode_threads=2, **CONFIGS[name])
+    want = list(itertools.islice(jp.batches(pattern, jv, jp.PipelineConfig(**kw)), 12))
+    got = list(itertools.islice(tp.batches(pattern, tv, tp.PipelineConfig(**kw)), 12))
+    _assert_same_batches(got, want)
+
+
+# Each worker test runs under its own time limit: a hung worker fails the
+# test instead of using up the run.
+WORKER_TEST_S = 120
+
+
+@contextlib.contextmanager
+def time_limit(seconds: float):
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def expired(signum, frame):
+        raise TimeoutError(f"over the test's limit of {seconds} s")
+
+    old = signal.signal(signal.SIGALRM, expired)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+
+
+@pytest.mark.parametrize("workers", [2, 4])
+def test_workers_equal_the_reference_mp_prefetch_and_in_process(data, workers):
+    pattern, jv, tv = data
+    kw = dict(batch_size=4, host_size=37, max_len=6, decode_threads=2, num_epochs=2, seed=3)
+    with time_limit(WORKER_TEST_S):
+        want = list(jp.batches(pattern, jv, jp.PipelineConfig(worker_count=2, **kw)))
+        it = tp.batches(pattern, tv, tp.PipelineConfig(worker_count=workers, **kw))
+        got = list(it)
+        in_process = list(tp.batches(pattern, tv, tp.PipelineConfig(**kw)))
+    _assert_same_batches(got, want)
+    _assert_same_batches(got, in_process)
+    assert it._pool is None      # the end of the batches stopped the workers
+
+
+def _workers_of(it):
+    return list(it._pool._procs)
+
+
+def test_workers_resume_at_a_mid_epoch_state(data):
+    pattern, _, tv = data
+    cfg = tp.PipelineConfig(batch_size=4, host_size=37, max_len=6, num_epochs=3, seed=2,
+                            worker_count=2, decode_threads=2)
+    with time_limit(WORKER_TEST_S):
+        straight = list(tp.batches(pattern, tv, dataclasses.replace(cfg, worker_count=0)))
+        it = tp.batches(pattern, tv, cfg)
+        for _ in range(3):                           # 12 of the epoch's 23 records
+            next(it)
+        state = it.get_state()
+        assert state == {"epoch": 0, "index": 12}
+        resumed = tp.batches(pattern, tv, cfg)
+        resumed.set_state(state)
+        rest = list(resumed)
+        # set_state on a running iterator restarts its workers there
+        first = _workers_of(it)
+        it.set_state({"epoch": 1, "index": 5})              # position 28: batch 7
+        assert not any(p.is_alive() for p in first)
+        again = [next(it) for _ in range(2)]
+        it.close()
+    _assert_same_batches(rest, straight[3:])
+    _assert_same_batches(again, straight[7:9])
+
+
+def test_workers_leave_no_process_after_close_or_an_error(data, tmp_path):
+    pattern, _, tv = data
+    cfg = tp.PipelineConfig(batch_size=4, host_size=37, max_len=6, worker_count=2,
+                            decode_threads=2)
+    with time_limit(WORKER_TEST_S):
+        it = tp.batches(pattern, tv, cfg)        # closed
+        next(it)
+        procs = _workers_of(it)
+        it.close()
+        assert procs and not any(p.is_alive() for p in procs)
+        it = tp.batches(pattern, tv, cfg)        # dropped
+        next(it)
+        procs = _workers_of(it)
+        del it
+        gc.collect()
+        for p in procs:
+            p.join(timeout=15)
+        assert not any(p.is_alive() for p in procs)
+        # a record a worker cannot decode: its error is raised here
+        bad = [trec.post_to_example(b"not a jpeg", "sad", 3, post_id="x")] * 8
+        trec.write_sharded_tfrecords(bad, str(tmp_path), "bad", 1)
+        it = tp.batches(str(tmp_path / "bad-*.tfrecord"), tv, cfg)
+        with pytest.raises(ValueError, match="JPEG decode failed"):
+            next(it)
+        assert it._pool is None
 
 
 def test_text_batches_resume_at_the_exact_batch():

@@ -1,5 +1,7 @@
-"""The port's record IO (TFRecord framing, tf.Example, the C++ crc32c) and
-dataset converter against the JAX package's and TF's, byte for byte."""
+"""The port's record IO (TFRecord framing, tf.Example, the C++ crc32c,
+ArrayRecord shards with their HighwayHash and zstd) and dataset converter
+against the JAX package's, TF's and array_record's, byte for byte or
+record for record."""
 
 import csv
 import glob
@@ -8,15 +10,18 @@ import shutil
 from pathlib import Path
 
 import google_crc32c
+import grain
 import numpy as np
 import pytest
 import tensorflow as tf
+from array_record.python.array_record_module import ArrayRecordReader as RefReader
+from array_record.python.array_record_module import ArrayRecordWriter as RefWriter
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from tumblr_emotions_torch.data import convert as tconvert
 from tumblr_emotions_torch.data import records as trec
-from tumblr_emotions_torch.utils import crc32c
+from tumblr_emotions_torch.utils import crc32c, highwayhash, zstd
 from tumblr_emotions_tpu.data import convert as jconvert
 from tumblr_emotions_tpu.data import records as jrec
 
@@ -111,10 +116,141 @@ def test_corruption_is_detected(tmp_path, where):
 
 
 def test_arrayrecord_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="6\\(d'\\)"):
-        list(trec.read_sharded(str(tmp_path / "train-*.arrayrecord")))
-    with pytest.raises(NotImplementedError, match="array_record"):
-        tconvert.convert("x.csv", "", str(tmp_path), record_format="arrayrecord")
+    """ArrayRecord shards, once refused, round trip: the port's
+    ``write_sharded_arrayrecords`` read by the reference's
+    ``read_sharded_arrayrecords`` and the reference's read by the port's,
+    record for record, with records over 64 KiB; brotli and snappy chunks
+    stay refused, by name."""
+    exs = _records(23, seed=1)
+    trec.write_sharded_arrayrecords(exs, str(tmp_path / "t"), "train", 3)
+    jrec.write_sharded_arrayrecords(exs, str(tmp_path / "j"), "train", 3)
+    for d in ("t", "j"):
+        pattern = str(tmp_path / d / "train-*.arrayrecord")
+        assert list(trec.read_sharded_arrayrecords(pattern)) == \
+            list(jrec.read_sharded_arrayrecords(pattern)) == [
+                exs[i] for shard in range(3) for i in range(shard, len(exs), 3)]
+    assert sorted(os.listdir(tmp_path / "t")) == sorted(os.listdir(tmp_path / "j"))
+    for kind in ("brotli", "snappy"):
+        path = str(tmp_path / f"{kind}.arrayrecord")
+        w = RefWriter(path, f"group_size:1,{kind}")
+        w.write(b"x" * 100)
+        w.close()
+        with pytest.raises(NotImplementedError, match=kind):
+            trec.ArrayRecordReader(path).read()
+        with pytest.raises(NotImplementedError, match=kind):
+            trec.ArrayRecordWriter(str(tmp_path / "w.arrayrecord"), kind)
+
+
+def _records(n, seed=0):
+    """``n`` seeded records: empty, short, compressible and random ones, a
+    third of them over 65,536 bytes, so their chunks cross block headers."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        size = [0, 7, 300, 40_000, 65_536 - 109, 70_000, 140_001][i % 7]
+        out.append(rng.bytes(size) if i % 2 else bytes([i % 251]) * size)
+    return out
+
+
+def test_highwayhash_is_the_published_function_and_riegelis_hashes():
+    """The published test vectors (key 0..31), and every header and data
+    hash of a file the reference's writer wrote."""
+    key = (0x0706050403020100, 0x0F0E0D0C0B0A0908, 0x1716151413121110, 0x1F1E1D1C1B1A1918)
+    assert [highwayhash.hash64(bytes(range(i)), key) for i in range(3)] == [
+        0x907A56DE22C26E53, 0x7EAB43AAC7CDDD78, 0xB8D0569AB0B53D62]
+
+
+def test_highwayhash_verifies_a_reference_written_file(tmp_path):
+    import struct
+
+    path = tmp_path / "r.arrayrecord"
+    w = RefWriter(str(path), "group_size:1")
+    for r in _records(7, seed=2):
+        w.write(r)
+    w.close()
+    data = path.read_bytes()
+    checked = 0
+    for b in range(0, len(data), trec.BLOCK):                 # every block header
+        h, prev, nxt = struct.unpack("<QQQ", data[b:b + 24])
+        assert h == highwayhash.hash64(data[b + 8:b + 24])
+        checked += 1
+    reader = trec.ArrayRecordReader(str(path))
+    counts = reader.verify()                                  # every chunk
+    assert counts == {"s": 1, "r": 9, "p": 2} and checked == len(data) // trec.BLOCK
+
+
+@pytest.mark.parametrize("options", ["group_size:1", "group_size:3", "",
+                                     "group_size:2,uncompressed",
+                                     "group_size:1,zstd:1,window_log:18"])
+def test_arrayrecord_files_read_both_ways(tmp_path, options):
+    """Each package's writer read by the other's reader and by grain's
+    ``ArrayRecordDataSource``, record for record, by index and in order."""
+    recs = _records(15, seed=3)
+    port, ref = str(tmp_path / "p.arrayrecord"), str(tmp_path / "r.arrayrecord")
+    with trec.ArrayRecordWriter(port, options) as w:
+        for r in recs:
+            w.write(r)
+    w = RefWriter(ref, options)
+    for r in recs:
+        w.write(r)
+    w.close()
+    idx = list(range(len(recs)))
+    assert trec.ArrayRecordReader(ref).read() == recs
+    assert trec.ArrayRecordReader(port).read(idx[::-1]) == recs[::-1]
+    assert list(RefReader(port).read(idx)) == recs
+    source = grain.sources.ArrayRecordDataSource([port, ref])
+    assert len(source) == 2 * len(recs)
+    assert [source[i] for i in range(len(source))] == recs + recs
+    assert trec.ArrayRecordReader(port).writer_options == \
+        trec.ArrayRecordReader(ref).writer_options
+
+
+def test_arrayrecord_files_are_byte_equal_but_for_small_footers(tmp_path):
+    """With three or more records the port's file is the reference's byte
+    for byte (same libzstd parameters, fed 64 KiB at a time, as riegeli
+    feeds it); a footer of one or two entries the reference compresses with
+    its size hint and without the size in the frame, which only its frame
+    header shows."""
+    recs = _records(9, seed=4)
+    for n, equal in ((3, True), (9, True), (2, False)):
+        port, ref = str(tmp_path / f"p{n}"), str(tmp_path / f"r{n}")
+        with trec.ArrayRecordWriter(port) as w:
+            for r in recs[:n]:
+                w.write(r)
+        w = RefWriter(ref, "group_size:1")
+        for r in recs[:n]:
+            w.write(r)
+        w.close()
+        assert (Path(port).read_bytes() == Path(ref).read_bytes()) is equal, n
+        assert trec.ArrayRecordReader(port).read() == trec.ArrayRecordReader(ref).read()
+
+
+@pytest.mark.parametrize("where", ["chunk_header", "chunk_data", "data_past_a_block"])
+def test_a_flipped_byte_is_refused_by_both(tmp_path, where):
+    path = tmp_path / "f.arrayrecord"
+    with trec.ArrayRecordWriter(str(path)) as w:
+        w.write(b"small record " * 20)
+        w.write(np.random.RandomState(5).bytes(100_000))
+    raw = bytearray(path.read_bytes())
+    # the first record's chunk begins at 64, after the signature chunk; the
+    # second's data crosses the block header at 65,536
+    raw[{"chunk_header": 64 + 20, "chunk_data": 64 + 40 + 10,
+         "data_past_a_block": trec.BLOCK + 24 + 100}[where]] ^= 0x01
+    path.write_bytes(bytes(raw))
+    with pytest.raises(IOError, match="corrupt"):
+        trec.ArrayRecordReader(str(path)).read()
+    with pytest.raises(RuntimeError, match="hash mismatch"):
+        reader = RefReader(str(path))
+        reader.read(list(range(reader.num_records())))
+
+
+def test_zstd_frames_decode_to_their_size():
+    data = np.random.RandomState(6).bytes(200_000) + bytes(100_000)
+    frame = zstd.compress(data)
+    assert frame[:4] == b"\x28\xb5\x2f\xfd" and zstd.decompress(frame, len(data)) == data
+    with pytest.raises(ValueError):
+        zstd.decompress(frame, len(data) - 1)
+    assert zstd.version().count(".") == 2
 
 
 def _posts_dir(tmp_path):
@@ -151,3 +287,23 @@ def test_convert_output_is_byte_equal_to_the_reference(tmp_path):
     for name in jfiles:
         assert (tmp_path / "j" / name).read_bytes() == (tmp_path / "t" / name).read_bytes(), name
     assert len(glob.glob(str(tmp_path / "t" / "train-*.tfrecord"))) == 3
+
+
+def test_convert_arrayrecord_output_holds_the_references_records(tmp_path):
+    """``record_format="arrayrecord"``: the reference converter's shard names,
+    labels and vocabulary byte for byte, and the same records in each shard."""
+    csv_path, images = _posts_dir(tmp_path)
+    kw = dict(num_shards=3, valid_fraction=0.3, min_freq=1, record_format="arrayrecord")
+    want = jconvert.convert(str(csv_path), str(images), str(tmp_path / "j"), **kw)
+    got = tconvert.convert(str(csv_path), str(images), str(tmp_path / "t"), **kw)
+    assert got == want and got["validation"] > 0
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert names == sorted(os.listdir(tmp_path / "t"))
+    assert sum(n.endswith(".arrayrecord") for n in names) == 6
+    for name in names:
+        j, t = tmp_path / "j" / name, tmp_path / "t" / name
+        if name.endswith(".arrayrecord"):
+            assert trec.ArrayRecordReader(str(t)).read() == \
+                list(RefReader(str(j)).read(list(range(RefReader(str(j)).num_records()))))
+        else:
+            assert j.read_bytes() == t.read_bytes(), name

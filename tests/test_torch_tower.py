@@ -116,7 +116,7 @@ def test_tower_rejects_train_mode_and_wrong_rank(towers):
 # ---------------------------------------------------------------------------
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tumblr_emotions_tpu", "PIL", "grain", "orbax",
-             "google_crc32c", "tensorflow", "clu", "tensorboard")
+             "google_crc32c", "tensorflow", "clu", "tensorboard", "array_record")
 
 
 def _imports(path):
@@ -156,6 +156,13 @@ def test_port_imports_with_jax_blocked():
             "import tumblr_emotions_torch.utils.compile_opts, tumblr_emotions_torch.analysis\n"
             "import tumblr_emotions_torch.data.word2vec, tumblr_emotions_torch.data.scraper\n"
             "import tumblr_emotions_torch.models.layers\n"
+            "import tumblr_emotions_torch.utils.highwayhash, tumblr_emotions_torch.utils.zstd\n"
+            "import tempfile, os\n"
+            "from tumblr_emotions_torch.data import records\n"
+            "p = os.path.join(tempfile.mkdtemp(), 'a.arrayrecord')\n"
+            "with records.ArrayRecordWriter(p) as w:\n"
+            "    w.write(b'x' * 70000)\n"
+            "assert records.ArrayRecordReader(p).read() == [b'x' * 70000]\n"
             "from tumblr_emotions_torch.data import jpeg\n"
             "for m in ('islow', 'ifast', 'float'):\n"
             "    assert jpeg.decode(open(%r, 'rb').read(), dct_method=m).shape == (97, 161, 3)\n"

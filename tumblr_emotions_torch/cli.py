@@ -32,8 +32,12 @@ environment); each process reads its shard of the records.  Every served
 program runs as one captured CUDA graph per batch shape, and so do
 ``train``'s and ``eval``'s steps (``utils/compile_opts.py``;
 ``TET_TORCH_COMPILER_OPTIONS`` and ``TET_TORCH_TRAIN_COMPILER_OPTIONS``
-override the options, ``tune`` and ``tune --step train`` measure them).  Commands and flags the port does not
-have yet are refused with the ROADMAP item that brings them.
+override the options, ``tune`` and ``tune --step train`` measure them).
+``infer --dp`` and ``serve --dp`` split each batch of the int8 and bf16
+engines over every visible card (``ops/serving.data_parallel_server``);
+``infer`` and ``serve`` run one process, and take the process-group flags
+without acting on them, as the reference's do.  ``--records`` takes
+TFRecord or ArrayRecord (``.arrayrecord``) shards.
 """
 
 from __future__ import annotations
@@ -50,21 +54,10 @@ import numpy as np
 
 log = logging.getLogger("tumblr_emotions_torch")
 
-# Refused commands and flags -> the ROADMAP (Queue 1) item that brings them.
-LEFT = {
-    "--dp": "6(j) (serving one batch over several cards, what is left of 6(h))",
-    "multi-process": "6(j) (serving one batch over several cards, what is left of 6(h))",
-}
-
-
-def _left(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet: ROADMAP Queue 1, item {LEFT[what]}")
-
-
 def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--preset", default="joint_finetune")
     p.add_argument("--model", choices=["text", "image", "joint"], default=None)
-    p.add_argument("--records", default="", help="TFRecord glob")
+    p.add_argument("--records", default="", help="TFRecord or .arrayrecord glob")
     p.add_argument("--csv", default="", help="posts CSV (text-only runs)")
     p.add_argument("--vocab", default="", help="vocab.txt path")
     p.add_argument("--embeddings", default="", help="GloVe txt / .npy matrix")
@@ -181,13 +174,15 @@ def _maybe_init_distributed(args) -> None:
             args.device, rank, distributed.local_world_size(world)))
 
 
-def _check_single_process(args) -> None:
-    """One process on one device (infer, serve): a multi-process run is
-    refused."""
-    if args.num_processes > 1 or args.process_id > 0 or args.coordinator_address:
-        raise _left("multi-process")
-    if getattr(args, "dp", False):
-        raise _left("--dp")
+def _serving_devices(args, dev, engine: str, model: str) -> list:
+    """The devices ``infer`` and ``serve`` split each batch over: with
+    ``--dp``, every visible card (the one CPU for ``--device cpu``), else
+    ``dev``; the parity engine and a text model stay on ``dev``."""
+    import torch
+
+    if not args.dp or engine == "parity" or model == "text" or dev.type != "cuda":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _make_batches(args, cfg, vocab, train: bool, shard_eval: bool = False):
@@ -469,7 +464,7 @@ def _post_lookup(args, result):
     if args.records:
         from tumblr_emotions_torch.data import pipeline, records
 
-        idx = pipeline.TFRecordIndex(args.records)
+        idx = pipeline.record_source(args.records)
         for i in needed:
             if 0 <= i < len(idx):
                 post = records.example_to_post(idx[i])
@@ -519,7 +514,6 @@ def cmd_infer(args) -> int:
     from tumblr_emotions_torch.models.joint_model import tower_state
     from tumblr_emotions_torch.ops import serving as serving_lib
 
-    _check_single_process(args)
     cfg = _build_config(args)
     if cfg.model == "text":
         raise SystemExit("infer serves the image/joint towers; use eval/predict for "
@@ -532,7 +526,8 @@ def cmd_infer(args) -> int:
     weights = _weights(_restored(trainer, state, "serving"))
     tower = weights if cfg.model == "image" else tower_state(weights)
     calib = _calibration(cfg, batches[0]["image"], dev) if args.engine == "int8" else None
-    runner = serving_lib.build_forward(cfg, weights, engine=args.engine, device=dev,
+    devices = _serving_devices(args, dev, args.engine, cfg.model)
+    runner = serving_lib.build_forward(cfg, weights, engine=args.engine, devices=devices,
                                        calib_images=calib, front=args.front)
 
     def forward(b):
@@ -570,7 +565,7 @@ def cmd_infer(args) -> int:
     summary = {"examples": n, "engine": args.engine,
                "accuracy": round(n_correct / max(n, 1), 4),
                "images_per_sec": round(n_timed / max(t_total, 1e-9), 1),
-               "forwards": len(batches) + 1}
+               "forwards": len(batches) + 1, "devices": len(devices)}
     if args.validate and args.engine == "int8":
         from tumblr_emotions_torch.ops.quant import quantization_delta
 
@@ -590,7 +585,6 @@ def build_server(args):
     from tumblr_emotions_torch.ops import serving as serving_lib
     from tumblr_emotions_torch.server import BatchedPredictor, EmotionHTTPServer
 
-    _check_single_process(args)
     cfg = _build_config(args)
     emotions = _load_emotions(args)
     if args.engine == "int8" and cfg.model != "text" and not args.records:
@@ -602,11 +596,15 @@ def build_server(args):
     dev = trainer.device
     weights = _weights(_restored(trainer, state, "serving"))
     engine = "parity" if cfg.model == "text" else args.engine
+    devices = _serving_devices(args, dev, engine, cfg.model)
+    if B % len(devices):
+        raise SystemExit(f"--serve-batch-size {B} does not split over {len(devices)} "
+                         f"devices: use a multiple of {len(devices)}")
     calib = None
     if engine == "int8":
         first = next(iter(_make_batches(args, cfg, vocab, train=False)))
         calib = _calibration(cfg, first["image"], dev)
-    runner = serving_lib.build_forward(cfg, weights, engine=engine, device=dev,
+    runner = serving_lib.build_forward(cfg, weights, engine=engine, devices=devices,
                                        calib_images=calib, front=args.front)
     predictor = BatchedPredictor(
         runner, B, host_size=S, needs_image=cfg.model in ("image", "joint"),
@@ -622,7 +620,8 @@ def build_server(args):
                               request_timeout=args.request_timeout)
     info = {"serving": True, "host": httpd.server_address[0],
             "port": httpd.server_address[1], "engine": engine, "model": cfg.model,
-            "batch_size": B, "max_delay_ms": args.max_delay_ms, "device": str(dev)}
+            "batch_size": B, "max_delay_ms": args.max_delay_ms, "device": str(dev),
+            "devices": len(devices)}
     return httpd, dict(info, runner=runner)
 
 
@@ -978,7 +977,9 @@ def parser() -> argparse.ArgumentParser:
         p.add_argument("--front", choices=["s2d", "uint8", "float"], default="s2d",
                        help="int8 preprocess front: s2d (the benchmarked default), uint8 "
                             "(all-int8), float (normal layout)")
-        p.add_argument("--dp", action="store_true", help=f"refused: ROADMAP {LEFT['--dp']}")
+        p.add_argument("--dp", action="store_true",
+                       help="split each batch over every visible card (int8 and bf16 "
+                            "engines; the batch must be a multiple of the card count)")
         if name == "infer":
             p.add_argument("--out", default="", help="output JSONL path")
             p.add_argument("--probs-out", default="",

@@ -1,5 +1,5 @@
-"""Dataset converter: posts CSV + image files -> sharded TFRecords + labels
-file + vocab.
+"""Dataset converter: posts CSV + image files -> sharded TFRecords (or
+ArrayRecords) + labels file + vocab.
 
 Port of ``tumblr_emotions_tpu/data/convert.py``, whose output files it
 writes byte for byte: for each CSV row
@@ -40,10 +40,11 @@ def convert(csv_path: str, images_dir: str, out_dir: str,
             record_format: str = "tfrecord") -> Dict[str, int]:
     """Returns {"train": n, "validation": n, "skipped": n}.
 
-    ``record_format`` is ``"tfrecord"``; ``"arrayrecord"`` is refused."""
-    if record_format != "tfrecord":
-        if record_format == "arrayrecord":
-            raise NotImplementedError(records_lib.ARRAYRECORD_LEFT)
+    ``record_format``: ``"tfrecord"`` or ``"arrayrecord"`` (the same Examples
+    in the same shards, as ``.arrayrecord`` files)."""
+    writers = {"tfrecord": records_lib.write_sharded_tfrecords,
+               "arrayrecord": records_lib.write_sharded_arrayrecords}
+    if record_format not in writers:
         raise ValueError(f"unknown record_format {record_format!r}")
     posts = load_posts_csv(csv_path, emotions=emotions)
     os.makedirs(out_dir, exist_ok=True)
@@ -72,7 +73,7 @@ def convert(csv_path: str, images_dir: str, out_dir: str,
 
     for split, exs in buckets.items():
         if exs:
-            records_lib.write_sharded_tfrecords(exs, out_dir, split, num_shards)
+            writers[record_format](exs, out_dir, split, num_shards)
     with open(os.path.join(out_dir, "labels.txt"), "w") as f:
         for name in emotions:
             f.write(name + "\n")

@@ -1,23 +1,27 @@
-"""Host input pipeline: TFRecord shards in grain's order, C++ JPEG decode,
-a resumable batch iterator and a prefetching feed to the card.
+"""Host input pipeline: TFRecord or ArrayRecord shards in grain's order, C++
+JPEG decode, a resumable batch iterator (in-process or over worker
+processes) and a prefetching feed to the card.
 
 Port of ``tumblr_emotions_tpu/data/pipeline.py`` without grain:
 
-  TFRecordIndex (random access into TFRecord shards through an offset index)
+  record_source: TFRecordIndex (random access into TFRecord shards through
+    an offset index) or ArrayRecordSource (grain's ``ArrayRecordDataSource``:
+    one global index over the sorted ``.arrayrecord`` shards)
     -> RecordOrder (grain's MapDataset chain: ``[shard_index::shard_count]``,
        ``.shuffle(seed)`` by ``data/index_shuffle.py``, ``.repeat(num_epochs)``
        with a new permutation per epoch, ``.batch(batch_size)`` across epoch
        boundaries), so the batches are the reference's, record for record
     -> RecordBatches (decode + PIL-bilinear resize of each batch in one call
        of the port's C++ decoder pool; ``get_state``/``set_state`` over the
-       position, so a run resumes at the exact record)
+       position, so a run resumes at the exact record; ``worker_count = N``
+       assembles the batches in N spawned processes, worker ``w`` batches
+       ``w, w+N, ...``, as grain's ``mp_prefetch`` splits them)
     -> DevicePrefetchIterator (a producer thread keeps ``depth`` batches on
        the card, copied from pinned host memory on a side stream)
 
 Static shapes throughout: every batch is [B, host_size, host_size, 3] uint8
 plus label/weight (and token/length) arrays; with ``drop_remainder=False``
-the last batch is padded with weight-0 rows.  Left for later: grain's
-multiprocess workers (``worker_count > 0``) and ArrayRecord shards.
+the last batch is padded with weight-0 rows.
 """
 
 from __future__ import annotations
@@ -26,12 +30,18 @@ import dataclasses
 import glob
 import json
 import math
+import multiprocessing
 import os
+import pickle
 import queue
 import struct
 import sys
 import threading
-from typing import Any, Dict, Iterable, Optional
+import time
+import traceback
+import weakref
+from multiprocessing import shared_memory
+from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -40,10 +50,6 @@ from tumblr_emotions_torch.data import jpeg
 from tumblr_emotions_torch.data import records as records_lib
 from tumblr_emotions_torch.data.index_shuffle import shuffled_indices
 from tumblr_emotions_torch.data.vocab import Vocabulary
-
-WORKERS_LEFT = ("worker_count > 0 (grain's multiprocess workers) is not ported (ROADMAP "
-                "Queue 1, item 6(d')); decode runs on the C++ pool's decode_threads")
-
 
 class TFRecordIndex:
     """Random access into sharded TFRecord files via an offset index.
@@ -56,7 +62,6 @@ class TFRecordIndex:
     """
 
     def __init__(self, pattern: str, use_cache: bool = True):
-        records_lib.refuse_arrayrecord(pattern)
         self.paths = sorted(p for p in glob.glob(pattern)
                             if not p.endswith(".idx") and ".idx.tmp." not in p)
         if not self.paths:
@@ -120,6 +125,35 @@ class TFRecordIndex:
         return os.pread(f.fileno(), ln, off)
 
 
+class ArrayRecordSource:
+    """Random access over the ``.arrayrecord`` shards ``pattern`` matches, as
+    grain's ``ArrayRecordDataSource`` over the sorted paths: record ``i`` of
+    one global index, the shards laid end to end."""
+
+    def __init__(self, pattern: str):
+        self.paths = records_lib.shard_paths(pattern)
+        self._readers = [records_lib.ArrayRecordReader(p) for p in self.paths]
+        self._starts = np.cumsum([0] + [len(r) for r in self._readers])
+
+    def __len__(self) -> int:
+        return int(self._starts[-1])
+
+    def __getitem__(self, i: int) -> bytes:
+        i = int(i)
+        if not 0 <= i < len(self):
+            raise IndexError(f"record {i} of {len(self)}")
+        f = int(np.searchsorted(self._starts, i, side="right")) - 1
+        return self._readers[f][i - int(self._starts[f])]
+
+
+def record_source(pattern: str):
+    """The random-access source of ``pattern``'s records: ArrayRecord shards
+    when it names ``.arrayrecord`` files, else TFRecord shards."""
+    if ".arrayrecord" in pattern:
+        return ArrayRecordSource(pattern)
+    return TFRecordIndex(pattern)
+
+
 @dataclasses.dataclass
 class PipelineConfig:
     batch_size: int = 32
@@ -131,7 +165,7 @@ class PipelineConfig:
     drop_remainder: bool = True
     decode_threads: int = 8
     dct_method: str = "islow"
-    worker_count: int = 0          # grain multiprocess workers: refused
+    worker_count: int = 0          # batch-assembling worker processes (0: in-process)
     shard_index: int = 0           # this host's shard (multi-host DP)
     shard_count: int = 1
 
@@ -212,19 +246,13 @@ def _parse_meta(raw: bytes, vocab: Optional[Vocabulary],
     return out
 
 
-def _check_config(cfg: PipelineConfig) -> None:
-    if cfg.worker_count > 0:
-        raise NotImplementedError(WORKERS_LEFT)
-
-
 class RecordDataset:
     """Random access over the examples in the reference's order
     (``make_dataset``): item ``i`` is the example dict at global position
     ``i``, its image decoded and resized on the host."""
 
     def __init__(self, pattern: str, vocab: Optional[Vocabulary], cfg: PipelineConfig):
-        _check_config(cfg)
-        self.source = TFRecordIndex(pattern)
+        self.source = record_source(pattern)
         self.order = RecordOrder(len(self.source), cfg)
         self.vocab, self.cfg = vocab, cfg
 
@@ -270,19 +298,26 @@ class RecordBatches:
     positions ``[b*B, min((b+1)*B, total))`` of :class:`RecordOrder` (grain
     batches after the repeat, across epoch boundaries).
 
-    ``get_state()`` is the position of the next record, ``{"epoch", "index"}``
-    (index within the shard's epoch); ``set_state`` resumes there, at the
-    exact record.
+    ``get_state()`` is the position of the next batch the consumer takes,
+    ``{"epoch", "index"}`` (index within the shard's epoch); ``set_state``
+    resumes there, at the exact record.  With ``cfg.worker_count = N > 0``
+    the batches are assembled by N worker processes (:class:`_WorkerPool`),
+    started at the first ``next`` from the position then, restarted there
+    by ``set_state``, and stopped by :meth:`close`, at the end, or when the
+    iterator is dropped; the batches are byte for byte those of N = 0.
     """
 
     def __init__(self, pattern: str, vocab: Optional[Vocabulary], cfg: PipelineConfig):
-        _check_config(cfg)
-        self.cfg, self.vocab = cfg, vocab
-        self.source = TFRecordIndex(pattern)
+        if cfg.worker_count < 0:
+            raise ValueError(f"worker_count must be >= 0, got {cfg.worker_count}")
+        self.pattern, self.cfg, self.vocab = pattern, cfg, vocab
+        self.source = record_source(pattern)
         self.order = RecordOrder(len(self.source), cfg)
         bs, total = cfg.batch_size, self.order.total
         self.num_batches = total // bs if cfg.drop_remainder else math.ceil(total / bs)
         self._next = 0
+        self._pool: Optional[_WorkerPool] = None
+        self._pool_finalizer = None
 
     def __iter__(self):
         return self
@@ -300,18 +335,42 @@ class RecordBatches:
         if pos % bs and pos != self.order.total:
             raise ValueError(f"iterator state {state} is not on a batch boundary "
                              f"(batch size {bs})")
+        self.close()
         self._next = -(-pos // bs)
 
     def __next__(self) -> Dict[str, np.ndarray]:
         if self._next >= self.num_batches:
+            self.close()
             raise StopIteration
+        if self.cfg.worker_count > 0:
+            if self._pool is None:
+                self._pool = _WorkerPool(self.pattern, self.vocab, self.cfg, self._next,
+                                         self.num_batches)
+                self._pool_finalizer = weakref.finalize(self, self._pool.close)
+            try:
+                batch = self._pool.take(self._next)
+            except BaseException:
+                self.close()  # a worker's error, or an interrupt: no process left
+                raise
+        else:
+            batch = self.batch(self._next)
+        self._next += 1
+        return batch
+
+    def close(self) -> None:
+        """Stop the worker processes, if any (a later ``next`` starts them anew)."""
+        if self._pool_finalizer is not None:
+            self._pool_finalizer()
+        self._pool = self._pool_finalizer = None
+
+    def batch(self, b: int) -> Dict[str, np.ndarray]:
+        """Batch ``b``, assembled in this process."""
         cfg = self.cfg
-        start = self._next * cfg.batch_size
+        start = b * cfg.batch_size
         stop = min(start + cfg.batch_size, self.order.total)
         recs = self.order.records(np.arange(start, stop)) % self.order.n
         examples = [_parse_meta(self.source[int(r)], self.vocab, cfg) for r in recs]
         batch = self._assemble(examples)
-        self._next += 1
         return batch if cfg.drop_remainder else _pad_to_static(batch, cfg.batch_size)
 
     def _assemble(self, examples) -> Dict[str, np.ndarray]:
@@ -331,11 +390,152 @@ class RecordBatches:
         return out
 
 
+def _unlink(name: str) -> None:
+    try:
+        shm = shared_memory.SharedMemory(name=name)
+    except FileNotFoundError:
+        return
+    shm.close()
+    shm.unlink()
+
+
+def _from_shared(name: str, shape) -> np.ndarray:
+    """The uint8 images a worker left in shared memory ``name``, copied out;
+    the segment is removed."""
+    shm = shared_memory.SharedMemory(name=name)
+    try:
+        view = np.ndarray(shape, np.uint8, buffer=shm.buf)
+        out = view.copy()
+        del view
+        return out
+    finally:
+        shm.close()
+        shm.unlink()
+
+
+def _worker_main(pattern: str, vocab: Optional[Vocabulary], cfg: PipelineConfig,
+                 first: int, step: int, num_batches: int, out: "multiprocessing.Queue",
+                 stop, parent_pid: int) -> None:
+    """A worker process: batches ``first, first+step, ...`` into ``out`` as
+    ("batch", (b, the batch but its images, the shared-memory segment
+    holding them, their shape)), or ("error", exception) once and stop.
+    The images, most of a batch's bytes, go through shared memory: through
+    the queue's pipe they cost more than their decode.  It stops when
+    ``stop`` is set or its parent is gone, removing a segment it could not
+    hand over."""
+    def put(item) -> bool:
+        while not stop.is_set() and os.getppid() == parent_pid:
+            try:
+                out.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        out.cancel_join_thread()  # exit at once: nobody reads what is buffered
+        return False
+
+    try:
+        it = RecordBatches(pattern, vocab, dataclasses.replace(cfg, worker_count=0))
+        for b in range(first, num_batches, step):
+            batch = it.batch(b)
+            image = batch.pop("image")
+            shm = shared_memory.SharedMemory(create=True, size=image.nbytes)
+            view = np.ndarray(image.shape, np.uint8, buffer=shm.buf)
+            view[...] = image
+            del view
+            shm.close()
+            if not put(("batch", (b, batch, shm.name, image.shape))):
+                _unlink(shm.name)
+                return
+    except Exception as e:  # noqa: BLE001 -- re-raised in the parent
+        e.add_note(f"in pipeline worker {os.getpid()}:\n{traceback.format_exc()}")
+        try:
+            pickle.dumps(e)
+        except Exception:  # noqa: BLE001 -- an exception that does not pickle
+            e = RuntimeError(f"{type(e).__name__}: {e}\n{traceback.format_exc()}")
+        put(("error", e))
+
+
+class _WorkerPool:
+    """``cfg.worker_count`` processes of the ``spawn`` context (a child never
+    sees the parent's CUDA state): worker ``w`` assembles batches ``start + w,
+    start + w + N, ...`` with ``cfg.decode_threads`` decode threads each,
+    into a queue of its own two batches deep (the images in shared memory);
+    :meth:`take` returns them in order.  A worker's exception is raised by ``take``; a worker that dies
+    without one raises ``RuntimeError``."""
+
+    def __init__(self, pattern: str, vocab: Optional[Vocabulary], cfg: PipelineConfig,
+                 start: int, num_batches: int):
+        ctx = multiprocessing.get_context("spawn")
+        self._start, self._n = start, cfg.worker_count
+        self._stop = ctx.Event()
+        self._queues = [ctx.Queue(maxsize=2) for _ in range(self._n)]
+        self._procs: List = []
+        try:
+            for w, q in enumerate(self._queues):
+                p = ctx.Process(target=_worker_main, daemon=True,
+                                name=f"tet-pipeline-worker-{w}",
+                                args=(pattern, vocab, cfg, start + w, self._n, num_batches,
+                                      q, self._stop, os.getpid()))
+                p.start()
+                self._procs.append(p)
+        except BaseException:
+            self.close()
+            raise
+
+    def take(self, b: int) -> Dict[str, np.ndarray]:
+        w = (b - self._start) % self._n
+        q, proc = self._queues[w], self._procs[w]
+        while True:
+            try:
+                kind, payload = q.get(timeout=0.5)
+                break
+            except queue.Empty:
+                if not proc.is_alive():
+                    try:
+                        kind, payload = q.get(timeout=0.5)  # what it sent before exiting
+                        break
+                    except queue.Empty:
+                        raise RuntimeError(f"pipeline worker {w} exited (code "
+                                           f"{proc.exitcode}) before batch {b}") from None
+        if kind == "error":
+            raise payload
+        got, batch, name, shape = payload
+        batch = {"image": _from_shared(name, shape), **batch}
+        if got != b:
+            raise RuntimeError(f"pipeline worker {w} sent batch {got}, expected {b}")
+        return batch
+
+    def close(self) -> None:
+        """Stop every worker and wait for it (draining its queue, so it can
+        exit); one that does not exit within 10 s is terminated."""
+        self._stop.set()
+        deadline = time.monotonic() + 10
+        while any(p.is_alive() for p in self._procs) and time.monotonic() < deadline:
+            for q in self._queues:
+                try:
+                    while True:
+                        kind, payload = q.get_nowait()
+                        if kind == "batch":
+                            _unlink(payload[2])
+                except (queue.Empty, OSError, EOFError):
+                    pass
+            for p in self._procs:
+                p.join(timeout=0.05)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=5)
+        for q in self._queues:
+            q.close()
+            q.cancel_join_thread()
+
+
 def batches(pattern: str, vocab: Optional[Vocabulary], cfg: PipelineConfig
             ) -> RecordBatches:
-    """Batched numpy iterator over ``pattern``'s records in the reference's
-    order: JPEG decode and resize per batch through the C++ decoder's
-    thread pool (``cfg.decode_threads``).  With ``drop_remainder=False``
+    """Batched numpy iterator over ``pattern``'s records (TFRecord or
+    ArrayRecord shards) in the reference's order: JPEG decode and resize
+    per batch through the C++ decoder's thread pool (``cfg.decode_threads``),
+    in ``cfg.worker_count`` worker processes or in this one.  With ``drop_remainder=False``
     every batch, the last included, has ``cfg.batch_size`` rows (short
     remainders are zero-padded with weight-0 rows)."""
     return RecordBatches(pattern, vocab, cfg)

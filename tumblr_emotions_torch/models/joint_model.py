@@ -62,19 +62,21 @@ class DeepSentimentModel(nn.Module):
                                  round_weight_grad=False)
         self.eval()
 
-    def fuse(self, image_feature: torch.Tensor, token_ids, lengths=None
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def fuse(self, image_feature: torch.Tensor, token_ids, lengths=None,
+             exact: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Text branch + fusion head over a precomputed image feature [B, F]
         -> (logits, end_points: ImageFeature, TextFeature, Fused,
-        JointHidden, Logits, Predictions)."""
+        JointHidden, Logits, Predictions).  ``exact``: the head's products
+        summed in float64 (``layers.linear_f64``), as the served program
+        sums them."""
         txt = self.Text.represent(token_ids, lengths)
         fused = torch.cat([image_feature, txt.to(image_feature.dtype)], dim=-1)
         end_points = {"ImageFeature": image_feature, "TextFeature": txt, "Fused": fused}
         with full_f32():
             if self.JointHidden is not None:
-                fused = torch.relu(self.JointHidden(fused))
+                fused = torch.relu(self.JointHidden(fused, exact))
                 end_points["JointHidden"] = fused
-            pre = self.JointLogits.unrounded(fused)
+            pre = self.JointLogits.unrounded(fused, exact)
         logits = train_logits(pre, self)
         end_points["Logits"] = logits
         end_points["Predictions"] = torch.softmax(pre, dim=-1)

@@ -196,6 +196,17 @@ def bf16_linear(x: torch.Tensor, w: torch.Tensor, round_weight_grad: bool = True
     return _Bf16Linear.apply(x, w, round_weight_grad)
 
 
+def linear_f64(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """``x @ w^T + b`` (``w`` [out, in]) summed in float64 and rounded once to
+    f32.  A row's answer then does not depend on how many rows the call
+    holds, as an f32 GEMM's does (cuBLAS picks its kernel, and so its
+    summation order, by the row count), unless a float64 sum lies within
+    its own error of an f32 rounding point: the served heads use it, so a
+    batch split over devices is answered as the whole batch is."""
+    return F.linear(x.double(), w.double(), None if b is None else b.double()).float()
+
+
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
     """NHWC tensor -> NCHW view (channels_last strides, no copy)."""
     return x.permute(0, 3, 1, 2)
@@ -409,16 +420,19 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features, device=device))
                      if use_bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.unrounded(x).to(self.dtype)
+    def forward(self, x: torch.Tensor, exact: bool = False) -> torch.Tensor:
+        return self.unrounded(x, exact).to(self.dtype)
 
-    def unrounded(self, x: torch.Tensor) -> torch.Tensor:
+    def unrounded(self, x: torch.Tensor, exact: bool = False) -> torch.Tensor:
         """The output before its last rounding to ``dtype`` (f32), as a
-        head's softmax reads it in the jitted reference."""
+        head's softmax reads it in the jitted reference.  ``exact``: the
+        product summed in float64 (:func:`linear_f64`), the served heads' form."""
         d = self.dtype
         if d == torch.float32:
-            return F.linear(x, self.kernel, self.bias)
-        y = bf16_linear(x, self.kernel, self.round_weight_grad).to(d).float()
+            return linear_f64(x, self.kernel, self.bias) if exact else \
+                F.linear(x, self.kernel, self.bias)
+        y = (linear_f64(x.to(d), self.kernel.to(d)) if exact else
+             bf16_linear(x, self.kernel, self.round_weight_grad)).to(d).float()
         return y if self.bias is None else y + self.bias.to(d).float()
 
 

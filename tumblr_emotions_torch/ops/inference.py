@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from tumblr_emotions_torch._device import full_f32, resolve_device
-from tumblr_emotions_torch.models.layers import conv_f32_accumulate, to_nchw, to_nhwc
+from tumblr_emotions_torch.models.layers import (conv_f32_accumulate, linear_f64, to_nchw,
+                                                 to_nhwc)
 from tumblr_emotions_torch.ops.fused_inception import (
     INCEPTION_B_BRANCHES, _taps, block_plan, fold_batchnorm, fused_inception_a,
     fused_inception_b, inception_a_branches)
@@ -57,6 +58,7 @@ class FusedInceptionV3:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.use_kernels = use_kernels
+        self._state = state
         folded = fold_batchnorm(state)
         dev = self.device
         # The cuDNN convs' weights: rounded to dtype, held in f32 (see Rounding).
@@ -77,6 +79,13 @@ class FusedInceptionV3:
             w, b = folded["Logits/Conv2d_1c_1x1"]
             self.logits_w = (w[:, :, 0, 0].t().contiguous().to(dev), b.to(dev))
         self._packs: Dict[Tuple[str, ...], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def to(self, device) -> "FusedInceptionV3":
+        """This engine on ``device``, folded from the same state."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        return FusedInceptionV3(self._state, self.dtype, self.use_kernels, dev)
 
     # ---- building blocks ----
 
@@ -179,7 +188,7 @@ class FusedInceptionV3:
         logits = None
         if self.logits_w is not None:
             w, b = self.logits_w
-            logits = feature @ w + b
+            logits = linear_f64(feature, w.t(), b)   # rows independent of the batch
         return logits, feature
 
     # ---- cuDNN blocks (use_kernels=False; also the A/B ablation baseline) ----

@@ -42,6 +42,7 @@ order: the scales are close to the reference's, not bit-equal.
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -52,7 +53,7 @@ import torch.nn.functional as F
 from tumblr_emotions_torch._device import full_f32, resolve_device
 from tumblr_emotions_torch.data.preprocessing import (
     _interp_matrix_cached, central_crop_sizes, space_to_depth_2x2)
-from tumblr_emotions_torch.models.layers import max_pool, to_nchw, to_nhwc
+from tumblr_emotions_torch.models.layers import linear_f64, max_pool, to_nchw, to_nhwc
 from tumblr_emotions_torch.ops.fused_inception import fold_batchnorm
 from tumblr_emotions_torch.ops.int8_conv import (
     Epilogue, conv_int8, conv_int8_plain, conv_padding)
@@ -772,6 +773,22 @@ class QuantizedInceptionV3:
         self._ops: Optional[_Int8Ops] = None
         self.last_epilogue_kinds: Dict[str, str] = {}
 
+    def to(self, device) -> "QuantizedInceptionV3":
+        """This engine on ``device``: the same folded weights and calibrated
+        scales (shared, not calibrated again), its device weights, constants
+        and kernel plans made there at first use (the reference replicates
+        one engine's weights over its mesh)."""
+        dev = resolve_device(device)
+        if dev == self.device:
+            return self
+        out = copy.copy(self)
+        out.device = dev
+        if self.logits_w is not None:
+            out.logits_w = tuple(t.to(dev) for t in self.logits_w)
+        out._ops = None
+        out.last_epilogue_kinds = {}
+        return out
+
     def int8_ops(self) -> _Int8Ops:
         """The op set for the current ``scales`` (rebuilt if they were replaced)."""
         if self._ops is None or self._ops.scales is not self.scales:
@@ -814,8 +831,7 @@ class QuantizedInceptionV3:
         logits = None
         if self.logits_w is not None:
             w, b = self.logits_w
-            with full_f32():
-                logits = feature @ w + b
+            logits = linear_f64(feature, w.t(), b)   # rows independent of the batch
         return logits, feature
 
 

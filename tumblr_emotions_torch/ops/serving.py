@@ -1,7 +1,7 @@
-"""Serving: uint8 image batches (and post text) -> emotion probabilities on
-one card.
+"""Serving: uint8 image batches (and post text) -> emotion probabilities, on
+one card or split over several.
 
-Port of the one-device form of ``tumblr_emotions_tpu/ops/serving.py``:
+Port of ``tumblr_emotions_tpu/ops/serving.py``:
 
 - ``image_server`` is ``data_parallel_server`` on a single device
   (preprocess -> engine -> softmax); ``from_uint8=True`` serves the int8
@@ -9,13 +9,21 @@ Port of the one-device form of ``tumblr_emotions_tpu/ops/serving.py``:
 - ``joint_server`` is ``joint_data_parallel_server`` on a single device:
   the engine's image feature feeds ``DeepSentimentModel.fuse`` (text
   lookup, aggregator, concat fusion, joint softmax).
+- ``data_parallel_server`` and ``joint_data_parallel_server`` serve one
+  batch over a list of devices, as the reference's over its mesh's data
+  axis (``P("data")``): the engine is built once (one int8 calibration, its
+  scales shared) and copied to every device, each with its own captured
+  program; a batch's rows are split into equal parts in device order, every
+  device's part is launched before any is waited on, and the answers are
+  concatenated on the first device.  A batch that does not divide over the
+  devices is a ``ValueError``, as the reference's sharding refuses it.
 - ``build_forward`` builds the served program of an image, text or joint
-  model: the ``"int8"`` engine (the default, as in the reference:
-  ``QuantizedInceptionV3`` with the shift epilogue behind the front
-  ``front`` picks), the ``"bf16"`` BN-folded engine or the ``"parity"``
-  engine, the slim model in the config's precision mode (f32, or bf16 for
-  ``cfg.train.precision_mode == "perf"``); a text model always runs that
-  model.
+  model over ``devices``: the ``"int8"`` engine (the default, as in the
+  reference: ``QuantizedInceptionV3`` with the shift epilogue behind the
+  front ``front`` picks), the ``"bf16"`` BN-folded engine or the
+  ``"parity"`` engine, the slim model in the config's precision mode (f32,
+  or bf16 for ``cfg.train.precision_mode == "perf"``), on the first device
+  only; a text model always runs that model.
 
 The default served program is ``image_server(QuantizedInceptionV3(state,
 calib, stem_s2d="pre"))``, the program the JAX package's ``bench.py``
@@ -24,13 +32,14 @@ measures; its convs and max pools run as hand-written kernels
 preprocess, the engine, the text branch and the softmax) runs through
 ``utils.compile_opts.capture``, as the reference's runs through
 ``tpu_jit``: on the card, one CUDA graph per input signature, its inputs
-copied into static buffers, so a batch is one launch.  Multi-card serving
-comes with a later slice.
+copied into static buffers, so a batch is one launch per device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+import copy
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +52,11 @@ from tumblr_emotions_torch.models.joint_model import tower_state
 from tumblr_emotions_torch.ops.inference import FusedInceptionV3
 from tumblr_emotions_torch.ops.quant import QuantizedInceptionV3
 from tumblr_emotions_torch.utils.compile_opts import capture
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current device (kernels launch on its streams)."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
 def _checked(logits, feature):
@@ -118,7 +132,8 @@ def image_server(engine, device="cuda", preprocess_dtype=torch.bfloat16,
     program = capture(lambda raw: _checked(*front(raw)), device=dev)
 
     def serve(images):
-        return program(_uint8_batch(images))
+        with _on(dev):
+            return program(_uint8_batch(images))
 
     serve.program = program
     return serve
@@ -134,7 +149,8 @@ def joint_server(engine, model, device="cuda", preprocess_dtype=torch.bfloat16,
     The image tower runs in ``engine`` (int8 or bf16, fronts as for
     :func:`image_server`); its feature, in f32, feeds ``model.fuse`` (a
     ``DeepSentimentModel`` on ``device``), which carries the text lookup, the
-    aggregator and the fusion head.  ``lengths=None`` counts the non-pad ids.
+    aggregator and the fusion head (summed in float64, ``exact=True``, so a
+    row's answer does not depend on the batch's size).  ``lengths=None`` counts the non-pad ids.
     The whole program runs through ``capture`` (``serve.program``).
     """
     dev = resolve_device(device)
@@ -143,19 +159,105 @@ def joint_server(engine, model, device="cuda", preprocess_dtype=torch.bfloat16,
 
     def body(raw, tokens, lengths):
         _, feature = front(raw)
-        return model.fuse(feature.float(), tokens, lengths)[1]["Predictions"]
+        return model.fuse(feature.float(), tokens, lengths, exact=True)[1]["Predictions"]
 
     program = capture(body, device=dev)
 
     def serve(images, tokens, lengths=None):
-        return program(_uint8_batch(images), tokens, lengths)
+        with _on(dev):
+            return program(_uint8_batch(images), tokens, lengths)
 
     serve.program = program
     return serve
 
 
+def _device_list(devices) -> List[torch.device]:
+    devs = [resolve_device(d) for d in devices]
+    if not devs:
+        raise ValueError("serving needs at least one device")
+    return devs
+
+
+def _gather(parts: Sequence, dev: torch.device):
+    """The per-device answers (tensors, or tuples of them) concatenated
+    along the rows on ``dev``."""
+    if isinstance(parts[0], tuple):
+        return tuple(_gather([p[k] for p in parts], dev) for k in range(len(parts[0])))
+    return torch.cat([p.to(dev) for p in parts])
+
+
+def _data_parallel(servers: Sequence[Callable], devs: Sequence[torch.device]) -> Callable:
+    """``serve(*inputs)``: each input's rows (inputs of None stay None) split
+    into ``len(devs)`` equal parts in device order, part ``i`` served by
+    ``servers[i]`` on ``devs[i]``; every part is launched before any is
+    waited on, and the answers are concatenated on ``devs[0]``.  A numpy
+    input is split into views: each device's program copies its own rows
+    in.  One device serves the batch as it is.  ``serve.programs`` are the
+    servers' captured programs, ``serve.program`` the first."""
+    def serve(*inputs):
+        rows = next(int(a.shape[0]) for a in inputs if a is not None)
+        n = len(servers)
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not split over {n} devices: "
+                             f"serve batches of a multiple of {n}")
+        part = rows // n
+        outs = []
+        for i, (srv, dev) in enumerate(zip(servers, devs)):
+            with _on(dev):
+                outs.append(srv(*[None if a is None else a[i * part:(i + 1) * part]
+                                  for a in inputs]))
+        with _on(devs[0]):
+            return _gather(outs, devs[0])
+
+    if len(servers) == 1:
+        serve = servers[0]
+    serve.programs = [s.program for s in servers]
+    serve.program = servers[0].program
+    return serve
+
+
+def data_parallel_server(engine, devices: Sequence, preprocess_dtype=torch.bfloat16,
+                         from_uint8: bool = False, image_size: int = 299,
+                         central_fraction: float = 0.875, resize_method: str = "tf1"
+                         ) -> Callable[..., Tuple[torch.Tensor, torch.Tensor]]:
+    """:func:`image_server` over ``devices`` (a list of devices, or of names):
+    [B, H, W, 3] uint8 -> (probs [B, C] f32, feature [B, 2048] f32) on the
+    first device, B a multiple of ``len(devices)``.  ``engine`` is built
+    once and copied to each device (``engine.to``); ``serve.programs`` are
+    the per-device captured programs (``serve.program`` the first)."""
+    devs = _device_list(devices)
+    servers = [image_server(engine.to(d), device=d, preprocess_dtype=preprocess_dtype,
+                            from_uint8=from_uint8, image_size=image_size,
+                            central_fraction=central_fraction, resize_method=resize_method)
+               for d in devs]
+    return _data_parallel(servers, devs)
+
+
+def _model_on(model, dev: torch.device):
+    """``model`` (an ``nn.Module``) on ``dev``: itself there, else a copy."""
+    here = next(model.parameters()).device
+    return model if here == dev else copy.deepcopy(model).to(dev)
+
+
+def joint_data_parallel_server(engine, model, devices: Sequence,
+                               preprocess_dtype=torch.bfloat16, from_uint8: bool = False,
+                               image_size: int = 299, central_fraction: float = 0.875,
+                               resize_method: str = "tf1") -> Callable[..., torch.Tensor]:
+    """:func:`joint_server` over ``devices``: (raw_u8 [B,H,W,3], tokens
+    [B,T], lengths [B] or None) -> probs [B, C] f32 on the first device,
+    B a multiple of ``len(devices)``; the engine and the joint model
+    (its text branch and fusion head) copied to each device."""
+    devs = _device_list(devices)
+    servers = [joint_server(engine.to(d), _model_on(model, d), device=d,
+                            preprocess_dtype=preprocess_dtype, from_uint8=from_uint8,
+                            image_size=image_size, central_fraction=central_fraction,
+                            resize_method=resize_method) for d in devs]
+    return _data_parallel(servers, devs)
+
+
 def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
-                  device="cuda", calib_images=None, front: str = "s2d") -> Callable:
+                  device="cuda", calib_images=None, front: str = "s2d",
+                  devices: Optional[Sequence] = None) -> Callable:
     """``runner(image_u8, tokens=None, lengths=None) -> probs [B, C]`` for the
     model ``cfg`` describes (image / text / joint) and its port state dict
     (the joint state holds the tower under ``InceptionV3.``).  Unused inputs
@@ -166,7 +268,11 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
     package's ``build_forward`` builds it) or ``"parity"`` (the slim model
     ``models.build_model`` builds: f32 with TF32 off, or the bf16 model when
     ``cfg.train.precision_mode == "perf"``); a text model always runs that
-    model.  Every runner carries its device as ``runner.device``.  ``calib_images``
+    model.  ``devices`` (default ``[device]``): the int8 and bf16 engines
+    serve each batch split over them (:func:`data_parallel_server`; B a
+    multiple of their number); the parity engine and a text model run on
+    the first, as in the reference.  Every runner carries its first device
+    as ``runner.device`` and all of them as ``runner.devices``.  ``calib_images``
     (preprocessed f32 [N,H,W,3]) calibrates the int8 engine's activation
     scales.  ``front`` picks the int8 engine's preprocess: ``"s2d"``
     (default: the resize emits the 2x2 space-to-depth layout and the stem
@@ -174,18 +280,20 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
     resize GEMMs, no float image; TF1 resize only, any other resize falls
     back to the float front, as in the reference) or ``"float"`` (normal
     layout, stride-2 stem).  The int8 and bf16 runners carry their engine
-    as ``runner.engine``.  Every runner serves its program through
-    ``utils.compile_opts.capture`` (one CUDA graph per input signature on
-    the card, unless ``TET_TORCH_COMPILER_OPTIONS`` turns it off), as
-    ``runner.program`` (its eager program is ``runner.program.fn``); inputs may be
-    tensors anywhere or numpy arrays.  A parity or text runner carries its
+    as ``runner.engine`` (the first device's).  Every runner serves its
+    program through ``utils.compile_opts.capture`` (one CUDA graph per input
+    signature on the card, unless ``TET_TORCH_COMPILER_OPTIONS`` turns it
+    off), as ``runner.program`` (its eager program is ``runner.program.fn``),
+    one per device as ``runner.programs``; inputs may be tensors anywhere or
+    numpy arrays.  A parity or text runner carries its
     slim model as ``runner.model``.
     """
     if front not in ("s2d", "uint8", "float"):
         raise ValueError(f"unknown front {front!r}; expected s2d|uint8|float")
     if cfg.model not in ("image", "text", "joint"):
         raise ValueError(f"unknown model type {cfg.model!r}; expected image|text|joint")
-    dev = resolve_device(device)
+    devs = _device_list([device] if devices is None else devices)
+    dev = devs[0]
     size = cfg.image.image_size
     pp = dict(central_fraction=cfg.data.eval_central_crop,
               resize_method=cfg.data.resize_method)
@@ -211,8 +319,8 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
                 tokens = lengths = None
             return program(image, tokens, lengths)
 
-        runner.device = dev
-        runner.program = program
+        runner.device, runner.devices = dev, [dev]
+        runner.program, runner.programs = program, [program]
         runner.model = model
         return runner
 
@@ -237,16 +345,19 @@ def build_forward(cfg, state: Dict[str, torch.Tensor], engine: str = "int8",
     if cfg.model == "joint":
         model = build_model(cfg, device=dev)
         model.load_state_dict(state)
-        runner = joint_server(eng, model, device=dev, from_uint8=from_uint8,
-                              image_size=size, **pp)
+        server = joint_data_parallel_server(eng, model, devs, from_uint8=from_uint8,
+                                            image_size=size, **pp)
+
+        def runner(image, tokens, lengths=None):
+            return server(image, tokens, lengths)
     else:
-        img_server = image_server(eng, device=dev, from_uint8=from_uint8,
-                                  image_size=size, **pp)
+        server = data_parallel_server(eng, devs, from_uint8=from_uint8, image_size=size,
+                                      **pp)
 
         def runner(image, tokens=None, lengths=None):
-            return img_server(image)[0]
+            return server(image)[0]
 
-        runner.program = img_server.program
+    runner.program, runner.programs = server.program, server.programs
     runner.engine = eng  # the engine behind the runner (its scales, epilogue kinds)
-    runner.device = dev
+    runner.device, runner.devices = dev, devs
     return runner

@@ -134,6 +134,9 @@ class BatchedPredictor:
     text-only ones.  ``submit`` never blocks on the device: it returns a
     Future resolved by the batcher thread.  ``/healthz`` reports the
     runner's ``device`` (``build_forward`` sets it; the host otherwise).
+    A runner over several devices (``runner.devices``) splits each batch
+    over them, so ``batch_size`` must be a multiple of their number: any
+    other is refused here, before the first request.
     """
 
     def __init__(self, runner: Callable, batch_size: int, *,
@@ -147,6 +150,10 @@ class BatchedPredictor:
                  emotions: Sequence[str] = EMOTIONS):
         if needs_image is False and vocab is None:
             raise ValueError("text-only serving needs a vocabulary")
+        n_dev = len(getattr(runner, "devices", ()) or (None,))
+        if int(batch_size) % n_dev:
+            raise ValueError(f"serve batch size {batch_size} does not split over the "
+                             f"runner's {n_dev} devices: use a multiple of {n_dev}")
         self.runner = runner
         self.device = torch.device(getattr(runner, "device", "cpu"))
         self.batch_size = int(batch_size)

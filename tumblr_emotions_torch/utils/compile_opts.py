@@ -205,6 +205,7 @@ class Captured:
         self.graphed = device.type == "cuda" and options.get("cuda_graph") == "true"
         self._graphs: Dict[tuple, _Graph] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphed else None
+        self._capture_stream = None   # see _capture
         self._lock = threading.Lock()
         self._done = None     # event: the last call's copies out
         self.replays = 0      # graph launches
@@ -269,6 +270,23 @@ class Captured:
             g.staged = torch.cuda.Event()
             g.staged.record(torch.cuda.current_stream(self.device))
 
+    def _stream_for_capture(self):
+        """None (``torch.cuda.graph``'s own capture stream) where that stream
+        is on this program's device, else a stream of the program's own
+        there: torch's is made once per process, on the device current at
+        the first capture, and a capture on another device cannot use it.
+        (Every capture of one card's programs on torch's stream, as before
+        several devices were served: a stream per program tripped the
+        caching allocator's pool assert when the trainer captured anew.)"""
+        dev = self.device
+        default = getattr(torch.cuda.graph, "default_capture_stream", None)
+        if (default.device == dev if default is not None else
+                dev.type != "cuda" or dev.index == torch.cuda.current_device()):
+            return None
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        return self._capture_stream
+
     def _capture(self, key: tuple, args):
         """Warm up on a side stream (every lazy per-geometry plan, constant
         and tensor map is made there, outside the capture), capture the
@@ -298,7 +316,8 @@ class Captured:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream_for_capture(),
+                              capture_error_mode="thread_local"):
             g.static_out = self.fn(*static_in)
         graph.instantiate()
         g.graph = graph
