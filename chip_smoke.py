@@ -71,7 +71,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
                build_vocabulary over a seeded word list.  Every committed
                fixture JPEG (tests/data/jpeg) decodes and resizes on this
                machine's g++ build to the hashes the manifest recorded from
-               the JAX package's decode and PIL; 192 concurrent POSTs from 64
+               the JAX package's decode and PIL, at full size and at
+               scale_num 1-7 under every dct_method (host decode img/s at 8
+               threads at scale_num 1, 2, 4 and 8); 192 concurrent POSTs from 64
                client threads (fixture bodies, seeded captions in ?text= and
                X-Text) each answer the in-process runner's top and
                probabilities (1e-5) on the same decoded image and caption;
@@ -1017,6 +1019,19 @@ def http_phase(dev, smi, calib):
                 decoded[name] = _host_resize_uint8(img, HOST_SIZE)
                 if sha(decoded[name]) != want["resize_347_sha256"]:
                     fail(f"e2e_http: {name}'s {HOST_SIZE} px resize is not PIL's")
+        # ... and at each DCT-domain scale (scale_num 1-7), the scaled IDCTs
+        # as this machine's g++ builds them
+        for scale, by_method in sorted(want["decode_sha256_by_scale"].items()):
+            for method, digest in by_method.items():
+                try:
+                    got = sha(jpeg.decode(body_of[name], dct_method=method, scale_num=int(scale)))
+                except ValueError:
+                    got = None
+                if got != digest:
+                    fail(f"e2e_http: {name} at scale_num {scale} under {method} "
+                         f"{'is refused' if got is None else 'decodes'}, not as the reference "
+                         f"{'refuses it' if digest is None else 'decodes it'}")
+                checked += 1
     host_decode_rates(smi, [body_of[n] for n in sorted(manifest["files"])],
                       [body_of[n] for n in names if n.startswith("arith/")], checked)
 
@@ -1261,23 +1276,25 @@ def http_phase(dev, smi, calib):
 
 def host_decode_rates(smi, huffman, arith, checked):
     """The host decoder's img/s at 8 threads (decode only, no resize): the
-    Huffman fixtures under each dct_method, and the arithmetic-coded ones;
-    the best of three calls over about 200 images."""
+    Huffman fixtures under each dct_method, islow also at scale_num 1, 2 and
+    4, and the arithmetic-coded ones; about 1,000 images per call, the best
+    of five rounds that each time every case in turn (200 images took 10 ms
+    a call, and the first case timed in a process read up to 5x slow)."""
     from tumblr_emotions_torch.data import jpeg
 
-    def rate(datas, method):
-        jpeg.decode_batch(datas, dct_method=method, num_threads=8)
-        runs = []
-        for _ in range(3):
+    huffman = huffman * (-(-1000 // len(huffman)))
+    arith = arith * (-(-1000 // len(arith)))
+    cases = {m: (huffman, m, 8) for m in DCT_METHODS}
+    for scale in (1, 2, 4):
+        cases[f"islow_scale_{scale}"] = (huffman, "islow", scale)
+    cases["arith_islow"] = (arith, "islow", 8)
+    rates = {k: [] for k in cases}
+    for round_ in range(6):  # round 0 warms up
+        for k, (datas, method, scale) in cases.items():
             t = time.perf_counter()
-            jpeg.decode_batch(datas, dct_method=method, num_threads=8)
-            runs.append(len(datas) / (time.perf_counter() - t))
-        return runs
-
-    huffman = huffman * (-(-200 // len(huffman)))
-    arith = arith * (-(-200 // len(arith)))
-    rates = {m: rate(huffman, m) for m in DCT_METHODS}
-    rates["arith_islow"] = rate(arith, "islow")
+            jpeg.decode_batch(datas, dct_method=method, scale_num=scale, num_threads=8)
+            if round_:
+                rates[k].append(len(datas) / (time.perf_counter() - t))
     emit({"phase": "host_decode", "threads": 8, "images": len(huffman),
           "arith_images": len(arith), "img_s": rates,
           "best_img_s": {k: max(v) for k, v in rates.items()},

@@ -19,8 +19,10 @@ this directory as a data set keep theirs):
   fixtures above with ``arith_code`` set, as ``jpegtran -arithmetic`` does,
   by a small C helper compiled here against this machine's ``jpeglib.h``;
 - ``crafted/``: coefficients and quantizers that overflow the 16-bit SIMD
-  IDCTs, a sequential file without DHT (the standard tables), and a stray
-  FF in a scan (libjpeg's fast Huffman path and its fall-back);
+  IDCTs, a sequential file without DHT (the standard tables), a stray FF in
+  a scan (libjpeg's fast Huffman path and its fall-back), and a
+  hand-encoded file with 4x2 luma factors (scaled decoding scales its
+  chroma up from a factor of 4 in the IDCT, then upsamples it h2v1);
 - ``corrupt/``: a seeded set of corrupt variants of the fixtures: cuts
   inside the scans, no EOI, removed and duplicated restart markers, garbage
   before markers, byte flips, and forms the reference refuses.
@@ -28,8 +30,10 @@ this directory as a data set keep theirs):
 ``manifest.json`` records, per file, its layout and either that the JAX
 package's decoder (``tumblr_emotions_tpu.data.jpeg.decode``, libjpeg-turbo,
 fancy upsampling) refuses it, or the sha256 of its decode under each
-``dct_method`` (``decode_sha256`` is islow's) and of PIL's BILINEAR resize of
-the islow decode to 347x347
+``dct_method`` (``decode_sha256`` is islow's), of its decode at each
+``scale_num`` from 1 to 7 under each ``dct_method``
+(``decode_sha256_by_scale``, null where the reference refuses it) and of PIL's
+BILINEAR resize of the islow decode to 347x347
 (``tumblr_emotions_tpu.data.pipeline._host_resize_uint8``).  The port's
 tests and ``chip_smoke.py`` hold the port's decoder and resize to these
 hashes.  This is the one file that imports PIL and the JAX package.
@@ -59,6 +63,7 @@ from tumblr_emotions_tpu.data.pipeline import _host_resize_uint8  # noqa: E402
 
 HOST_SIZE = 347
 METHODS = ("islow", "ifast", "float")
+SCALES = range(1, 8)  # scale_num of the scaled hashes (8 is decode_sha256_by_method)
 SUBDIRS = ("arith", "crafted", "corrupt")
 NATURAL = [0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48,
            41, 34, 27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15,
@@ -452,6 +457,11 @@ def coded(lib, base):
             d = d.replace(b"\xff\xc4" + (len(p) + 2).to_bytes(2, "big") + p, b"", 1)
     out["crafted/no_dht_422_57x41.jpg"] = (
         "baseline 4:2:2 without DHT: the standard Huffman tables", d)
+    factors = [(4, 2), (1, 1), (1, 1)]
+    out["crafted/h4v2_42x26.jpg"] = (
+        "baseline Y 4x2, Cb and Cr 1x1, hand-encoded: at scale_num below 8 the chroma's "
+        "IDCT is twice the luma's and the upsampler's factors are 2x1",
+        encode(planes_for(np.random.RandomState(3), 42, 26, factors), factors, 42, 26))
     return out
 
 
@@ -522,14 +532,22 @@ def sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def scaled_sha(data: bytes, method: str, scale: int):
+    try:
+        return sha(ref_jpeg.decode(data, dct_method=method, scale_num=scale))
+    except ValueError:
+        return None
+
+
 def entry(layout: str, data: bytes) -> dict:
+    by_scale = {str(s): {m: scaled_sha(data, m, s) for m in METHODS} for s in SCALES}
     try:
         img = ref_jpeg.decode(data)
     except ValueError:
-        return {"layout": layout, "refused": True}
+        return {"layout": layout, "refused": True, "decode_sha256_by_scale": by_scale}
     by_method = {m: sha(ref_jpeg.decode(data, dct_method=m)) for m in METHODS}
     return {"layout": layout, "shape": list(img.shape), "decode_sha256": by_method["islow"],
-            "decode_sha256_by_method": by_method,
+            "decode_sha256_by_method": by_method, "decode_sha256_by_scale": by_scale,
             "resize_347_sha256": sha(_host_resize_uint8(img, HOST_SIZE))}
 
 

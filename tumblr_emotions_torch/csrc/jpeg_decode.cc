@@ -29,9 +29,19 @@
 //     saturated to 16 bits), ifast (jidctfst-sse2: 16-bit AA&N with pmulhw
 //     constants) and float (jidctflt-sse2: single-precision AA&N, rounded by
 //     adding a magic number); each output saturates to 0..255;
+//   * DCT-domain scaling to scale_num/8 (jdmaster.c): the output is
+//     ceil(size * scale_num / 8); each component's IDCT is scale_num samples
+//     wide, doubled while its sampling factors let the IDCT do the
+//     upsampling's work (4:2:0 chroma at 2 * scale_num); an IDCT of other
+//     than 8x8 reads the raw quantizers and is jidctred.c's 1x1, the SSE2
+//     2x2 and 4x4 (jidctred-sse2: 16-bit dequantization, 32-bit sums, the
+//     first pass saturated to 16 bits) or jidctint.c's 3x3 to 7x7, 10x10,
+//     12x12 and 14x14 (64-bit sums, a 32-bit work array);
 //   * upsampling as jdsample.c: fancy h2v1, h1v2 and h2v2 (the triangle
 //     filters, edge rows replicated as jdmainct.c does), replication for
 //     every other integral factor and for components 2 samples wide or less;
+//     chosen from the ratio of each component's scaled size to the output's,
+//     and never fancy at scale_num 1;
 //   * YCbCr->RGB with the fixed-point tables of jdcolor.c; RGB copied;
 //     grayscale replicated to RGB.
 //
@@ -277,14 +287,15 @@ struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int bw = 0, bh = 0;              // width_in_blocks / height_in_blocks
   int bw_alloc = 0, bh_alloc = 0;  // blocks of the interleaved MCU grid
-  int dw = 0, dh = 0;              // downsampled_width / height
+  int dw = 0, dh = 0;              // downsampled_width / height, after scaling
+  int ssize = 8;                   // DCT_scaled_size: the IDCT's output width
   bool quant_latched = false;      // quant_table != NULL
   uint16_t quant[64] = {};         // natural order
   std::vector<int16_t> coef;       // bw_alloc * bh_alloc * 64
   int dc_tbl = 0, ac_tbl = 0;
   int coef_bits[64];               // progression status, -1 = not yet seen
   int prev_coef_bits[64];          // the status before the current scan
-  std::vector<uint8_t> plane;      // IDCT output, stride bw * 8
+  std::vector<uint8_t> plane;      // IDCT output, stride bw * ssize
 };
 
 struct Decoder {
@@ -295,6 +306,7 @@ struct Decoder {
   bool progressive = false, arith = false;
   int precision = 0, width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
   int mcus_x = 0, mcus_y = 0;  // interleaved MCU grid; mcus_y = total_iMCU_rows
+  int scale = 8, out_w = 0, out_h = 0;  // scale_num and the output size
   Component comp[kMaxComponents];
   uint16_t qt[4][64] = {};
   bool qt_defined[4] = {};
@@ -641,6 +653,28 @@ struct Decoder {
       c.bh_alloc = mcus_y * c.v;
     }
     has_multiple_scans = comps_in_scan < ncomp || progressive;
+  }
+
+  // jpeg_calc_output_dimensions at scale_num/8: the output size, each
+  // component's IDCT size (doubled while its sampling factors let the IDCT
+  // scale it up in place of the upsampler) and its size in samples.  The
+  // coefficient blocks (bw, bh) stay as read_header set them.
+  void set_scale(int s) {
+    if (s < 1 || s > 8) fail("scale_num " + std::to_string(s) + " is not 1..8");
+    scale = s;
+    out_w = static_cast<int>((static_cast<long long>(width) * s + 7) / 8);
+    out_h = static_cast<int>((static_cast<long long>(height) * s + 7) / 8);
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      int ssize = s;
+      while (ssize < 8 && (hmax * s) % (c.h * ssize * 2) == 0 && (vmax * s) % (c.v * ssize * 2) == 0)
+        ssize *= 2;
+      c.ssize = ssize;
+      c.dw = static_cast<int>((static_cast<long long>(width) * c.h * ssize + hmax * 8 - 1) /
+                              (hmax * 8));
+      c.dh = static_cast<int>((static_cast<long long>(height) * c.v * ssize + vmax * 8 - 1) /
+                              (vmax * 8));
+    }
   }
 
   // jinit_master_decompress's refusals, then the coefficient buffers.
@@ -1594,10 +1628,365 @@ void idct_float(const int16_t* in, const float* mult, uint8_t* out, int stride) 
   }
 }
 
-void idct(int method, const int16_t* in, const Multipliers& m, uint8_t* out, int stride) {
-  if (method == kIslow) idct_islow(in, m.i, out, stride);
-  else if (method == kIfast) idct_ifast(in, m.i, out, stride);
-  else idct_float(in, m.f, out, stride);
+// ---------------------------------------------------------------------------
+// Scaled IDCTs (jidctred.c, jidctred-sse2, jidctint.c), each reading the
+// raw quantizers (the islow table, 16 bits wide)
+// ---------------------------------------------------------------------------
+
+// IDCT_range_limit as the C IDCTs index it: the low 10 bits of the value,
+// read as signed, saturated to -128..127 and centred.
+inline uint8_t range_limit(int64_t v) {
+  const int x = (static_cast<int>(v & 1023) ^ 512) - 512;
+  return static_cast<uint8_t>((x < -128 ? -128 : (x > 127 ? 127 : x)) + 128);
+}
+
+// jpeg_idct_1x1: an eighth of the dequantized DC.
+void idct_1x1(const int16_t* in, const int16_t* q, uint8_t* out) {
+  out[0] = range_limit((static_cast<int64_t>(in[0] * q[0]) + 4) >> 3);
+}
+
+// 32-bit lanes of the SSE2 code: sums wrap, pmaddwd multiplies two 16-bit
+// pairs and adds them.
+inline int32_t w32(int64_t v) { return static_cast<int32_t>(static_cast<uint32_t>(v)); }
+inline int32_t madd(int16_t a, int16_t b, int32_t ca, int32_t cb) {
+  return w32(static_cast<int64_t>(a) * ca + static_cast<int64_t>(b) * cb);
+}
+constexpr int32_t R_0_211 = 1730, R_0_509 = 4176, R_0_601 = 4926, R_0_720 = 5906,
+                  R_0_765 = 6270, R_0_850 = 6967, R_0_899 = 7373, R_1_061 = 8697,
+                  R_1_272 = 10426, R_1_451 = 11893, R_1_847 = 15137, R_2_172 = 17799,
+                  R_2_562 = 20995, R_3_624 = 29692;
+
+// jsimd_idct_2x2_sse2: no zero-column shortcut; columns 0, 1, 3, 5 and 7
+// in 32 bits, the odd columns packed to 16 bits for the second pass, the DC
+// column shifted back up in 32 bits.
+void idct_2x2(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int16_t d[64];
+  for (int k = 0; k < 64; k++) d[k] = wrap16(in[k] * q[k]);  // pmullw
+  int32_t a[2][8];  // a[row][col]: the first pass's rows 0 and 1
+  for (int col : {0, 1, 3, 5, 7}) {
+    const int32_t t0 = w32(int64_t{madd(d[8 + col], d[24 + col], R_3_624, -R_1_272)} +
+                           madd(d[40 + col], d[56 + col], R_0_850, -R_0_720));
+    const int32_t t10 = w32(int64_t{d[col]} * (1 << 15));
+    a[0][col] = w32(int64_t{t10} + t0 + (1 << 12)) >> 13;
+    a[1][col] = w32(int64_t{t10} - t0 + (1 << 12)) >> 13;
+  }
+  for (int row = 0; row < 2; row++) {
+    const int32_t* r = a[row];
+    const int32_t t0 = w32(int64_t{madd(sat16(r[1]), sat16(r[3]), R_3_624, -R_1_272)} +
+                           madd(sat16(r[5]), sat16(r[7]), R_0_850, -R_0_720));
+    const int32_t t10 = w32(int64_t{r[0]} * (1 << 15));
+    uint8_t* o = out + static_cast<size_t>(row) * stride;
+    o[0] = out8(sat16(w32(int64_t{t10} + t0 + (1 << 19)) >> 20));
+    o[1] = out8(sat16(w32(int64_t{t10} - t0 + (1 << 19)) >> 20));
+  }
+}
+
+// jsimd_idct_4x4_sse2: when rows 1-3 and 5-7 of the whole block are zero,
+// the first pass is the dequantized DC shifted in 16 bits; otherwise every
+// column in 32 bits, saturated to 16; the second pass in 32 bits.
+void idct_4x4(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  int16_t d[64], ws[4][8];
+  for (int k = 0; k < 64; k++) d[k] = wrap16(in[k] * q[k]);  // pmullw
+  bool ac_zero = true;
+  for (int row : {1, 2, 3, 5, 6, 7})
+    for (int col = 0; col < 8; col++)
+      if (in[row * 8 + col]) ac_zero = false;
+  for (int col = 0; col < 8; col++) {
+    if (ac_zero) {
+      const int16_t v = wrap16(d[col] * 4);  // psllw by PASS1_BITS
+      for (int row = 0; row < 4; row++) ws[row][col] = v;
+      continue;
+    }
+    const int16_t* x = d + col;
+    const int32_t t0 = w32(int64_t{madd(x[8], x[24], R_1_061, -R_2_172)} +
+                           madd(x[40], x[56], R_1_451, -R_0_211));
+    const int32_t t2 = w32(int64_t{madd(x[8], x[24], R_2_562, R_0_899)} +
+                           madd(x[40], x[56], -R_0_601, -R_0_509));
+    const int32_t e = madd(x[16], x[48], R_1_847, -R_0_765);
+    const int32_t t10 = w32(int64_t{x[0]} * (1 << 14) + e);
+    const int32_t t12 = w32(int64_t{x[0]} * (1 << 14) - e);
+    ws[0][col] = sat16(w32(int64_t{t10} + t2 + (1 << 11)) >> 12);
+    ws[3][col] = sat16(w32(int64_t{t10} - t2 + (1 << 11)) >> 12);
+    ws[1][col] = sat16(w32(int64_t{t12} + t0 + (1 << 11)) >> 12);
+    ws[2][col] = sat16(w32(int64_t{t12} - t0 + (1 << 11)) >> 12);
+  }
+  for (int row = 0; row < 4; row++) {
+    const int16_t* x = ws[row];
+    const int32_t t0 = w32(int64_t{madd(x[1], x[3], R_1_061, -R_2_172)} +
+                           madd(x[5], x[7], R_1_451, -R_0_211));
+    const int32_t t2 = w32(int64_t{madd(x[1], x[3], R_2_562, R_0_899)} +
+                           madd(x[5], x[7], -R_0_601, -R_0_509));
+    const int32_t e = madd(x[2], x[6], R_1_847, -R_0_765);
+    const int32_t t10 = w32(int64_t{x[0]} * (1 << 14) + e);
+    const int32_t t12 = w32(int64_t{x[0]} * (1 << 14) - e);
+    uint8_t* o = out + static_cast<size_t>(row) * stride;
+    o[0] = out8(sat16(w32(int64_t{t10} + t2 + (1 << 18)) >> 19));
+    o[3] = out8(sat16(w32(int64_t{t10} - t2 + (1 << 18)) >> 19));
+    o[1] = out8(sat16(w32(int64_t{t12} + t0 + (1 << 18)) >> 19));
+    o[2] = out8(sat16(w32(int64_t{t12} - t0 + (1 << 18)) >> 19));
+  }
+}
+
+// jidctint.c's N-point kernels, one for both passes: x[0..7] are the inputs
+// (x[0] already dc = x[0] << 13 plus the pass's rounding), y[0..N-1] the
+// outputs before the pass's final shift.  Where the C code shifts a term
+// of the first pass early and adds a term that PASS1_BITS scales (the 6-,
+// 10- and 14-point middle outputs), it adds a multiple of the divisor
+// before an arithmetic shift, which is the same as adding after it.
+constexpr int64_t fix(double x) { return static_cast<int64_t>(x * 8192 + 0.5); }
+
+void kernel3(int64_t dc, const int64_t* x, int64_t* y) {
+  const int64_t t12 = x[2] * fix(0.707106781);
+  const int64_t t10 = dc + t12, t2 = dc - t12 - t12;
+  const int64_t t0 = x[1] * fix(1.224744871);
+  y[0] = t10 + t0;
+  y[2] = t10 - t0;
+  y[1] = t2;
+}
+
+void kernel5(int64_t dc, const int64_t* x, int64_t* y) {
+  const int64_t z1 = (x[2] + x[4]) * fix(0.790569415);
+  const int64_t z2 = (x[2] - x[4]) * fix(0.353553391);
+  const int64_t z3 = dc + z2;
+  const int64_t t10 = z3 + z1, t11 = z3 - z1, t12 = dc - z2 * 4;
+  const int64_t zo = (x[1] + x[3]) * fix(0.831253876);
+  const int64_t t0 = zo + x[1] * fix(0.513743148);
+  const int64_t t1 = zo - x[3] * fix(2.176250899);
+  y[0] = t10 + t0;
+  y[4] = t10 - t0;
+  y[1] = t11 + t1;
+  y[3] = t11 - t1;
+  y[2] = t12;
+}
+
+void kernel6(int64_t dc, const int64_t* x, int64_t* y) {
+  const int64_t c4 = x[4] * fix(0.707106781);
+  const int64_t t1 = dc + c4, t11 = dc - c4 - c4;
+  const int64_t c2 = x[2] * fix(1.224744871);
+  const int64_t t10 = t1 + c2, t12 = t1 - c2;
+  const int64_t z1 = x[1], z2 = x[3], z3 = x[5];
+  const int64_t o = (z1 + z3) * fix(0.366025404);
+  const int64_t o0 = o + (z1 + z2) * 8192, o2 = o + (z3 - z2) * 8192, o1 = (z1 - z2 - z3) * 8192;
+  y[0] = t10 + o0;
+  y[5] = t10 - o0;
+  y[1] = t11 + o1;
+  y[4] = t11 - o1;
+  y[2] = t12 + o2;
+  y[3] = t12 - o2;
+}
+
+void kernel7(int64_t dc, const int64_t* x, int64_t* y) {
+  int64_t z1 = x[2], z2 = x[4], z3 = x[6];
+  int64_t t10 = (z2 - z3) * fix(0.881747734);
+  int64_t t12 = (z1 - z2) * fix(0.314692123);
+  const int64_t t11 = t10 + t12 + dc - z2 * fix(1.841218003);
+  int64_t t0 = z1 + z3;
+  z2 -= t0;
+  t0 = t0 * fix(1.274162392) + dc;
+  t10 += t0 - z3 * fix(0.077722536);
+  t12 += t0 - z1 * fix(2.470602249);
+  const int64_t t13 = dc + z2 * fix(1.414213562);
+  z1 = x[1];
+  z2 = x[3];
+  z3 = x[5];
+  int64_t t1 = (z1 + z2) * fix(0.935414347);
+  int64_t t2 = (z1 - z2) * fix(0.170262339);
+  t0 = t1 - t2;
+  t1 += t2;
+  t2 = (z2 + z3) * -fix(1.378756276);
+  t1 += t2;
+  z2 = (z1 + z3) * fix(0.613604268);
+  t0 += z2;
+  t2 += z2 + z3 * fix(1.870828693);
+  y[0] = t10 + t0;
+  y[6] = t10 - t0;
+  y[1] = t11 + t1;
+  y[5] = t11 - t1;
+  y[2] = t12 + t2;
+  y[4] = t12 - t2;
+  y[3] = t13;
+}
+
+void kernel10(int64_t dc, const int64_t* x, int64_t* y) {
+  int64_t z1 = x[4] * fix(1.144122806), z2 = x[4] * fix(0.437016024);
+  int64_t t10 = dc + z1, t11 = dc - z2;
+  const int64_t t22 = dc - (z1 - z2) * 2;
+  z2 = x[2];
+  int64_t z3 = x[6];
+  z1 = (z2 + z3) * fix(0.831253876);
+  int64_t t12 = z1 + z2 * fix(0.513743148);
+  int64_t t13 = z1 - z3 * fix(2.176250899);
+  const int64_t t20 = t10 + t12, t24 = t10 - t12, t21 = t11 + t13, t23 = t11 - t13;
+  z1 = x[1];
+  z2 = x[3];
+  z3 = x[5] * 8192;
+  int64_t z4 = x[7];
+  t11 = z2 + z4;
+  t13 = z2 - z4;
+  t12 = t13 * fix(0.309016994);
+  z2 = t11 * fix(0.951056516);
+  z4 = z3 + t12;
+  t10 = z1 * fix(1.396802247) + z2 + z4;
+  const int64_t t14 = z1 * fix(0.221231742) - z2 + z4;
+  z2 = t11 * fix(0.587785252);
+  z4 = z3 - t12 - t13 * 4096;
+  t12 = (z1 - t13) * 8192 - z3;
+  t11 = z1 * fix(1.260073511) - z2 - z4;
+  t13 = z1 * fix(0.642039522) - z2 + z4;
+  y[0] = t20 + t10;
+  y[9] = t20 - t10;
+  y[1] = t21 + t11;
+  y[8] = t21 - t11;
+  y[2] = t22 + t12;
+  y[7] = t22 - t12;
+  y[3] = t23 + t13;
+  y[6] = t23 - t13;
+  y[4] = t24 + t14;
+  y[5] = t24 - t14;
+}
+
+void kernel12(int64_t dc, const int64_t* x, int64_t* y) {
+  const int64_t z3 = dc;
+  int64_t z4 = x[4] * fix(1.224744871);
+  int64_t t10 = z3 + z4, t11 = z3 - z4;
+  int64_t z1 = x[2];
+  z4 = z1 * fix(1.366025404);
+  z1 *= 8192;
+  int64_t z2 = x[6] * 8192;
+  int64_t t12 = z1 - z2;
+  const int64_t t21 = z3 + t12, t24 = z3 - t12;
+  t12 = z4 + z2;
+  const int64_t t20 = t10 + t12, t25 = t10 - t12;
+  t12 = z4 - z1 - z2;
+  const int64_t t22 = t11 + t12, t23 = t11 - t12;
+  z1 = x[1];
+  z2 = x[3];
+  int64_t zz3 = x[5];
+  z4 = x[7];
+  t11 = z2 * fix(1.306562965);
+  int64_t t14 = z2 * -4433;  // -FIX_0_541196100
+  t10 = z1 + zz3;
+  int64_t t15 = (t10 + z4) * fix(0.860918669);
+  t12 = t15 + t10 * fix(0.261052384);
+  t10 = t12 + t11 + z1 * fix(0.280143716);
+  int64_t t13 = (zz3 + z4) * -fix(1.045510580);
+  t12 += t13 + t14 - zz3 * fix(1.478575242);
+  t13 += t15 - t11 + z4 * fix(1.586706681);
+  t15 += t14 - z1 * fix(0.676326758) - z4 * fix(1.982889723);
+  z1 -= z4;
+  z2 -= zz3;
+  zz3 = (z1 + z2) * 4433;      // FIX_0_541196100
+  t11 = zz3 + z1 * 6270;       // FIX_0_765366865
+  t14 = zz3 - z2 * 15137;      // FIX_1_847759065
+  y[0] = t20 + t10;
+  y[11] = t20 - t10;
+  y[1] = t21 + t11;
+  y[10] = t21 - t11;
+  y[2] = t22 + t12;
+  y[9] = t22 - t12;
+  y[3] = t23 + t13;
+  y[8] = t23 - t13;
+  y[4] = t24 + t14;
+  y[7] = t24 - t14;
+  y[5] = t25 + t15;
+  y[6] = t25 - t15;
+}
+
+void kernel14(int64_t dc, const int64_t* x, int64_t* y) {
+  int64_t z1 = dc;
+  int64_t z4 = x[4];
+  int64_t z2 = z4 * fix(1.274162392), z3 = z4 * fix(0.314692123);
+  z4 *= fix(0.881747734);
+  const int64_t t10 = z1 + z2, t11 = z1 + z3, t12 = z1 - z4;
+  const int64_t t23 = z1 - (z2 + z3 - z4) * 2;
+  z1 = x[2];
+  z2 = x[6];
+  z3 = (z1 + z2) * fix(1.105676686);
+  int64_t t13 = z3 + z1 * fix(0.273079590);
+  int64_t t14 = z3 - z2 * fix(1.719280954);
+  int64_t t15 = z1 * fix(0.613604268) - z2 * fix(1.378756276);
+  const int64_t t20 = t10 + t13, t26 = t10 - t13, t21 = t11 + t14, t25 = t11 - t14,
+                t22 = t12 + t15, t24 = t12 - t15;
+  z1 = x[1];
+  z2 = x[3];
+  z3 = x[5];
+  z4 = x[7] * 8192;
+  t14 = z1 + z3;
+  int64_t o11 = (z1 + z2) * fix(1.334852607);
+  int64_t o12 = t14 * fix(1.197448846);
+  const int64_t o10 = o11 + o12 + z4 - z1 * fix(1.126980169);
+  t14 *= fix(0.752406978);
+  int64_t o16 = t14 - z1 * fix(1.061150426);
+  z1 -= z2;
+  t15 = z1 * fix(0.467085129) - z4;
+  o16 += t15;
+  t13 = (z2 + z3) * -fix(0.158341681) - z4;
+  o11 += t13 - z2 * fix(0.424103948);
+  o12 += t13 - z3 * fix(2.373959773);
+  t13 = (z3 - z2) * fix(1.405321284);
+  t14 += t13 + z4 - z3 * fix(1.6906431334);
+  t15 += t13 + z2 * fix(0.674957567);
+  t13 = (z1 - z3) * 8192 + z4;
+  y[0] = t20 + o10;
+  y[13] = t20 - o10;
+  y[1] = t21 + o11;
+  y[12] = t21 - o11;
+  y[2] = t22 + o12;
+  y[11] = t22 - o12;
+  y[3] = t23 + t13;
+  y[10] = t23 - t13;
+  y[4] = t24 + t14;
+  y[9] = t24 - t14;
+  y[5] = t25 + t15;
+  y[8] = t25 - t15;
+  y[6] = t26 + o16;
+  y[7] = t26 - o16;
+}
+
+// jidctint.c's NxN: the first pass over min(N, 8) columns of the
+// dequantized block (products in 32 bits, exact), its outputs descaled into
+// a 32-bit work array; the second over the N rows of that array.
+template <int N, void (*Kernel)(int64_t, const int64_t*, int64_t*)>
+void idct_int(const int16_t* in, const int16_t* q, uint8_t* out, int stride) {
+  constexpr int C = N < 8 ? N : 8;
+  int32_t ws[N * C];
+  int64_t x[8] = {}, y[N];
+  for (int col = 0; col < C; col++) {
+    for (int k = 0; k < C; k++) x[k] = in[k * 8 + col] * q[k * 8 + col];
+    Kernel(x[0] * 8192 + (1 << 10), x, y);
+    for (int i = 0; i < N; i++) ws[i * C + col] = w32(y[i] >> 11);
+  }
+  for (int row = 0; row < N; row++) {
+    for (int k = 0; k < C; k++) x[k] = ws[row * C + k];
+    Kernel((x[0] + 16) * 8192, x, y);
+    uint8_t* o = out + static_cast<size_t>(row) * stride;
+    for (int i = 0; i < N; i++) o[i] = range_limit(y[i] >> 18);
+  }
+}
+
+// One block of a component whose IDCT is ssize x ssize (jddctmgr.c's
+// choice): 8 runs the image's method with its multipliers, every other
+// size the raw quantizers.
+void idct_scaled(int ssize, int method, const int16_t* in, const Multipliers& m, uint8_t* out,
+                 int stride) {
+  switch (ssize) {
+    case 1: idct_1x1(in, m.i, out); break;
+    case 2: idct_2x2(in, m.i, out, stride); break;
+    case 3: idct_int<3, kernel3>(in, m.i, out, stride); break;
+    case 4: idct_4x4(in, m.i, out, stride); break;
+    case 5: idct_int<5, kernel5>(in, m.i, out, stride); break;
+    case 6: idct_int<6, kernel6>(in, m.i, out, stride); break;
+    case 7: idct_int<7, kernel7>(in, m.i, out, stride); break;
+    case 8:
+      if (method == kIslow) idct_islow(in, m.i, out, stride);
+      else if (method == kIfast) idct_ifast(in, m.i, out, stride);
+      else idct_float(in, m.f, out, stride);
+      break;
+    case 10: idct_int<10, kernel10>(in, m.i, out, stride); break;
+    case 12: idct_int<12, kernel12>(in, m.i, out, stride); break;
+    case 14: idct_int<14, kernel14>(in, m.i, out, stride); break;
+    default: fail("no IDCT of size " + std::to_string(ssize));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1757,7 +2146,8 @@ void smooth_component(Decoder& d, Component& c, int method, const Multipliers& m
                      2 * DC25);
           ws[0] = predict(num, q00, 0);
         }
-        idct(method, ws, m, plane + static_cast<size_t>(r) * 8 * stride + b * 8, stride);
+        idct_scaled(c.ssize, method, ws, m,
+                    plane + static_cast<size_t>(r) * c.ssize * stride + b * c.ssize, stride);
         DC01 = DC02;
         DC02 = DC03;
         DC03 = DC04;
@@ -1790,18 +2180,21 @@ void output_planes(Decoder& d, int method) {
   const bool smooth = smoothing_ok(d, latch, prev);
   for (int ci = 0; ci < d.ncomp; ci++) {
     Component& c = d.comp[ci];
+    // jddctmgr.c: only the 8x8 IDCT takes the image's method and its
+    // multipliers; the scaled ones read the raw quantizers.
+    const int cmethod = c.ssize == 8 ? method : kIslow;
     Multipliers m;
-    make_multipliers(c, method, m);
-    const int stride = c.bw * 8;
-    c.plane.assign(static_cast<size_t>(stride) * c.bh * 8, 0);
+    make_multipliers(c, cmethod, m);
+    const int n = c.ssize, stride = c.bw * n;
+    c.plane.assign(static_cast<size_t>(stride) * c.bh * n, 0);
     if (smooth) {
-      smooth_component(d, c, method, m, latch[ci], prev[ci], c.plane.data(), stride);
+      smooth_component(d, c, cmethod, m, latch[ci], prev[ci], c.plane.data(), stride);
       continue;
     }
     for (int by = 0; by < c.bh; by++)
       for (int bx = 0; bx < c.bw; bx++)
-        idct(method, d.block(c, by, bx), m,
-             c.plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8, stride);
+        idct_scaled(n, cmethod, d.block(c, by, bx), m,
+                    c.plane.data() + static_cast<size_t>(by) * n * stride + bx * n, stride);
   }
 }
 
@@ -1908,22 +2301,26 @@ struct Upsampler {
 };
 
 void finish(Decoder& d, uint8_t* out, bool fancy, int method) {
-  const int W = d.width, H = d.height;
+  const int W = d.out_w, H = d.out_h;
   output_planes(d, method);
+  // jinit_upsampler: no fancy upsampling at scale 1 (jdmainct.c gives no
+  // context rows there); each component's factors are those of its scaled
+  // size ("input group") against the output's.
+  const bool do_fancy = fancy && d.scale > 1;
   std::vector<Upsampler> ups(d.ncomp);
   for (int i = 0; i < d.ncomp; i++) {
     Component& c = d.comp[i];
-    const int stride = c.bw * 8;
+    const int h_in = c.h * c.ssize / d.scale, v_in = c.v * c.ssize / d.scale;
     Upsampler& u = ups[i];
     u.c = &c;
-    u.stride = stride;
-    u.hr = d.hmax / c.h;
-    u.vr = d.vmax / c.v;
+    u.stride = c.bw * c.ssize;
+    u.hr = d.hmax / h_in;
+    u.vr = d.vmax / v_in;
     // jinit_upsampler's choice, in its order.
     if (u.hr == 1 && u.vr == 1) u.method = Up::Full;
-    else if (u.hr == 2 && u.vr == 1 && fancy && c.dw > 2) u.method = Up::H2V1Fancy;
-    else if (u.hr == 1 && u.vr == 2 && fancy) u.method = Up::H1V2Fancy;
-    else if (u.hr == 2 && u.vr == 2 && fancy && c.dw > 2) u.method = Up::H2V2Fancy;
+    else if (u.hr == 2 && u.vr == 1 && do_fancy && c.dw > 2) u.method = Up::H2V1Fancy;
+    else if (u.hr == 1 && u.vr == 2 && do_fancy) u.method = Up::H1V2Fancy;
+    else if (u.hr == 2 && u.vr == 2 && do_fancy && c.dw > 2) u.method = Up::H2V2Fancy;
     else u.method = Up::Replicate;
     u.row.assign(static_cast<size_t>(c.dw) * u.hr + 8 * u.hr, 0);
   }
@@ -1969,15 +2366,16 @@ void header_size(const uint8_t* data, size_t size, int* h, int* w, int* c) {
 }
 
 std::vector<uint8_t> decode_image(const uint8_t* data, size_t size, bool fancy, int method,
-                                  int* h, int* w) {
+                                  int scale, int* h, int* w) {
   if (method != kIslow && method != kIfast && method != kFloat)
     fail("unknown dct_method " + std::to_string(method));
   Decoder d(data, size);
   d.decode_all();
-  std::vector<uint8_t> out(static_cast<size_t>(d.width) * d.height * 3);
+  d.set_scale(scale);
+  std::vector<uint8_t> out(static_cast<size_t>(d.out_w) * d.out_h * 3);
   finish(d, out.data(), fancy, method);
-  *h = d.height;
-  *w = d.width;
+  *h = d.out_h;
+  *w = d.out_w;
   return out;
 }
 
@@ -2148,12 +2546,12 @@ int jd_decode_size(const uint8_t* data, size_t size, int* h, int* w, int* c, cha
   return guarded(err, errlen, [&] { header_size(data, size, h, w, c); });
 }
 
-// Decode to RGB into out (capacity bytes); *h, *w receive the size.
-// dct: 0 islow, 1 ifast, 2 float.
-int jd_decode(const uint8_t* data, size_t size, int fancy, int dct, uint8_t* out,
+// Decode to RGB at scale_num/8 (1..8) into out (capacity bytes); *h, *w
+// receive the size.  dct: 0 islow, 1 ifast, 2 float.
+int jd_decode(const uint8_t* data, size_t size, int fancy, int dct, int scale_num, uint8_t* out,
               size_t capacity, int* h, int* w, char* err, int errlen) {
   return guarded(err, errlen, [&] {
-    std::vector<uint8_t> img = decode_image(data, size, fancy != 0, dct, h, w);
+    std::vector<uint8_t> img = decode_image(data, size, fancy != 0, dct, scale_num, h, w);
     if (img.size() > capacity) fail("output buffer too small");
     std::memcpy(out, img.data(), img.size());
   });
@@ -2162,15 +2560,32 @@ int jd_decode(const uint8_t* data, size_t size, int fancy, int dct, uint8_t* out
 // Decode n images on nthreads threads; rc[i] and err[i * errlen] per image.
 // Returns the number of failures.
 int jd_decode_batch(const uint8_t* const* datas, const size_t* sizes, int n, int fancy, int dct,
-                    uint8_t* const* outs, const size_t* capacities, int* hs, int* ws,
-                    int nthreads, int* rc, char* errs, int errlen) {
+                    int scale_num, uint8_t* const* outs, const size_t* capacities, int* hs,
+                    int* ws, int nthreads, int* rc, char* errs, int errlen) {
   std::atomic<int> failures(0);
   parallel_for(n, nthreads, [&](int i) {
-    rc[i] = jd_decode(datas[i], sizes[i], fancy, dct, outs[i], capacities[i], &hs[i], &ws[i],
-                      errs + static_cast<size_t>(i) * errlen, errlen);
+    rc[i] = jd_decode(datas[i], sizes[i], fancy, dct, scale_num, outs[i], capacities[i], &hs[i],
+                      &ws[i], errs + static_cast<size_t>(i) * errlen, errlen);
     if (rc[i]) failures.fetch_add(1);
   });
   return failures.load();
+}
+
+// One block of coefficients (natural order) through the IDCT that a
+// component with DCT_scaled_size ssize runs (1..7, 8, 10, 12, 14), with the
+// raw quantizers quant and, at 8, the method dct; the ssize x ssize samples
+// go to out, rows stride bytes apart.
+int jd_idct_block(int ssize, int dct, const int16_t* coef, const uint16_t* quant, uint8_t* out,
+                  int stride, char* err, int errlen) {
+  return guarded(err, errlen, [&] {
+    Component c;
+    std::memcpy(c.quant, quant, sizeof(c.quant));
+    c.quant_latched = true;
+    const int method = ssize == 8 ? dct : kIslow;
+    Multipliers m;
+    make_multipliers(c, method, m);
+    idct_scaled(ssize, method, coef, m, out, stride);
+  });
 }
 
 // Pillow BILINEAR resize of an RGB image [ih, iw, 3] to [oh, ow, 3].
@@ -2192,7 +2607,7 @@ int jd_decode_resize_batch(const uint8_t* const* datas, const size_t* sizes, int
   parallel_for(n, nthreads, [&](int i) {
     rc[i] = guarded(errs + static_cast<size_t>(i) * errlen, errlen, [&] {
       int h = 0, w = 0;
-      std::vector<uint8_t> img = decode_image(datas[i], sizes[i], true, dct, &h, &w);
+      std::vector<uint8_t> img = decode_image(datas[i], sizes[i], true, dct, 8, &h, &w);
       resize_bilinear(img.data(), h, w, outs[i], size, size);
     });
     if (rc[i]) failures.fetch_add(1);

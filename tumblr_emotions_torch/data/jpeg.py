@@ -19,7 +19,10 @@ progressive file cut before its last scan (block-smoothed as libjpeg does).
 What libjpeg refuses raises ``ValueError`` with the decoder's reason: 12-bit
 samples, lossless and hierarchical JPEG, CMYK/YCCK, a cut inside the
 headers, and every other fatal error.  ``fancy`` is libjpeg's fancy
-upsampling (or plain replication); ``scale_num`` must be 8 (full size).
+upsampling (or plain replication).  ``scale_num`` is libjpeg's DCT-domain
+scaling to ``scale_num``/8 of the size, rounded up (1 to 8; above 8 decodes
+at full size, as the reference's decoder ignores it; 0 or less raises
+``ValueError``).
 
 The library is built at first use by the host C++ compiler (``c++`` or
 ``g++`` on ``PATH``; no nvcc) into ``build/host_jpeg/`` beside the package,
@@ -51,10 +54,11 @@ _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "jd_decode_size": [_P, _S, _IP, _IP, _IP, ctypes.c_char_p, _I],
-    "jd_decode": [_P, _S, _I, _I, _P, _S, _IP, _IP, ctypes.c_char_p, _I],
-    "jd_decode_batch": [_P, _P, _I, _I, _I, _P, _P, _IP, _IP, _I, _IP, ctypes.c_char_p, _I],
+    "jd_decode": [_P, _S, _I, _I, _I, _P, _S, _IP, _IP, ctypes.c_char_p, _I],
+    "jd_decode_batch": [_P, _P, _I, _I, _I, _I, _P, _P, _IP, _IP, _I, _IP, ctypes.c_char_p, _I],
     "jd_resize_bilinear": [_P, _I, _I, _P, _I, _I, ctypes.c_char_p, _I],
     "jd_decode_resize_batch": [_P, _P, _I, _I, _I, _P, _I, _IP, ctypes.c_char_p, _I],
+    "jd_idct_block": [_I, _I, _P, _P, _P, _I, ctypes.c_char_p, _I],
 }
 
 
@@ -73,15 +77,24 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _dct(dct_method: str, scale_num: int = 8) -> int:
-    """The C ABI's code of ``dct_method``; unknown names and ``scale_num``
-    other than 8 raise ``ValueError``."""
+def _dct(dct_method: str) -> int:
+    """The C ABI's code of ``dct_method``; unknown names raise ``ValueError``."""
     if dct_method not in DCT_METHODS:
         raise ValueError(f"dct_method={dct_method!r} is not one of {sorted(DCT_METHODS)}")
-    if scale_num != 8:
-        raise ValueError(f"scale_num={scale_num} is not supported: the port decodes "
-                         "at full size (scale_num=8) only")
     return DCT_METHODS[dct_method]
+
+
+def _scale(scale_num: int) -> int:
+    """The scale the reference decodes at: 1-8 as given, full size (8) above
+    8; 0 or less raises ``ValueError``, as the reference does."""
+    if scale_num < 1:
+        raise ValueError(f"scale_num={scale_num} is not a scale: decode at scale_num/8 "
+                         "for scale_num 1 to 8")
+    return min(int(scale_num), 8)
+
+
+def _scaled(h: int, w: int, scale: int) -> Tuple[int, int]:
+    return -(-h * scale // 8), -(-w * scale // 8)
 
 
 def _bytes(data) -> bytes:
@@ -103,14 +116,15 @@ def decode_size(data: bytes) -> Tuple[int, int, int]:
 
 def decode(data: bytes, dct_method: str = "islow", fancy: bool = True,
            scale_num: int = 8) -> np.ndarray:
-    """Decode one JPEG to an RGB uint8 array [H, W, 3]."""
-    dct = _dct(dct_method, scale_num)
+    """Decode one JPEG to an RGB uint8 array [ceil(H * s / 8), ceil(W * s / 8),
+    3], s = ``scale_num``."""
+    dct, scale = _dct(dct_method), _scale(scale_num)
     data = _bytes(data)
     h0, w0, _ = decode_size(data)
-    out = np.empty((h0, w0, 3), np.uint8)
+    out = np.empty(_scaled(h0, w0, scale) + (3,), np.uint8)
     h, w = ctypes.c_int(), ctypes.c_int()
     err = ctypes.create_string_buffer(_ERRLEN)
-    if library().jd_decode(data, len(data), int(fancy), dct, out.ctypes.data, out.nbytes,
+    if library().jd_decode(data, len(data), int(fancy), dct, scale, out.ctypes.data, out.nbytes,
                            ctypes.byref(h), ctypes.byref(w), err, _ERRLEN):
         raise ValueError(f"JPEG decode failed: {err.value.decode()}")
     return out
@@ -133,16 +147,17 @@ def decode_batch(datas: Sequence[bytes], dct_method: str = "islow",
                  fancy: bool = True, scale_num: int = 8,
                  num_threads: int = 8) -> List[np.ndarray]:
     """Decode a batch of JPEGs on ``num_threads`` threads -> list of
-    [H, W, 3] uint8.  Any failure raises one ``ValueError`` that counts the
-    failures and names the first bad index, as the reference does."""
-    dct = _dct(dct_method, scale_num)
+    [H, W, 3] uint8 (scaled as :func:`decode` scales).  Any failure raises
+    one ``ValueError`` that counts the failures and names the first bad
+    index, as the reference does."""
+    dct, scale = _dct(dct_method), _scale(scale_num)
     n = len(datas)
     if n == 0:
         return []
     dims = []
     for d in datas:
         try:
-            dims.append(decode_size(d)[:2])
+            dims.append(_scaled(*decode_size(d)[:2], scale))
         except ValueError:
             dims.append((1, 1))  # the batch decode reports the failure
     outs = [np.empty((h, w, 3), np.uint8) for h, w in dims]
@@ -151,8 +166,8 @@ def decode_batch(datas: Sequence[bytes], dct_method: str = "islow",
     caps = (ctypes.c_size_t * n)(*[o.nbytes for o in outs])
     hs, ws, rc = (ctypes.c_int * n)(), (ctypes.c_int * n)(), (ctypes.c_int * n)()
     errs = ctypes.create_string_buffer(_ERRLEN * n)
-    failures = library().jd_decode_batch(ptrs, sizes, n, int(fancy), dct, out_p, caps, hs, ws,
-                                         int(num_threads), rc, errs, _ERRLEN)
+    failures = library().jd_decode_batch(ptrs, sizes, n, int(fancy), dct, scale, out_p, caps,
+                                         hs, ws, int(num_threads), rc, errs, _ERRLEN)
     if failures:
         bad = [i for i in range(n) if rc[i]]
         raise ValueError(f"JPEG decode failed for {len(bad)} images (first index "
