@@ -185,6 +185,87 @@ def test_captured_bookkeeping_per_signature(monkeypatch):
                                   for n, r in ((1, 1), (2, 1), (3, 0))]
 
 
+def test_captured_calls_show_as_spans_in_the_callers_range(monkeypatch):
+    """Under a profiler: a signature's first call is ``captured.wait`` then
+    ``captured.capture`` (its copies in nested there), each later call
+    ``captured.wait``, ``stage``, ``copy_in``, ``launch``, ``copy_out``, each
+    once and directly inside the caller's range, which ties one call's
+    spans together; the lock is free again after each call."""
+    _fake_card(monkeypatch)
+
+    def body(x, y):
+        return (x + y,)
+
+    cap = compile_opts.Captured(body, {"cuda_graph": "true"}, torch.device("cpu"))
+    cap.graphed = True
+    orig_capture = cap._capture
+
+    def capture(key, args):
+        out = orig_capture(key, args)
+        g = cap._graphs[key]
+        g.graph.fn = lambda: g.static_out[0].copy_(body(*g.static_in)[0])
+        return out
+
+    cap._capture = capture
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        for k in range(3):
+            with torch.profiler.record_function("caller"):
+                out = cap(np.full(4, k, np.float32), torch.ones(4))
+    assert out[0].tolist() == [3.0] * 4
+    ours = sorted((e for e in prof.profiler.kineto_results.events()
+                   if e.name() == "caller" or e.name().startswith("captured.")),
+                  key=lambda e: (e.start_ns(), -e.end_ns()))
+
+    def parent(e):
+        outer = [o for o in ours if o is not e and o.start_ns() <= e.start_ns()
+                 and e.end_ns() <= o.end_ns()]
+        return min(outer, key=lambda o: o.end_ns() - o.start_ns()).name()
+
+    got = [(e.name(), parent(e)) for e in ours if e.name() != "caller"]
+    replay = [(f"captured.{n}", "caller") for n in ("wait", "stage", "copy_in", "launch",
+                                                     "copy_out")]
+    assert got == [("captured.wait", "caller"), ("captured.capture", "caller"),
+                   ("captured.stage", "captured.capture"),
+                   ("captured.copy_in", "captured.capture")] + replay + replay
+    assert not cap._lock.locked()
+
+
+def test_a_failed_wait_frees_the_lock(monkeypatch):
+    """A wait that raises inside ``captured.wait`` (here the host's wait for
+    the last copy out of staging) leaves the lock free, and the next call
+    replays as before."""
+    _fake_card(monkeypatch)
+
+    def body(x):
+        return (x * 2,)
+
+    cap = compile_opts.Captured(body, {"cuda_graph": "true"}, torch.device("cpu"))
+    cap.graphed = True
+    orig_capture = cap._capture
+
+    def capture(key, args):
+        out = orig_capture(key, args)
+        g = cap._graphs[key]
+        g.graph.fn = lambda: g.static_out[0].copy_(body(*g.static_in)[0])
+        return out
+
+    cap._capture = capture
+    cap(np.ones(4, np.float32))
+    cap(np.ones(4, np.float32))
+    (g,) = cap._graphs.values()
+
+    def lost():
+        raise RuntimeError("device lost")
+
+    g.staged.synchronize = lost
+    with pytest.raises(RuntimeError, match="device lost"):
+        cap(np.ones(4, np.float32))
+    assert not cap._lock.locked() and cap.replays == 1
+    g.staged.synchronize = lambda: None
+    assert cap(np.full(4, 3, np.float32))[0].tolist() == [6.0] * 4
+    assert not cap._lock.locked() and cap.replays == 2
+
 def test_autotune_skips_unknown_candidates_and_caches(tmp_path, monkeypatch, caplog):
     """Mirrors the reference's autotune tests: a candidate the port does not
     know is skipped and logged; the winner round-trips through the JSON

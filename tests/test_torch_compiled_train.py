@@ -308,6 +308,24 @@ def test_the_captured_path_equals_the_eager_steps_and_rebinds_on_restore(tmp_pat
     assert programs["eval"].clears == 1
 
 
+def test_a_captured_step_is_one_bind_span():
+    """Under a profiler each captured train or eval step's host work (the
+    update's scalars, the state's addresses, the batch's order, then the
+    program) is one ``trainer.bind`` range on the caller's thread."""
+    cfg = _cfg("text_only")
+    tr = ttrainer.Trainer(cfg, device="cpu")
+    programs = _captured_path(tr)
+    ts = tr.init_state(_init(cfg))
+    batches = _batches(cfg, 2)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for batch in batches:
+            ts, _ = tr._compiled_train(ts, batch, tr.generator)
+        tr._compiled_eval(ts, batches[0])
+    binds = [e for e in prof.profiler.kineto_results.events() if e.name() == "trainer.bind"]
+    assert len(binds) == 3 and len(programs["train"].keys) == 2
+    assert len(programs["eval"].keys) == 1
+
+
 def test_the_captured_train_step_refuses_another_generator():
     cfg = _cfg("text_only")
     tr = ttrainer.Trainer(cfg, device="cpu")

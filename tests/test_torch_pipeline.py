@@ -243,6 +243,22 @@ def test_device_prefetch_reports_the_consumed_position(data):
     pf.close()
 
 
+def test_device_prefetch_is_one_wait_span_a_next():
+    """Under a profiler each ``next()``, the last (end of input) too, is one
+    ``prefetch.wait`` range on the consumer's thread."""
+    import torch
+
+    pf = tp.DevicePrefetchIterator(iter([{"x": np.zeros(2)}] * 3), device="cpu")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("consumer"):
+            assert len(list(pf)) == 3
+    events = prof.profiler.kineto_results.events()
+    (consumer,) = [e for e in events if e.name() == "consumer"]
+    waits = [e for e in events if e.name() == "prefetch.wait"]
+    assert len(waits) == 4
+    assert {e.start_thread_id() for e in waits} == {consumer.start_thread_id()}
+
+
 def test_device_prefetch_reraises_producer_errors():
     def broken():
         yield {"x": np.zeros(2)}

@@ -4,8 +4,11 @@
 TensorBoard's own event loader (imported here only; the port imports
 neither TensorBoard nor clu)."""
 
+import ast
+import contextlib
 import glob
 import json
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -165,3 +168,59 @@ def test_read_scalars_reads_what_tensorboard_reads(tmp_path):
         got = tsum.read_scalars(path)
         assert got == {k: [(s, float(np.float32(v))) for s, v in vals]
                        for k, vals in _read(d).items()}
+
+
+def _ranges(prof, name):
+    return [e for e in prof.profiler.kineto_results.events() if e.name() == name]
+
+
+@pytest.mark.parametrize("name", ["captured.stage", "prefetch.wait"])
+def test_a_span_is_a_profiler_range_only_while_one_runs(name):
+    """No profiler: every span is the one shared null context (nothing
+    made, nothing recorded).  Under one: a range of that name around the
+    work inside it, and an operator's record, not a user annotation (which
+    the profiler would mirror onto the card as device work)."""
+    off = tsum.span(name)
+    assert isinstance(off, contextlib.nullcontext) and off is tsum.span("trainer.bind")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        with off:
+            torch.ones(2).mul_(2)
+        with tsum.span(name):
+            torch.ones(2).add_(1)
+    (rng,) = _ranges(prof, name)
+    (add,) = _ranges(prof, "aten::add_")
+    assert rng.start_ns() <= add.start_ns() and add.end_ns() <= rng.end_ns()
+    assert rng.start_ns() > _ranges(prof, "aten::mul_")[0].end_ns()
+    assert not rng.is_user_annotation() and rng.activity_type() == "cpu_op"
+
+
+def _program_span_names():
+    """The name of every ``span(...)`` call in the port's source."""
+    names = set()
+    for path in sorted(Path(tsum.__file__).resolve().parents[1].rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call) and getattr(node.func, "id", None) == "span"
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                names.add(node.args[0].value)
+    return sorted(names)
+
+
+PROGRAM_SPANS = ["captured.capture", "captured.copy_in", "captured.copy_out",
+                 "captured.launch", "captured.stage", "captured.wait", "prefetch.wait",
+                 "trainer.bind"]
+
+
+def test_the_program_spans_are_the_listed_ones():
+    assert _program_span_names() == PROGRAM_SPANS
+
+
+@pytest.mark.parametrize("name", PROGRAM_SPANS)
+def test_no_program_span_is_named_as_one_of_the_benchmarks(name, monkeypatch):
+    """The benchmark reads a range named as its own spans as its own
+    (``benchmark/devtrace.SPANS``); the program's ranges are read as host
+    operations inside them."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    from benchmark import devtrace
+
+    assert name not in devtrace.SPANS

@@ -50,6 +50,7 @@ from tumblr_emotions_torch.data import jpeg
 from tumblr_emotions_torch.data import records as records_lib
 from tumblr_emotions_torch.data.index_shuffle import shuffled_indices
 from tumblr_emotions_torch.data.vocab import Vocabulary
+from tumblr_emotions_torch.utils.summaries import span
 
 class TFRecordIndex:
     """Random access into sharded TFRecord files via an offset index.
@@ -555,6 +556,10 @@ class DevicePrefetchIterator:
     ``state_source`` is the resumable iterator underneath ``batches``
     (default: ``batches`` itself when it has ``get_state``).  ``set_state``
     is only valid before iteration starts.
+
+    Under a profiler each ``next()`` is one ``prefetch.wait`` span
+    (``utils/summaries.span``) on the consumer's thread: the wait for the
+    producer's next batch and the consumer stream's wait for its copy.
     """
 
     _END = object()
@@ -639,19 +644,20 @@ class DevicePrefetchIterator:
             self._thread = threading.Thread(target=self._producer, daemon=True,
                                             name="tet-device-prefetch")
             self._thread.start()
-        item = self._queue.get()
-        if item is self._END:
-            self.close()
-            raise StopIteration
-        if isinstance(item, BaseException):
-            self.close()
-            raise item
-        batch, done, st = item
-        if done is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(done)
-            for t in batch.values():
-                t.record_stream(stream)
+        with span("prefetch.wait"):
+            item = self._queue.get()
+            if item is self._END:
+                self.close()
+                raise StopIteration
+            if isinstance(item, BaseException):
+                self.close()
+                raise item
+            batch, done, st = item
+            if done is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(done)
+                for t in batch.values():
+                    t.record_stream(stream)
         if st is not None:
             self._consumed_state = st
         return batch

@@ -48,7 +48,10 @@ step.  ``TET_TORCH_TRAIN_COMPILER_OPTIONS='{"cuda_graph": "false"}'`` runs
 the steps op by op; so do the CPU and a gloo group (its collectives stage
 through the host).  Every step runs cuDNN's deterministic algorithms
 (``_device.deterministic_convs``), so a step computes the same on every
-run: captured or not, resumed or not.
+run: captured or not, resumed or not.  Under a profiler a captured step's
+host work before its replay (the update's scalars, the state's addresses,
+the batch's order) is the ``trainer.bind`` span, the program's spans
+(``utils/compile_opts.py``) nested in it.
 
 Parity mode (f32): the whole step, forward, backward and update, runs
 with TF32 off (``_device.full_f32``), as the reference runs
@@ -111,7 +114,7 @@ from tumblr_emotions_torch.train.optim import Optimizer, learning_rate
 from tumblr_emotions_torch.utils import checkpoint as ckpt_lib
 from tumblr_emotions_torch.utils import compile_opts
 from tumblr_emotions_torch.utils import metrics as metrics_lib
-from tumblr_emotions_torch.utils.summaries import ProfilerHook, SummaryWriter
+from tumblr_emotions_torch.utils.summaries import ProfilerHook, SummaryWriter, span
 
 log = logging.getLogger("tumblr_emotions_torch")
 
@@ -480,31 +483,37 @@ class Trainer:
             return self.train_step(state, batch, generator)
         if generator is not self.generator:
             raise ValueError("the captured train step draws from trainer.generator")
-        scalars = self.optimizer.scalars(state.opt_state["count"])
-        metrics = self._call("train", state, batch, [scalars])
+        metrics = self._call("train", state, batch)
         state.opt_state["count"] += 1
         return TrainState(state.step + 1, state.state, state.opt_state), metrics
 
     def _run_eval(self, state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         if "eval" not in self._programs:
             return self.eval_step(state, batch)
-        return self._call("eval", state, batch, [])
+        return self._call("eval", state, batch)
 
-    def _call(self, which: str, state: TrainState, batch: Dict[str, Any], extra: List):
+    def _call(self, which: str, state: TrainState, batch: Dict[str, Any]):
         """Run a captured step on ``state``: its graphs were captured on the
         addresses of the tensors it updates or reads (the state dict, and
         for the train step the optimizer's moments and which leaves train),
-        so a state held elsewhere drops them and is captured anew."""
-        tensors = list(state.state.values())
-        if which == "train":
-            tensors += [v for m in self.optimizer.moments for v in state.opt_state[m].values()]
-        bound = tuple((t.data_ptr(), t.requires_grad) for t in tensors)
-        if bound != self._bound_keys.get(which):
-            self._programs[which].clear()
-            self._bound_keys[which] = bound
-        names = tuple(sorted(batch))
-        self._bound = (state, names)   # read by the program while it is captured
-        return self._programs[which](*[batch[k] for k in names], *extra, key=names)
+        so a state held elsewhere drops them and is captured anew.  The
+        train step also takes the update's host scalars
+        (``Optimizer.scalars``).  All of it is the ``trainer.bind`` span
+        (``utils/summaries.span``), the program's own spans nested in it."""
+        with span("trainer.bind"):
+            tensors = list(state.state.values())
+            extra = []
+            if which == "train":
+                tensors += [v for m in self.optimizer.moments
+                            for v in state.opt_state[m].values()]
+                extra.append(self.optimizer.scalars(state.opt_state["count"]))
+            bound = tuple((t.data_ptr(), t.requires_grad) for t in tensors)
+            if bound != self._bound_keys.get(which):
+                self._programs[which].clear()
+                self._bound_keys[which] = bound
+            names = tuple(sorted(batch))
+            self._bound = (state, names)   # read by the program while it is captured
+            return self._programs[which](*[batch[k] for k in names], *extra, key=names)
 
     def _captured_train(self, *args) -> Dict[str, torch.Tensor]:
         state, names = self._bound

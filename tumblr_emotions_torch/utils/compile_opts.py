@@ -36,6 +36,18 @@ and offset at the time of the replay.
 
 A capture that fails raises: there is no quiet fallback to the eager
 program, which would hide the graph's absence behind the same answers.
+
+A graphed call's host work shows under a profiler as spans
+(``utils/summaries.span``; nothing is recorded when no profiler runs), each
+directly inside the caller's range, which ties the spans of one call
+together: ``captured.wait`` (the lock, the stream's wait for the last
+call's copies out, the host's wait for the last copy out of staging),
+``captured.stage`` (host inputs into their pinned staging buffers),
+``captured.copy_in`` (the copies to the card and their event),
+``captured.launch`` (the graph's replay), ``captured.copy_out`` (the
+outputs' copies) and, on a signature's first call, ``captured.capture``
+(warm-up, recording and instantiation).  None is inside the program: a span
+there would be recorded once, at the capture, and never replayed.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ import numpy as np
 import torch
 
 from tumblr_emotions_torch._device import resolve_device
+from tumblr_emotions_torch.utils.summaries import span
 
 log = logging.getLogger("tumblr_emotions_torch")
 
@@ -232,43 +245,57 @@ class Captured:
         if not self.graphed:
             with self._mode():
                 return self.fn(*[_to_device(a, self.device) for a in args])
-        with self._lock, self._mode():
-            stream = torch.cuda.current_stream(self.device)
-            if self._done is not None:
-                stream.wait_event(self._done)
-            key = (key, _signature(args))
-            g = self._graphs.get(key)
+        key = (key, _signature(args))
+        with contextlib.ExitStack() as held:
+            with span("captured.wait"):
+                held.enter_context(self._lock)
+                stream = torch.cuda.current_stream(self.device)
+                if self._done is not None:
+                    stream.wait_event(self._done)
+                g = self._graphs.get(key)
+                if g is not None and g.staged is not None:
+                    g.staged.synchronize()   # the last copy out of staging is done
+            held.enter_context(self._mode())
             if g is None:
-                out = self._capture(key, args)
+                with span("captured.capture"):
+                    out = self._capture(key, args)
             else:
                 self._copy_in(g, args)
-                g.graph.replay()
+                with span("captured.launch"):
+                    g.graph.replay()
                 g.replays += 1
                 self.replays += 1
-                out = _map(g.static_out, torch.clone)
+                with span("captured.copy_out"):
+                    out = _map(g.static_out, torch.clone)
             self._done = torch.cuda.Event()
             self._done.record(stream)
             return out
 
     def _copy_in(self, g: _Graph, args) -> None:
-        if g.staged is not None:
-            g.staged.synchronize()   # the last copy out of staging is done
-        host = False
-        for a, static, stage in zip(args, g.static_in, g.staging):
-            if a is None:
-                continue
-            if stage is None:
-                static.copy_(a)
-                continue
-            if isinstance(a, np.ndarray):
-                stage.numpy()[...] = a
-            else:
-                stage.copy_(a)
-            static.copy_(stage, non_blocking=True)
-            host = True
-        if host:
-            g.staged = torch.cuda.Event()
-            g.staged.record(torch.cuda.current_stream(self.device))
+        """Each host input into its pinned staging buffer (``captured.stage``),
+        then every input into the graph's static buffers, from staging
+        without blocking the host (``captured.copy_in``)."""
+        with span("captured.stage"):
+            for a, stage in zip(args, g.staging):
+                if stage is None:       # None, or an input on the card
+                    continue
+                if isinstance(a, np.ndarray):
+                    stage.numpy()[...] = a
+                else:
+                    stage.copy_(a)
+        with span("captured.copy_in"):
+            host = False
+            for a, static, stage in zip(args, g.static_in, g.staging):
+                if a is None:
+                    continue
+                if stage is None:
+                    static.copy_(a)
+                else:
+                    static.copy_(stage, non_blocking=True)
+                    host = True
+            if host:
+                g.staged = torch.cuda.Event()
+                g.staged.record(torch.cuda.current_stream(self.device))
 
     def _stream_for_capture(self):
         """None (``torch.cuda.graph``'s own capture stream) where that stream

@@ -13,7 +13,18 @@ window of steps with ``jax.profiler``.  Here:
   steps and values the reference's writer gives for the same calls;
 * :class:`ProfilerHook` traces steps ``[start, start + num)`` with
   ``torch.profiler`` (the card's kernels included) and writes a Chrome
-  trace under ``logdir``; each traced step is a ``train_step <n>`` range.
+  trace under ``logdir``; each traced step is a ``train_step <n>`` range;
+* :func:`span` marks a stretch of the program's host work as a profiler
+  range, and costs a check of a flag when no profiler runs.  The program's
+  spans: ``captured.wait``, ``captured.stage``, ``captured.copy_in``,
+  ``captured.launch``, ``captured.copy_out`` and ``captured.capture``
+  (``utils/compile_opts.Captured``), ``trainer.bind`` (the trainer's
+  captured steps) and ``prefetch.wait`` (``data/pipeline.
+  DevicePrefetchIterator``).  Being profiler ranges, they share the clock
+  of the card's trace, nest, and show in ``fit``'s Chrome trace and in any
+  other profiled stretch.  The benchmark reads ``captured.stage``,
+  ``captured.launch`` and ``prefetch.wait``; its own spans
+  (``benchmark/devtrace.SPANS``) have other names.
 """
 
 from __future__ import annotations
@@ -26,6 +37,8 @@ import struct
 import time
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from tumblr_emotions_torch.data.records import _len_delimited as _field
 from tumblr_emotions_torch.data.records import _read_varint, _varint
 
@@ -33,6 +46,26 @@ log = logging.getLogger("tumblr_emotions_torch")
 
 _DT_FLOAT = 1
 _DATA_CLASS_SCALAR = 1
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A profiler range ``name`` over the ``with`` block it opens.  With no
+    profiler running it is one shared ``contextlib.nullcontext()``: nothing
+    is allocated or formatted.  The spans of one step or batch are tied
+    together by the caller's range they nest in.
+
+    The range is an operator's record (``_RecordFunctionFast``), not
+    ``torch.profiler.record_function``'s user annotation: the profiler
+    mirrors a user annotation onto the card as a record spanning the
+    kernels launched inside it, which a device trace then counts as device
+    work (a ``captured.launch`` annotation read as 1.4 s of "kernels" in a
+    3-s window on an H100)."""
+    if not _profiling():
+        return _NO_SPAN
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def _event(step: int, wall_time: float, body: bytes) -> bytes:
@@ -150,8 +183,6 @@ class ProfilerHook:
 
     def maybe_start(self, step: int) -> None:
         if self.trace_path and self._prof is None and step == self.start_step:
-            import torch
-
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -163,8 +194,6 @@ class ProfilerHook:
         """A ``train_step <step>`` range in the trace while tracing."""
         if self._prof is None:
             return contextlib.nullcontext()
-        import torch
-
         return torch.profiler.record_function(f"train_step {step}")
 
     def maybe_stop(self, step: int) -> None:
@@ -174,8 +203,6 @@ class ProfilerHook:
 
     def stop_if_active(self) -> None:
         if self._prof is not None:
-            import torch
-
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self._prof.stop()
