@@ -266,6 +266,103 @@ def test_a_failed_wait_frees_the_lock(monkeypatch):
     assert cap(np.full(4, 3, np.float32))[0].tolist() == [6.0] * 4
     assert not cap._lock.locked() and cap.replays == 2
 
+
+def _summing_card(monkeypatch):
+    """A graphed ``Captured`` on the fake card whose body sums each row."""
+    _fake_card(monkeypatch)
+
+    def body(x):
+        return (x.reshape(len(x), -1).sum(1, dtype=torch.int64),)
+
+    cap = compile_opts.Captured(body, {"cuda_graph": "true"}, torch.device("cpu"))
+    cap.graphed = True
+    orig_capture = cap._capture
+
+    def capture(key, args):
+        out = orig_capture(key, args)
+        g = cap._graphs[key]
+        g.graph.fn = lambda: g.static_out[0].copy_(body(*g.static_in)[0])
+        return out
+
+    cap._capture = capture
+    return cap, body
+
+
+def _batch(rows, row_bytes, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (rows, row_bytes), np.uint8)
+
+
+def _read_only(a):
+    a.flags.writeable = False
+    return a
+
+
+# ~3 slices' worth in 7 rows: the slices cannot all hold the same rows
+_ROW = compile_opts._SLICE_BYTES * 3 // 7 + 1
+
+
+@pytest.mark.parametrize("make,sliced", [
+    (lambda: _batch(7, _ROW), True),
+    (lambda: _batch(7, compile_opts._SLICE_BYTES // 7), False),
+    (lambda: _batch(1, 3 * compile_opts._SLICE_BYTES), False),
+    (lambda: _batch(7, 2 * _ROW)[:, ::2], True),
+    (lambda: _batch(7, _ROW)[::-1], True),
+    (lambda: _read_only(_batch(7, _ROW)), True),
+    (lambda: torch.from_numpy(_batch(7, _ROW)), True),
+], ids=["sliced", "below-the-slice-size", "one-row", "strided", "negative-stride",
+        "read-only", "torch-cpu"])
+def test_host_inputs_are_staged_whole_or_in_row_slices(monkeypatch, make, sliced):
+    """A host input reaches the graph's static buffer byte for byte, in row
+    slices when it holds several slices' bytes and rows, else in one piece;
+    ``split_stages`` counts the sliced calls (the capture's and the
+    replay's) and no others; nothing warns, read-only input included."""
+    import warnings
+
+    cap, body = _summing_card(monkeypatch)
+    a = make()
+    pieces = compile_opts._row_slices(a)
+    assert (len(pieces) > 1) == sliced
+    if sliced:
+        assert len({p.stop - p.start for p in pieces}) == 2   # uneven slices
+        assert [p.start for p in pieces[1:]] == [p.stop for p in pieces[:-1]]
+        assert pieces[0].start == 0 and pieces[-1].stop == len(a)
+    first = 255 - np.asarray(a)       # the capture's call: other bytes
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cap(torch.from_numpy(first) if isinstance(a, torch.Tensor) else first)
+        got = cap(a)
+    want = torch.from_numpy(np.asarray(a).copy())
+    (g,) = cap._graphs.values()
+    assert torch.equal(g.static_in[0], want)
+    assert torch.equal(got[0], body(want)[0])
+    assert (cap.replays, cap.split_stages) == (1, 2 if sliced else 0)
+
+
+def test_a_failed_staging_frees_the_lock(monkeypatch):
+    """A copy that raises part-way through a sliced staging leaves the lock
+    free and counts no sliced call; the next call stages and answers whole."""
+    cap, body = _summing_card(monkeypatch)
+    a = _batch(7, _ROW)
+    cap(a)
+    real = compile_opts._stage_rows
+    n = {"copies": 0}
+
+    def fails_second(stage, src, rows):
+        n["copies"] += 1
+        if n["copies"] == 2:
+            raise RuntimeError("copy failed")
+        real(stage, src, rows)
+
+    monkeypatch.setattr(compile_opts, "_stage_rows", fails_second)
+    with pytest.raises(RuntimeError, match="copy failed"):
+        cap(255 - a)
+    assert not cap._lock.locked() and (cap.replays, cap.split_stages) == (0, 1)
+    monkeypatch.setattr(compile_opts, "_stage_rows", real)
+    b = _batch(7, _ROW, seed=1)
+    assert torch.equal(cap(b)[0], body(torch.from_numpy(b))[0])
+    assert not cap._lock.locked() and (cap.replays, cap.split_stages) == (1, 2)
+
+
 def test_autotune_skips_unknown_candidates_and_caches(tmp_path, monkeypatch, caplog):
     """Mirrors the reference's autotune tests: a candidate the port does not
     know is skipped and logged; the winner round-trips through the JSON

@@ -608,6 +608,42 @@ def test_joint_runner_matches_plain_engine(dev, int8_engines):
     assert (got - want).abs().max().item() <= 1e-6
 
 
+def test_sliced_staging_answers_as_one_piece(dev, int8_engines, monkeypatch):
+    """The joint int8 runner on a served batch of host numpy (64 images of
+    347 px, 23.1 MB: staged in row slices, each sent to the card as soon as
+    it is staged) answers bit for bit as the same runner staging each input
+    in one piece."""
+    from tumblr_emotions_torch import get_preset
+    from tumblr_emotions_torch.data.preprocessing import preprocess_for_eval
+    from tumblr_emotions_torch.data.vocab import synthetic_ids
+    from tumblr_emotions_torch.models import build_model, joint_model
+    from tumblr_emotions_torch.ops.serving import build_forward
+    from tumblr_emotions_torch.utils import compile_opts
+
+    _, _, raw = int8_engines
+    cfg = get_preset("joint_finetune")
+    cfg = cfg.replace(image=cfg.image.replace(depth_multiplier=0.5),
+                      text=cfg.text.replace(vocab_size=1000, embed_dim=32))
+    state = joint_model.init_state(build_model(cfg, device="meta"), 0)
+    runner = build_forward(cfg, state, calib_images=preprocess_for_eval(raw), device=dev)
+    batches = []
+    for seed in (1, 2):
+        rng = np.random.RandomState(seed)
+        batches.append((rng.randint(0, 256, (64, 347, 347, 3)).astype(np.uint8),
+                        synthetic_ids(rng, 64, 50, 1000),
+                        rng.randint(1, 51, 64).astype(np.int32)))
+    assert len(compile_opts._row_slices(batches[0][0])) > 1
+    assert len(compile_opts._row_slices(batches[0][1])) == 1
+    sliced = [runner(*b).cpu() for b in batches]    # the capture, then a replay
+    assert runner.program.split_stages == 2
+    monkeypatch.setattr(compile_opts, "_SLICE_BYTES", 1 << 62)
+    whole = [runner(*b).cpu() for b in batches]
+    assert runner.program.split_stages == 2 and runner.program.replays == 3
+    assert not torch.equal(sliced[0], sliced[1])
+    for s, w in zip(sliced, whole):
+        assert torch.equal(s, w)
+
+
 def test_rnn_text_model_matches_the_cpu(dev):
     from tumblr_emotions_torch.data.vocab import synthetic_ids
     from tumblr_emotions_torch.models import text_model
