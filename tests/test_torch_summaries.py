@@ -207,8 +207,8 @@ def _program_span_names():
 
 
 PROGRAM_SPANS = ["captured.capture", "captured.copy_in", "captured.copy_out",
-                 "captured.launch", "captured.stage", "captured.wait", "prefetch.wait",
-                 "trainer.bind"]
+                 "captured.launch", "captured.stage", "captured.wait", "dp.allreduce",
+                 "prefetch.wait", "trainer.bind"]
 
 
 def test_the_program_spans_are_the_listed_ones():

@@ -308,8 +308,8 @@ class SlimBatchNorm(nn.Module):
             var, mean = torch.var_mean(x, dim=axes, correction=0)
             return mean, var
         n = x.numel() // x.shape[-1] * torch.distributed.get_world_size(self.group)
-        mean = all_reduce(x.sum(axes), group=self.group) / n
-        var = all_reduce(((x - mean) ** 2).sum(axes), group=self.group) / n
+        mean = all_reduce(x.sum(axes), group=self.group, kind="batch_norm") / n
+        var = all_reduce(((x - mean) ** 2).sum(axes), group=self.group, kind="batch_norm") / n
         return mean, var
 
 

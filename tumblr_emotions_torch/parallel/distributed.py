@@ -14,18 +14,35 @@ when every process of the machine has a card of its own, gloo on the CPU
 or when processes share a card (NCCL refuses two ranks on one device).  A
 failed initialisation raises.  Collectives on gloo stage tensors of the
 card through host memory (:func:`all_reduce_`).
+
+Each all-reduce names its kind (:data:`KINDS`): ``batch_norm`` (the global
+batch's statistics and their gradients, ``models/layers.SlimBatchNorm``),
+``gradient`` (a train step's flat gradient), ``statistics`` (a step's loss
+and accuracy, an eval batch's metric statistics) or ``other``.  Inside
+:func:`counting` every all-reduce issued is counted with its bytes by kind:
+the trainer counts each train step it runs op by op or records into a graph
+(``Trainer.collectives``), so a captured step's counts are those of the
+recording, which every replay repeats.  Under a profiler each all-reduce
+issued from Python is the span ``dp.allreduce`` (``utils/summaries.span``):
+an op-by-op step (gloo) shows every one; a captured step shows none, its
+collectives being nodes of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
-from typing import Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from tumblr_emotions_torch.utils.summaries import span
+
 log = logging.getLogger("tumblr_emotions_torch")
+
+KINDS = ("batch_norm", "gradient", "statistics", "other")
 
 # torchrun's rendezvous: a multi-process run sets MASTER_ADDR and a
 # WORLD_SIZE above 1; a single-host run of one process has neither.
@@ -118,18 +135,53 @@ def host_shard_options() -> Tuple[int, int]:
     return 0, 1
 
 
+class CollectiveCount:
+    """All-reduces issued, and their bytes, by kind (:data:`KINDS`)."""
+
+    def __init__(self):
+        self.calls: Dict[str, int] = dict.fromkeys(KINDS, 0)
+        self.bytes: Dict[str, int] = dict.fromkeys(KINDS, 0)
+
+    def add(self, kind: str, t: torch.Tensor) -> None:
+        self.calls[kind] += 1
+        self.bytes[kind] += t.numel() * t.element_size()
+
+    def total(self) -> int:
+        return sum(self.calls.values())
+
+
+_counting: Optional[CollectiveCount] = None
+
+
+@contextlib.contextmanager
+def counting() -> Iterator[CollectiveCount]:
+    """Count the all-reduces issued inside the block (a nested block counts
+    its own; the outer one resumes after it)."""
+    global _counting
+    outer, _counting = _counting, CollectiveCount()
+    try:
+        yield _counting
+    finally:
+        _counting = outer
+
+
 def _stages_through_host(t: torch.Tensor, group) -> bool:
     return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
 
 
-def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (through host memory on gloo)."""
-    if _stages_through_host(t, group):
-        host = t.cpu()
-        dist.all_reduce(host, group=group)
-        t.copy_(host)
-    else:
-        dist.all_reduce(t, group=group)
+def all_reduce_(t: torch.Tensor, group=None, kind: str = "other") -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (through host memory on gloo);
+    ``kind`` (one of :data:`KINDS`) is what :func:`counting` files it
+    under."""
+    if _counting is not None:
+        _counting.add(kind, t)
+    with span("dp.allreduce"):
+        if _stages_through_host(t, group):
+            host = t.cpu()
+            dist.all_reduce(host, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, group=group)
     return t
 
 
@@ -139,18 +191,19 @@ class _AllReduce(torch.autograd.Function):
     host memory on gloo)."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return all_reduce_(t.clone(memory_format=torch.contiguous_format), group)
+    def forward(ctx, t, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return all_reduce_(t.clone(memory_format=torch.contiguous_format), group, kind)
 
     @staticmethod
     def backward(ctx, g):
-        return _AllReduce.apply(g, ctx.group), None
+        return _AllReduce.apply(g, ctx.group, ctx.kind), None, None
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Autograd-aware sum of ``t`` over ``group``."""
-    return _AllReduce.apply(t, group)
+def all_reduce(t: torch.Tensor, group=None, kind: str = "other") -> torch.Tensor:
+    """Autograd-aware sum of ``t`` over ``group`` (its backward's all-reduce
+    of the same ``kind``)."""
+    return _AllReduce.apply(t, group, kind)
 
 
 def collective_device(group, device) -> torch.device:

@@ -238,6 +238,9 @@ class Trainer:
         self._programs: Dict[str, compile_opts.Captured] = {}
         self._bound_keys: Dict[str, tuple] = {}
         self._bound: Optional[Tuple[TrainState, Tuple[str, ...]]] = None
+        # the all-reduces of the last train step run op by op or recorded
+        # into a graph (None without a group)
+        self.collectives: Optional[distributed.CollectiveCount] = None
 
     # -- initialization ----------------------------------------------------
 
@@ -291,9 +294,10 @@ class Trainer:
             stack.enter_context(full_f32())
         return stack
 
-    def _all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the process group (itself without one)."""
-        return t if self.group is None else distributed.all_reduce_(t, self.group)
+    def _all_reduce(self, t: torch.Tensor, kind: str = "other") -> torch.Tensor:
+        """``t`` summed over the process group (itself without one);
+        ``kind`` as ``distributed.counting`` files it."""
+        return t if self.group is None else distributed.all_reduce_(t, self.group, kind)
 
     def _maybe_preprocess(self, batch: Dict[str, torch.Tensor], train: bool,
                           generator: Optional[torch.Generator],
@@ -346,16 +350,21 @@ class Trainer:
         ``scalars`` given (``Optimizer.scalars``, a float32 tensor on the
         device) and no host work: what a captured step records.  Returns
         the metrics; leaves ``state.step`` and the optimizer's count to the
-        caller."""
-        batch = self.train_inputs(batch, generator, draws)
-        loss, logits, grads = self.loss_and_grads(state, batch, generator)
-        with self._numerics():
-            self.optimizer.apply({k: state.state[k] for k in grads}, grads, state.opt_state,
-                                 scalars)
-        acc = (logits.to(self.model.dtype).argmax(-1) == batch["label"].long()).float().mean()
+        caller.  Under data parallelism the all-reduces it issues are
+        counted into ``collectives`` (``distributed.counting``)."""
+        with distributed.counting() as count:
+            batch = self.train_inputs(batch, generator, draws)
+            loss, logits, grads = self.loss_and_grads(state, batch, generator)
+            with self._numerics():
+                self.optimizer.apply({k: state.state[k] for k in grads}, grads,
+                                     state.opt_state, scalars)
+            acc = (logits.to(self.model.dtype).argmax(-1) == batch["label"].long()).float().mean()
+            if self.group is not None:
+                # loss is this process's share of the global loss already
+                loss, acc = self._all_reduce(torch.stack([loss, acc / self.world]),
+                                             "statistics").unbind()
         if self.group is not None:
-            # loss is this process's share of the global loss already
-            loss, acc = self._all_reduce(torch.stack([loss, acc / self.world])).unbind()
+            self.collectives = count
         return {"loss": loss, "accuracy": acc}
 
     def train_inputs(self, batch: Dict[str, Any], generator: Optional[torch.Generator] = None,
@@ -391,7 +400,8 @@ class Trainer:
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
         if self.group is not None:
-            flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]))
+            flat = self._all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]),
+                                    "gradient")
             grads = dict(zip(grads, (f.view_as(g) for f, g in zip(
                 flat.split([g.numel() for g in grads.values()]), grads.values()))))
         return loss.detach(), logits.detach(), grads
@@ -421,7 +431,8 @@ class Trainer:
             stats["loss_sum"] = (per_ex * w).sum() + l2 * stats["count"].float()
         if self.group is not None:
             keys = list(stats)
-            flat = self._all_reduce(torch.cat([stats[k].double().reshape(-1) for k in keys]))
+            flat = self._all_reduce(torch.cat([stats[k].double().reshape(-1) for k in keys]),
+                                    "statistics")
             parts = flat.split([stats[k].numel() for k in keys])
             stats = {k: p.view_as(stats[k]).to(stats[k].dtype) for k, p in zip(keys, parts)}
         return stats

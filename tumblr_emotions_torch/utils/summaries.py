@@ -19,9 +19,11 @@ window of steps with ``jax.profiler``.  Here:
   spans: ``captured.wait``, ``captured.stage``, ``captured.copy_in``,
   ``captured.launch``, ``captured.copy_out`` and ``captured.capture``
   (``utils/compile_opts.Captured``), ``trainer.bind`` (the trainer's
-  captured steps) and ``prefetch.wait`` (``data/pipeline.
-  DevicePrefetchIterator``).  Being profiler ranges, they share the clock
-  of the card's trace, nest, and show in ``fit``'s Chrome trace and in any
+  captured steps), ``prefetch.wait`` (``data/pipeline.
+  DevicePrefetchIterator``) and ``dp.allreduce`` (each all-reduce issued
+  from Python, ``parallel/distributed.all_reduce_``).  Being profiler
+  ranges, they share the clock of the card's trace, nest, and show in
+  ``fit``'s Chrome trace and in any
   other profiled stretch.  The benchmark reads ``captured.stage``,
   ``captured.launch`` and ``prefetch.wait``; its own spans
   (``benchmark/devtrace.SPANS``) have other names.
