@@ -18,7 +18,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
                its share of the bound, beside bf16 F.conv2d and the cuDNN
                engine's f32-on-bf16 conv), the Inception-A block
                (Mixed_5b/5c/5d) and the Inception-B block (Mixed_6b/6c/6e)
-               beside the cuDNN engine's blocks.
+               beside the cuDNN engine's blocks.  Then the bf16 train-mode
+               batch norm's Triton kernels (ops/batch_norm: bn_bf16_sums,
+               _finish, _normalize, _grad_sums, _grad) at the tower's
+               batch-normed conv outputs at 128 rows (149x149x32,
+               147x147x64, 35x35x288, 17x17x768, 8x8x2048): the sums within
+               f32 summation-order error, the normalisation and the input
+               gradient bit-equal, two launches bit-equal; ms and graph_ms
+               beside the bytes' bound.
 4. e2e      -- the served program image_server(FusedInceptionV3(state,
                use_kernels=True)) on 3 uint8 [64,347,347,3] batches with
                seeded full-width weights; launch counts (5 and 8 block-conv
@@ -139,8 +146,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                records, with --examples: the circumplex within ANALYZE_TOL of
                the one of the CPU's probabilities, every emotion's section in
                the report.
-17. train_perf, train_dp -- perf-mode training of the data_parallel preset,
-               and two processes on the card.
+17. train_perf, train_dp -- perf-mode training of the data_parallel preset
+               (every batch-normed conv's batch norm kernels launched on
+               each step of fit, no served kernel), and two processes on
+               the card.
 captured -- run before e2e_http: every served runner (int8 s2d, uint8 and
                float fronts, bf16 cuDNN, bf16 with the block kernels, joint
                int8, text rnn) at full width, batch 64, as one CUDA graph per
@@ -174,7 +183,9 @@ train_captured -- the main path of training: Trainer.compile's train and
                image_frozen adam override, text_only and the data_parallel
                preset in perf mode at 128 rows (one process, and on a
                world-size-1 NCCL group); one graph launch per step, no
-               served kernel in any train graph, ms per step and peak memory
+               served kernel in any train graph, the batch norm kernels
+               once a step in the perf cases' train graph and none
+               elsewhere, ms per step and peak memory
                captured against eager, the trace's idle share; a restore
                under capture equal to the straight run.
 tune_train -- cli tune --step train at batch 64, then from its cache.
@@ -396,6 +407,22 @@ BF16_PER_FORWARD = {"fused_inception_a": 3, "fused_inception_b": 4,
                     "conv_same_bias_relu": 3 * 5 + 4 * 8, POOLED: 7}
 # path -> the CUDA graphs' part of its run (``served_launches``).
 GRAPH_RUNS: dict = {}
+# The bf16 train-mode batch norm's Triton kernels (ops/batch_norm), each
+# counted by its wrapper (``_bn_wrappers``): launches per batch-normed conv
+# in one train step, forward and backward (two statistics passes, three
+# finishing sums, the normalisation, the gradient's sums, the input
+# gradient), over the BN_LAYERS batch-normed convs of the tower and aux head.
+BN_PER_LAYER = {"bn_bf16_sums": 2, "bn_bf16_finish": 3, "bn_bf16_normalize": 1,
+                "bn_bf16_grad_sums": 1, "bn_bf16_grad": 1}
+BN_LAYERS = 96
+# The tower's batch-normed conv outputs (H = W, C) the kernels are checked
+# at, at PERF_BATCH rows; the statistics within BN_SUM_RTOL of the sum of
+# the magnitudes summed (f32 summation-order error), as the card test holds.
+BN_SHAPES = ((149, 32), (147, 64), (35, 288), (17, 768), (8, 2048))
+BN_SUM_RTOL = 1e-5
+# path -> the train graphs' batch norm nodes times their replays, with the
+# launches from Python (``check_bn_launches``).
+BN_GRAPH_RUNS: dict = {}
 
 
 T0 = time.perf_counter()
@@ -1766,9 +1793,10 @@ def fit_case(dev, cfg, preprocess, state0, batches, ev_batches, eager, mesh=None
     step eager or captured (``TET_TORCH_TRAIN_COMPILER_OPTIONS``), then
     ``evaluate`` over ``ev_batches``: the trainer, the trained state, each
     step's loss and accuracy, ms per step (host clock; fit reads every
-    loss, cfg.train.log_every 1), peak memory, the served kernels'
-    launches, the eval summary and, captured, each graph's replays and
-    kernel nodes."""
+    loss, cfg.train.log_every 1), peak memory, the wrappers' launches (the
+    served kernels' and the batch norm's), the eval summary and, captured,
+    each graph's replays and kernel nodes (all, the served kernels', the
+    batch norm's)."""
     import numpy as np
     import torch
 
@@ -1801,7 +1829,8 @@ def fit_case(dev, cfg, preprocess, state0, batches, ev_batches, eager, mesh=None
     for which, program in tr._programs.items():
         run[which + "_graphs"] = [
             {"replays": g["replays"], "kernel_nodes": sum(g["kernels"].values()),
-             "served_kernel_nodes": served_nodes(g["kernels"])}
+             "served_kernel_nodes": served_nodes(g["kernels"]),
+             "bn_kernel_nodes": bn_nodes(g["kernels"])}
             for g in program.kernel_nodes()]
     return run
 
@@ -1839,7 +1868,10 @@ def train_captured_phase(dev, smi):
     moments, BN statistics, every step's loss and accuracy, the eval
     summary.  One train graph, replayed once per step after the first (the
     warm-up that captures it); no served kernel (K1-K4) among any graph's
-    kernel nodes nor launched.  Prints ms per step and peak memory captured
+    kernel nodes nor launched; in perf mode every batch-normed conv's batch
+    norm kernels (BN_PER_LAYER) launched on each eager step and on the
+    warm-up, and among the train graph's nodes once, none in eval graphs;
+    none in f32.  Prints ms per step and peak memory captured
     and eager, each graph's kernel nodes, and for the f32 joint and perf
     cases the device's busy time, idle share and kernels per step from a
     trace of 2 steps each way, and with cuDNN's nondeterministic algorithms
@@ -1906,10 +1938,26 @@ def train_captured_phase(dev, smi):
                 fail(f"train_captured {name}: train graphs {graphs}")
             served = [g["served_kernel_nodes"] for w in ("train", "eval")
                       for g in capt[w + "_graphs"]]
-            if any(any(s.values()) for s in served) or any(eager["launches"].values()) or \
-                    any(capt["launches"].values()):
-                fail(f"train_captured {name}: served kernels in training: {served}, "
-                     f"{eager['launches']}, {capt['launches']}")
+            if any(any(s.values()) for s in served):
+                fail(f"train_captured {name}: served kernels in training: {served}")
+            # the bf16 model's batch norm: each step's kernels eagerly, the
+            # capturing step's warm-up from Python and one step's in the
+            # train graph; none in f32 nor in an eval graph
+            bf16 = t.precision_mode == "perf"
+            check_bn_launches(f"train_captured {name} eager", eager["launches"],
+                              TRAIN_CAPTURED_STEPS if bf16 else 0)
+            check_bn_launches(f"train_captured {name} captured", capt["launches"],
+                              1 if bf16 else 0)
+            per_step = {k: n * BN_LAYERS * bf16 for k, n in BN_PER_LAYER.items()}
+            eval_bn = [g["bn_kernel_nodes"] for g in capt["eval_graphs"]]
+            if graphs[0]["bn_kernel_nodes"] != per_step or any(any(b.values()) for b in eval_bn):
+                fail(f"train_captured {name}: batch norm nodes {graphs[0]['bn_kernel_nodes']} "
+                     f"in the train graph, expected {per_step}; in the eval graphs {eval_bn}")
+            if bf16:
+                BN_GRAPH_RUNS[f"train_captured {name}"] = {
+                    "replays": graphs[0]["replays"],
+                    "device_launches": {k: capt["launches"][k] + per_step[k] *
+                                        graphs[0]["replays"] for k in BN_PER_LAYER}}
             line = {"phase": "train_captured", "case": name, "preset": preset,
                     "precision_mode": t.precision_mode, "optimizer": t.optimizer,
                     "batch": n, "depth": DEPTH, "steps": TRAIN_CAPTURED_STEPS,
@@ -1922,6 +1970,7 @@ def train_captured_phase(dev, smi):
                     "peak_memory_gb_captured": capt["peak_gb"],
                     "peak_memory_gb_eager": eager["peak_gb"],
                     "train_graphs": graphs, "eval_graphs": capt["eval_graphs"],
+                    "launches_eager": eager["launches"], "launches_captured": capt["launches"],
                     "graph_launches_per_step": graphs[0]["replays"]
                     / (TRAIN_CAPTURED_STEPS - 1),
                     "eval": {k: capt["eval"][k] for k in ("count", "accuracy", "loss")},
@@ -2108,8 +2157,11 @@ def train_perf_phase(dev, smi):
     runs the plain step, as the reference runs plain jit on one device;
     then 3 steps of the collective path (a mesh given the NCCL group) time
     what the collectives cost.  Then a batch-4 perf step on the card against
-    the CPU's, and the bf16 model's eval-mode gradients.  Returns the served
-    kernels' launches in fit (0)."""
+    the CPU's, and the bf16 model's eval-mode gradients.  Fit's launches:
+    every batch-normed conv's batch norm kernels (BN_PER_LAYER) on each of
+    the PERF_STEPS steps (fit's step is captured on the card: the first
+    step's warm-up from Python, the train graph's nodes on the replays), and
+    no served kernel.  Returns the launches from Python."""
     import dataclasses
     import glob
     import os
@@ -2165,8 +2217,20 @@ def train_perf_phase(dev, smi):
         peak = torch.cuda.max_memory_allocated()
         step_ms = [1e3 * (b - a) for a, b in zip(starts, starts[1:] + [t0 + fit_s])]
         losses = [float(x) for x in losses]
-        if any(launches.values()):
-            fail(f"train_perf: kernels of the served path launched in training: {launches}")
+        # fit compiles the step: captured, the first step's warm-up runs
+        # from Python and the graph's nodes replay the rest
+        captured = tr.step_mode == "captured"
+        check_bn_launches("train_perf", launches, 1 if captured else PERF_STEPS)
+        per_step = {k: n * BN_LAYERS for k, n in BN_PER_LAYER.items()}
+        if captured:
+            (g,) = tr._programs["train"].kernel_nodes()
+            if bn_nodes(g["kernels"]) != per_step or g["replays"] != PERF_STEPS - 1:
+                fail(f"train_perf: batch norm nodes {bn_nodes(g['kernels'])} replayed "
+                     f"{g['replays']} times, expected {per_step} replayed {PERF_STEPS - 1}")
+            BN_GRAPH_RUNS["train_perf"] = {
+                "replays": g["replays"],
+                "device_launches": {k: launches[k] + per_step[k] * g["replays"]
+                                    for k in BN_PER_LAYER}}
         if len(losses) != PERF_STEPS or not all(np.isfinite(losses)):
             fail(f"train_perf: losses {losses}")
         if ts.step != PERF_STEPS or ts.opt_state["count"] != PERF_STEPS:
@@ -2357,7 +2421,7 @@ def train_perf_phase(dev, smi):
                     "3 more steps; trace: device time of the profiled steps",
           "peak_memory_gb": peak / 2 ** 30, "bound_ms_bf16": bound_ms,
           "bound_note": "3 x 2 x the tower's multiply-adds x batch over the bf16 peak",
-          "launches_served_kernels": launches,
+          "launches": launches,
           "trace": {"path": os.path.relpath(tr.last_trace), "kernel_events": kernels,
                     "ranges": ranges, "kernels_per_step": kernels / PERF_PROFILE[1],
                     "device_busy_ms_per_step": busy_ms,
@@ -3642,21 +3706,136 @@ def _wrappers():
             ic.conv_int8, ip.maxpool3x3s2_int8)
 
 
+def _bn_wrappers() -> dict:
+    """The batch norm's kernels (BN_PER_LAYER) by name, each's wrapper."""
+    from tumblr_emotions_torch.ops import batch_norm as bn
+
+    return {"bn_bf16_sums": bn.sums, "bn_bf16_finish": bn._finish,
+            "bn_bf16_normalize": bn.normalize, "bn_bf16_grad_sums": bn.grad_sums,
+            "bn_bf16_grad": bn.grad}
+
+
 def reset_all_launches() -> None:
     from tumblr_emotions_torch.ops import fused_inception as fi
     from tumblr_emotions_torch.ops import int8_conv as ic
 
-    for fn in _wrappers():
+    for fn in (*_wrappers(), *_bn_wrappers().values()):
         fn.launches = 0
     fi.conv_same_bias_relu.pooled_launches = 0
     ic.conv_int8.byte_launches = 0
 
 
 def all_launches() -> dict:
+    """Every wrapper's launches from Python: the served kernels' and the
+    batch norm's (each of those 0 wherever the bf16 model does not train)."""
     from tumblr_emotions_torch.ops import fused_inception as fi
 
     return {**{fn.__name__: fn.launches for fn in _wrappers()},
-            POOLED: fi.conv_same_bias_relu.pooled_launches}
+            POOLED: fi.conv_same_bias_relu.pooled_launches,
+            **{name: fn.launches for name, fn in _bn_wrappers().items()}}
+
+
+def bn_nodes(kernels: dict) -> dict:
+    """A graph's kernel nodes of the batch norm's kernels, by name."""
+    return {k: sum(n for name, n in kernels.items() if name == k) for k in BN_PER_LAYER}
+
+
+def check_bn_launches(phase: str, launches: dict, steps: int) -> None:
+    """The batch norm's launches from Python in ``launches`` are those of
+    ``steps`` train steps of the bf16 model run op by op (BN_PER_LAYER for
+    each of BN_LAYERS layers; 0 steps: none), and no served kernel ran."""
+    want = {k: n * BN_LAYERS * steps for k, n in BN_PER_LAYER.items()}
+    got = {k: launches[k] for k in BN_PER_LAYER}
+    served = {k: v for k, v in launches.items() if k not in BN_PER_LAYER and v}
+    if got != want or served:
+        fail(f"{phase}: batch norm launches {got}, expected {want} ({steps} steps); "
+             f"served kernels launched in training: {served}")
+
+
+def bn_kernels_phase(dev, smi) -> dict:
+    """Phase kernel_check bn_bf16_*: the bf16 train-mode batch norm's Triton
+    kernels (ops/batch_norm, each through its wrapper) against their plain
+    versions on the card at the tower's batch-normed conv outputs at
+    PERF_BATCH rows (BN_SHAPES; the gradient's rows at 35x35 a channel slice
+    of a wider tensor, as a block's concatenated gradient gives them): the
+    statistics and the finishing sum within BN_SUM_RTOL of the magnitudes
+    summed, the normalisation and the input gradient bit-equal given the
+    same per-channel vectors, a second launch of each bit-equal to the
+    first.  ms from Python between CUDA events and graph_ms in CUDA graphs,
+    each beside the bytes' bound.  Returns the rows by kernel."""
+    import torch
+
+    from tumblr_emotions_torch.ops import batch_norm as bn
+
+    out = {}
+    for hw, c in BN_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + hw)
+        R = PERF_BATCH * hw * hw
+        x = torch.randn(R, c, generator=gen, device=dev) * 2.0 + 0.5
+        beta = torch.randn(c, generator=gen, device=dev) * 0.1
+        wide = c + (16 if hw == 35 else 0)
+        g = bn.as_rows((torch.randn(PERF_BATCH, hw, hw, wide, generator=gen, device=dev)
+                        * 1e-3).to(torch.bfloat16)[..., :c])
+        var, mean = torch.var_mean(x, dim=0, correction=0)
+        inv = torch.rsqrt(var + 0.001)
+        shift = beta - mean * inv
+        gm = bn._masked(g, x, inv, shift)
+        gs = bn.grad_sums_plain(g, x, inv, shift, mean)
+        c1, c2 = -(inv * gs[:c]) / R, -(inv * inv * inv * gs[c:]) / R
+        _, _, per_program = bn._blocks(R, c, bn._SUM_TILE)
+        part = torch.randn(-(-R // per_program), 2 * c, generator=gen, device=dev)
+        e = R * c
+        cases = [  # kernel, call, plain, scale of a sum (None: bit-equal), bytes, flops
+            ("bn_bf16_sums", lambda: bn.sums(x), lambda: bn.sums_plain(x),
+             x.abs().sum(0), 4 * e, e),
+            ("bn_bf16_sums", lambda: bn.sums(x, mean), lambda: bn.sums_plain(x, mean),
+             bn.sums_plain(x, mean), 4 * e, 3 * e),
+            ("bn_bf16_finish", lambda: bn._finish(part), lambda: bn.finish_plain(part),
+             part.abs().sum(0), 4 * part.numel(), part.numel()),
+            ("bn_bf16_normalize", lambda: bn.normalize(x, inv, shift),
+             lambda: bn.normalize_plain(x, inv, shift), None, 6 * e, 3 * e),
+            ("bn_bf16_grad_sums", lambda: bn.grad_sums(g, x, inv, shift, mean),
+             lambda: bn.grad_sums_plain(g, x, inv, shift, mean),
+             torch.cat([gm.abs().sum(0), (gm * (x - mean)).abs().sum(0)]), 6 * e, 7 * e),
+            ("bn_bf16_grad", lambda: bn.grad(g, x, inv, shift, mean, c1, c2),
+             lambda: bn.grad_plain(g, x, inv, shift, mean, c1, c2), None, 10 * e, 9 * e)]
+        for i, (kernel, call, plain, scale, nbytes, flops) in enumerate(cases):
+            label = f"{kernel} [{PERF_BATCH},{hw},{hw},{c}]" + (" centred" if i == 1 else "")
+            got, again, want = call(), call(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{label}: two launches differ")
+            if got.dtype != want.dtype or got.shape != want.shape \
+                    or not torch.isfinite(got).all():
+                fail(f"{label}: {got.dtype} {tuple(got.shape)} against the plain "
+                     f"{want.dtype} {tuple(want.shape)}, or not finite")
+            err = (got.float() - want.float()).abs()
+            if scale is None:
+                rel = None
+                if not torch.equal(got, want):
+                    fail(f"{label}: not bit-equal to the plain version: {int((err > 0).sum())} "
+                         f"of {err.numel()} elements differ, max {err.max().item()}")
+            else:
+                rel = (err / scale.clamp_min(1e-30)).max().item()
+                if rel > BN_SUM_RTOL:
+                    fail(f"{label}: {rel} of the magnitudes summed > {BN_SUM_RTOL}")
+            b = bound(flops, nbytes, H100_F32_FLOPS)
+            ms, g_ms = cuda_ms(call), graph_ms(call)
+            row = dict(shape=label, max_abs_err=err.max().item(), max_rel_err=rel,
+                       tol=BN_SUM_RTOL if scale is not None else "bit-equal",
+                       repeat_equal=True, ms=ms, graph_ms=g_ms,
+                       pct_of_bound=100.0 * b["bound_ms"] / ms,
+                       graph_pct_of_bound=100.0 * b["bound_ms"] / g_ms,
+                       plain_ms=cuda_ms(plain, iters=5, warmup=1), library_ms=None,
+                       timing="ms, plain_ms: calls launched from Python between CUDA "
+                              "events; graph_ms: a CUDA graph of 20 calls (device time)",
+                       **b)
+            out.setdefault(kernel, []).append(row)
+            emit({"phase": "kernel_check", "kernel": kernel, **row})
+        del x, g, gm, part
+        torch.cuda.empty_cache()
+    print(smi, flush=True)
+    return out
 
 
 def main() -> int:
@@ -3842,6 +4021,9 @@ def main() -> int:
                library_ms=cuda_ms(lambda: lfn(x)), library_graph_ms=graph_ms(lambda: lfn(x)),
                library_note="the cuDNN engine's block (FusedInceptionV3._cudnn_block)", **b)
 
+    # ---- 3c. the bf16 train-mode batch norm's kernels ----
+    rows.update(bn_kernels_phase(dev, smi))
+
     # ---- 4. end to end: the served kernel path ----
     rng = np.random.RandomState(SEED)
 
@@ -3984,6 +4166,11 @@ def main() -> int:
         "maxpool3x3s2_int8": ("tumblr_emotions_torch/csrc/int8_pool.cu",
                               "experiments/pallas_pool.py:53", "cli_serve"),
     }
+    # the bf16 train-mode batch norm (Triton): no TPU kernel, XLA fuses
+    # these passes into the convs' neighbours there; launches from
+    # train_perf's fit, op by op
+    info.update({name: ("tumblr_emotions_torch/ops/batch_norm.py", None, "train_perf")
+                 for name in BN_PER_LAYER})
     kernels = []
     for name, (source, replaces, path) in info.items():
         checked = rows[name]
@@ -4013,6 +4200,19 @@ def main() -> int:
             entry["device_launches_by_path"] = {
                 p: g["device_launches"][name] for p, g in GRAPH_RUNS.items()}
             entry["graph_replays_by_path"] = {p: g["replays"] for p, g in GRAPH_RUNS.items()}
+        if name in BN_PER_LAYER:
+            # ms: calls from Python between CUDA events; graph_ms: device
+            # time in CUDA graphs; over the BN_SHAPES (the centred sums
+            # among bn_bf16_sums').  Device launches: each perf case of
+            # train_captured, the train graph's nodes times its replays
+            # with the warm-up's from Python.
+            entry["route"] = "triton"
+            entry["graph_ms"] = sum(r["graph_ms"] for r in rs)
+            entry["max_rel_err"] = max((r["max_rel_err"] or 0.0) for r in checked)
+            entry["tol"] = checked[0]["tol"]
+            entry["device_launches_by_path"] = {
+                p: r["device_launches"][name] for p, r in BN_GRAPH_RUNS.items()}
+            entry["graph_replays_by_path"] = {p: r["replays"] for p, r in BN_GRAPH_RUNS.items()}
         if name == "maxpool3x3s2_int8":
             entry["also_replaces"] = "experiments/pallas_pool.py:88"
             # graph_ms: device time in CUDA graphs over the 5 shapes; *_served:

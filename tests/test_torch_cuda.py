@@ -1601,3 +1601,100 @@ def test_dropout_on_the_card_is_the_cpu_bit_for_bit(dev, dtype, monkeypatch):
     drop = Dropout(0.8).train()
     cpu, card = drop(x), drop(x.to(dev)).cpu()
     assert card.dtype == cpu.dtype and torch.equal(card, cpu)
+
+
+# The bf16 train-mode batch norm's Triton kernels (ops/batch_norm) at the
+# tower's shapes at 128 rows, against their plain versions.
+BN_SHAPES = [(149, 32), (147, 64), (35, 288), (17, 768), (8, 2048)]
+
+
+def _bn_inputs(dev, hw, c, seed=0, slice_g=False):
+    from tumblr_emotions_torch.ops import batch_norm as bn_ops
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(128 * hw * hw, c, generator=gen, device=dev) * 2.0 + 0.5
+    beta = torch.randn(c, generator=gen, device=dev) * 0.1
+    wide = torch.randn(128, hw, hw, c + (16 if slice_g else 0), generator=gen, device=dev)
+    g = bn_ops.as_rows((wide * 1e-3).to(torch.bfloat16)[..., :c])
+    var, mean = torch.var_mean(x, dim=0, correction=0)
+    inv = torch.rsqrt(var + 0.001)
+    return x, g, mean, inv, beta - mean * inv
+
+
+def _within_summation(got, want, scale):
+    torch.cuda.synchronize()
+    assert ((got - want).abs() <= 1e-5 * scale).all(), ((got - want).abs() / scale).max().item()
+
+
+@pytest.mark.parametrize("hw,c", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(dev, hw, c):
+    """Statistics within f32 summation-order error of the plain sums; the
+    normalisation and the input gradient bit-equal given the same
+    per-channel vectors; two launches bit-equal."""
+    from tumblr_emotions_torch.ops import batch_norm as bn_ops
+
+    x, g, mean, inv, shift = _bn_inputs(dev, hw, c, slice_g=hw == 35)
+    assert (g.stride(0) == c + 16) == (hw == 35)
+    s = bn_ops.sums(x)
+    _within_summation(s, bn_ops.sums_plain(x), x.abs().sum(0))
+    q = bn_ops.sums(x, mean)
+    _within_summation(q, bn_ops.sums_plain(x, mean), bn_ops.sums_plain(x, mean))
+    out = bn_ops.normalize(x, inv, shift)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, bn_ops.normalize_plain(x, inv, shift))
+    gs = bn_ops.grad_sums(g, x, inv, shift, mean)
+    gm = bn_ops._masked(g, x, inv, shift)
+    scale = torch.cat([gm.abs().sum(0), (gm * (x - mean)).abs().sum(0)])
+    _within_summation(gs, bn_ops.grad_sums_plain(g, x, inv, shift, mean), scale)
+    n = x.shape[0]
+    c1, c2 = -(inv * gs[:c]) / n, -(inv * inv * inv * gs[c:]) / n
+    gy = bn_ops.grad(g, x, inv, shift, mean, c1, c2)
+    assert gy.dtype == torch.float32
+    assert torch.equal(gy, bn_ops.grad_plain(g, x, inv, shift, mean, c1, c2))
+    again = (bn_ops.sums(x), bn_ops.sums(x, mean), bn_ops.normalize(x, inv, shift),
+             bn_ops.grad_sums(g, x, inv, shift, mean), bn_ops.grad(g, x, inv, shift, mean, c1, c2))
+    assert all(torch.equal(a, b) for a, b in zip(again, (s, q, out, gs, gy)))
+
+
+def test_batch_norm_kernels_keep_subnormal_products(dev):
+    """2^-64 x 2^-64 is an f32 subnormal, kept as PyTorch's kernels keep it
+    (libdevice's mul_rn would flush it to 0 under Triton's FTZ setting)."""
+    from tumblr_emotions_torch.ops import batch_norm as bn_ops
+
+    x = torch.full((4096, 16), 2.0 ** -64, device=dev)
+    inv, shift = torch.full((16,), 2.0 ** -64, device=dev), torch.zeros(16, device=dev)
+    out = bn_ops.normalize(x, inv, shift)
+    assert torch.equal(out, bn_ops.normalize_plain(x, inv, shift))
+    assert out[0, 0].item() == 2.0 ** -128
+
+
+def test_batch_norm_kernels_refuse_what_they_do_not_take(dev):
+    from tumblr_emotions_torch.ops import batch_norm as bn_ops
+
+    x, g, mean, inv, shift = _bn_inputs(dev, 8, 64)
+    with pytest.raises(ValueError):
+        bn_ops.normalize(x.to(torch.bfloat16), inv, shift)    # x must be f32
+    with pytest.raises(ValueError):
+        bn_ops.normalize(x, inv[:32], shift)                  # [C] vectors
+    with pytest.raises(ValueError):
+        bn_ops.grad_sums(g.float(), x, inv, shift, mean)      # g must be bf16
+
+
+def test_captured_perf_train_steps_equal_eager_on_the_card(dev):
+    """Four bf16 (perf) steps of fit captured bit-equal to four eager ones,
+    every batch-normed conv through the fused step: its eight kernels a
+    layer in the graph, and 96 normalisations launched a forward eagerly."""
+    from tumblr_emotions_torch.ops import batch_norm as bn_ops
+
+    cfg = _train_cfg("joint")
+    cfg = cfg.replace(image=cfg.image.replace(dropout_keep_prob=0.8),
+                      train=cfg.train.replace(precision_mode="perf"))
+    batches = [_train_batch(cfg, seed) for seed in range(4)]
+    state = _train_init(cfg)
+    before = bn_ops.normalize.launches
+    tr_e, ts_e = _fit_compiled(cfg, state, batches, dev, eager=True)
+    assert bn_ops.normalize.launches - before == 4 * 96
+    tr_c, ts_c = _fit_compiled(cfg, state, batches, dev, eager=False)
+    _same_train_state(ts_c, ts_e)
+    (graph,) = tr_c._programs["train"].kernel_nodes()
+    fused = {k: n for k, n in graph["kernels"].items() if "bn_bf16_" in k}
+    assert sum(fused.values()) == 8 * 96, fused

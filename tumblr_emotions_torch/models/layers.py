@@ -60,6 +60,20 @@ keeps these roundings and drops the others, and the port follows it:
   bf16 and sums the window back in bf16, tap by tap, as its forward does
   (:class:`_Bf16AvgPool`).
 
+A batch-normed conv with a ReLU and no bias or scale (every one of the
+tower's) runs in bf16 train mode as one autograd step,
+:class:`_Bf16ConvBNReLU`, with those roundings at the same places: the
+conv's f32 output goes to the batch norm's kernels (``ops/batch_norm``:
+Triton on the card, their plain versions on the CPU), which sum its
+statistics and write ``relu(bf16(x * inv + shift))`` in one more pass; the
+backward recomputes the ReLU's mask from that output, sums the gradient's
+statistics, and writes the normalisation path's and the statistics path's
+gradients each rounded to bf16 and their sum rounded again, held in f32,
+which is what the conv's backward takes: its own rounding of the incoming
+gradient has nothing left to do and is not run.  :class:`SlimBatchNorm`,
+:func:`round_grad` and :class:`_Bf16Conv` compute every other layer, and
+every layer in f32 and in eval mode.
+
 Under data parallelism each :class:`SlimBatchNorm` of the model is given
 the process group (:func:`set_data_parallel`): its statistics are then
 those of the global batch, as under the reference's pjit, through an
@@ -77,7 +91,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from tumblr_emotions_torch._device import tf32_convs
-from tumblr_emotions_torch.parallel.distributed import all_reduce
+from tumblr_emotions_torch.ops import batch_norm as bn_ops
+from tumblr_emotions_torch.parallel.distributed import all_reduce, all_reduce_
 
 
 def set_data_parallel(model: nn.Module, group=None, rank: int = 0, world: int = 1) -> None:
@@ -382,6 +397,10 @@ class ConvBN(nn.Module):
             if use_bn else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bn = self.BatchNorm
+        if (self.dtype == torch.bfloat16 and bn is not None and bn.training
+                and bn.gamma is None and self.biases is None and self.relu):
+            return _Bf16ConvBNReLU.apply(x, self.weights, bn.beta, bn, self.strides, self.pad)
         y = self.unrounded(x).to(self.dtype)
         return torch.relu(y) if self.relu else y
 
@@ -402,6 +421,69 @@ class ConvBN(nn.Module):
         if self.BatchNorm is not None:
             y = self.BatchNorm(y)
         return y
+
+
+class _Bf16ConvBNReLU(torch.autograd.Function):
+    """:class:`ConvBN` in bf16 train mode (conv, batch norm with the batch's
+    statistics and no scale, rounding to bf16, ReLU) as one step: the conv
+    as :class:`_Bf16Conv` runs it, the batch norm's passes in the kernels of
+    ``ops/batch_norm`` (Triton on the card, their plain versions on the
+    CPU), the per-channel arithmetic in PyTorch as :class:`SlimBatchNorm`
+    does it.  The same roundings as the unfused layers (module docstring):
+    the norm's output rounded once; in the backward the ReLU's mask from
+    that output, the gradient's normalisation path and statistics path each
+    rounded to bf16 and their sum rounded, which is the conv's incoming
+    gradient as it is.  With a process group, the statistics' two sums and
+    the backward's two sums are all-reduced, four all-reduces a layer as
+    :class:`SlimBatchNorm`'s autograd all-reduces make.  ``conv_f32_accumulate``
+    and ``conv_f32_backward`` are looked up when called, so
+    ``train/noise_floor.float64_accumulation`` swaps them here too."""
+
+    @staticmethod
+    def forward(ctx, x, w, beta, bn, strides, pad):
+        xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+        y = conv_f32_accumulate(xb, wb, strides, pad)
+        rows, group = y.view(-1, y.shape[-1]), bn.group
+        n = rows.shape[0] * (1 if group is None else torch.distributed.get_world_size(group))
+        # the mean, then the centred squares' sums about it, each summed
+        # over the group's global batch as SlimBatchNorm.batch_moments sums
+        s = bn_ops.sums(rows)
+        if group is not None:
+            all_reduce_(s, group, kind="batch_norm")
+        mean = s / n
+        q = bn_ops.sums(rows, mean)
+        if group is not None:
+            all_reduce_(q, group, kind="batch_norm")
+        var = q / n
+        m = bn.momentum
+        bn.moving_mean.copy_(m * bn.moving_mean + (1.0 - m) * mean)
+        bn.moving_variance.copy_(m * bn.moving_variance + (1.0 - m) * var)
+        inv = torch.rsqrt(var + bn.epsilon)
+        shift = beta - mean * inv
+        ctx.save_for_backward(xb, wb, y, mean, inv, shift)
+        ctx.conf = (tuple(strides), tuple(pad), x.dtype, w.dtype, group, n)
+        return bn_ops.normalize(rows, inv, shift).view(y.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb, y, mean, inv, shift = ctx.saved_tensors
+        strides, pad, x_dtype, w_dtype, group, n = ctx.conf
+        rows, g = y.view(-1, y.shape[-1]), bn_ops.as_rows(g)
+        C = rows.shape[1]
+        s = bn_ops.grad_sums(g, rows, inv, shift, mean)
+        dbeta = s[:C]
+        if group is not None:
+            dbeta = dbeta.clone()        # beta's own gradient is the process's
+            all_reduce_(s[:C], group, kind="batch_norm")
+            all_reduce_(s[C:], group, kind="batch_norm")
+        c1 = -(inv * s[:C]) / n
+        c2 = -(inv * inv * inv * s[C:]) / n
+        gy = bn_ops.grad(g, rows, inv, shift, mean, c1, c2).view(y.shape)
+        gx, gw = conv_f32_backward(gy, xb, wb, strides, pad,
+                                   ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        return (None if gx is None else gx.to(x_dtype),
+                None if gw is None else gw.to(w_dtype),
+                dbeta if ctx.needs_input_grad[2] else None, None, None, None)
 
 
 class Dense(nn.Module):
